@@ -1,0 +1,215 @@
+"""The batched multi-network VQ-VAE, forward subset (the port of the
+inference half of `pgmvae_tpu/models/vqvae.py`).
+
+`n_var` independent dense autoencoders run as ONE model: every parameter
+leaf carries a leading `n_var` axis and each dense layer is one
+`torch.baddbmm` of `[n,B,i]` by `[n,i,o]`. Params keep the JAX pytree
+layout as a plain dict of tensors, `{'enc': [(w, b), ...], 'dec': [...]}`,
+with the codebook `[n, D, K]` beside it.
+
+Leave-one-out uses the JAX package's padded masked design: every network
+sees the full sample y [B, n_var] with its own variable's input multiplied
+by zero, so the first/last stacked kernels are full [n, n, u] and their
+diagonal rows/columns are inert.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from pgmvae_tpu_torch import resolve_device
+from pgmvae_tpu_torch.ops import initializers as pinit
+from pgmvae_tpu_torch.ops import quantizer as q
+
+
+class VqVaeConfig(NamedTuple):
+    """Exactly the fields and defaults of the JAX package's VqVaeConfig
+    (checkpoint headers store `cfg._asdict()`)."""
+    n_var: int
+    units: Tuple[int, ...]       # hidden widths (encoder order)
+    dim: int                     # latent / embedding dimension D
+    num_codes: int               # codebook size K
+    cost: float = 0.25           # commitment cost beta
+    decay: float = 0.99          # EMA decay gamma
+    quantizer: str = 'ema'       # 'ema' | 'vq' | 'naive'
+    zero_debias: bool = True     # TF assign_moving_average default
+    epsilon: float = 1e-5        # EMA Laplace smoothing
+    dead_code_threshold: float = 0.0  # >0: restart codes with EMA usage < t
+    fan_mode: str = 'tf_stacked'
+    dtype: str = 'float32'
+    vq_impl: str = 'auto'   # 'auto' | 'xla' | 'pallas' | 'pallas_interpret'
+    matmul_precision: str = 'default'  # jax.default_matmul_precision name
+    activation: str = 'selu'     # hidden activation
+    l2_reg: float = 0.0          # L2 penalty on dense kernels
+    n_active: Optional[int] = None  # true variable count when n_var is
+    #                              padded; networks/columns >= n_active are
+    #                              inert and sliced out of stage-2 counts
+    compute_dtype: str = 'f32'   # 'f32' | 'bf16' (training only)
+    first_layer: str = 'masked'  # 'masked' | 'rank1' | 'auto'
+
+    @property
+    def effective_codes(self) -> int:
+        """Number of discrete codes stage 2 counts over."""
+        return 2 ** self.dim if self.quantizer == 'naive' else self.num_codes
+
+    @property
+    def active_vars(self) -> int:
+        """True (unpadded) variable count."""
+        return self.n_active if self.n_active is not None else self.n_var
+
+
+ACTIVATIONS = {
+    'selu': F.selu,
+    'relu': F.relu,
+    'gelu': lambda x: F.gelu(x, approximate='tanh'),   # jax.nn.gelu default
+    'elu': F.elu,
+    'tanh': torch.tanh,
+    'sigmoid': torch.sigmoid,
+    'linear': lambda x: x,
+}
+
+
+def activation_fn(name: str):
+    try:
+        return ACTIVATIONS[name]
+    except KeyError:
+        raise ValueError(f'unknown activation {name!r}; '
+                         f'choose from {sorted(ACTIVATIONS)}') from None
+
+
+def _layer_dims(cfg: VqVaeConfig):
+    # padded layout: first input and last output are full n_var wide; the
+    # diagonal row/column of those stacked kernels is inert (see module doc)
+    enc_in = (cfg.n_var,) + tuple(cfg.units)
+    enc_out = tuple(cfg.units) + (cfg.dim,)
+    dec_in = (cfg.dim,) + tuple(reversed(cfg.units))
+    dec_out = tuple(reversed(cfg.units)) + (cfg.n_var,)
+    return tuple(zip(enc_in, enc_out)), tuple(zip(dec_in, dec_out))
+
+
+def loo_mask(n_var: int, var_ids: Optional[torch.Tensor] = None,
+             dtype=torch.float32, n_active: Optional[int] = None,
+             device=None) -> torch.Tensor:
+    """Leave-one-out mask [F, 1, n_var]: 0 at each selected network's own
+    variable, 1 elsewhere. With `n_active < n_var`, columns >= n_active and
+    whole rows for networks >= n_active are zeroed too. The mask lands on
+    `var_ids`' device, else on `device`."""
+    if var_ids is not None:
+        device = var_ids.device
+    else:
+        device = resolve_device(device)
+    col = torch.arange(n_var, device=device).view(1, 1, n_var)
+    if var_ids is None:
+        rows = torch.arange(n_var, device=device).view(n_var, 1, 1)
+    else:
+        rows = var_ids.long().view(-1, 1, 1)
+    keep = col != rows
+    if n_active is not None and n_active < n_var:
+        keep = keep & (col < n_active) & (rows < n_active)
+    return keep.to(dtype)
+
+
+def init_model(generator: torch.Generator, cfg: VqVaeConfig, device=None):
+    """Build (params, codebook) on `device` from `generator`: he_uniform for
+    the selu layers, glorot_uniform for the sigmoid output, a
+    VarianceScaling-uniform codebook, zero biases, all with the stacked fan
+    semantics of `cfg.fan_mode`. The codebook is None for the naive
+    quantizer."""
+    device = resolve_device(device)
+    dtype = getattr(torch, cfg.dtype)
+    enc_dims, dec_dims = _layer_dims(cfg)
+
+    def dense(i, o, init_fn):
+        w = init_fn(generator, (cfg.n_var, i, o), fan_mode=cfg.fan_mode,
+                    dtype=dtype, device=device)
+        b = torch.zeros((cfg.n_var, 1, o), dtype=dtype, device=device)
+        return (w, b)
+
+    enc = [dense(i, o, pinit.he_uniform) for i, o in enc_dims]
+    dec = []
+    for li, (i, o) in enumerate(dec_dims):
+        is_last = li == len(dec_dims) - 1
+        init_fn = pinit.glorot_uniform if is_last else pinit.he_uniform
+        dec.append(dense(i, o, init_fn))
+    params = {'enc': enc, 'dec': dec}
+
+    if cfg.quantizer == 'naive':
+        codebook = None
+    else:
+        codebook = pinit.variance_scaling_uniform(
+            generator, (cfg.n_var, cfg.dim, cfg.num_codes), scale=1.0,
+            mode='fan_in', fan_mode=cfg.fan_mode, dtype=dtype, device=device)
+    return params, codebook
+
+
+def _dense_stack(layers, x, activation):
+    """Apply a stack of batched dense layers: [n,B,i] x [n,i,o] + [n,1,o]."""
+    for w, b in layers:
+        x = activation(torch.baddbmm(b, x, w))
+    return x
+
+
+# 'auto' switches the first layer to rank1 only when the masked design's
+# [n, B, n] f32 buffer would exceed this many bytes (the JAX package's rule).
+FIRST_LAYER_RANK1_BYTES = 4 << 30
+
+
+def _first_layer_rank1(w0, b0, y, act):
+    """First encoder layer without materializing the [n, B, n] masked input:
+    act(sum_i y_i W[v,i,o] - y_v W[v,v,o] + b), one matmul shared by all n
+    networks plus a rank-1 diagonal correction."""
+    base = torch.matmul(y, w0)                                       # [n,B,o]
+    diag = torch.diagonal(w0, dim1=0, dim2=1).T                      # [n,o]
+    return act(base - y.T[:, :, None] * diag[:, None, :] + b0)
+
+
+def encode(params, y: torch.Tensor,
+           var_ids: Optional[torch.Tensor] = None,
+           activation: str = 'selu',
+           first_layer: str = 'masked') -> torch.Tensor:
+    """Samples y [B, n_var] (or [F, B, n_var], one state per selected
+    network) -> latents z [F, B, D]. Network f sees y with its own
+    variable's input masked to zero. `var_ids` selects a subset of networks;
+    params must already be gathered to match (see gather_variables)."""
+    w0 = params['enc'][0][0]
+    n_var = w0.shape[1]
+    act = activation_fn(activation)
+    # rank1 needs the shared-sample layout (the per-network-state [F,B,n]
+    # case and explicit var_ids subsets keep the masked path)
+    if var_ids is None and y.dim() == 2 and (
+            first_layer == 'rank1'
+            or (first_layer == 'auto'
+                and 4 * n_var * y.shape[0] * n_var
+                > FIRST_LAYER_RANK1_BYTES)):
+        x = _first_layer_rank1(w0, params['enc'][0][1], y, act)
+        return _dense_stack(params['enc'][1:], x, act)
+    mask = loo_mask(n_var, var_ids, y.dtype, device=y.device)
+    x = (y[None, :, :] if y.dim() == 2 else y) * mask
+    return _dense_stack(params['enc'], x, act)
+
+
+def encode_codes(params, codebook, y: torch.Tensor, cfg: VqVaeConfig,
+                 var_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Encoder + quantizer only -> code indices [F, B] int32."""
+    with torch.no_grad():
+        z = encode(params, y, var_ids, cfg.activation, cfg.first_layer)
+        if cfg.quantizer == 'naive':
+            return q.naive_codes(z)
+        return q.vq_codes(z, codebook, impl=cfg.vq_impl)
+
+
+def map_params(fn, params):
+    """Apply `fn` to every leaf of a params dict, keeping its layout."""
+    return {name: [tuple(fn(p) for p in layer) for layer in stack]
+            for name, stack in params.items()}
+
+
+def gather_variables(params, codebook, fts: torch.Tensor):
+    """Select a subset of the independent networks by variable index: one
+    `index_select` on axis 0 per leaf."""
+    idx = fts.long()
+    sub = map_params(lambda p: p.index_select(0, idx), params)
+    return sub, None if codebook is None else codebook.index_select(0, idx)

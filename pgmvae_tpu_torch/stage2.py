@@ -1,0 +1,235 @@
+"""Stage 2: conditional probability tables from discrete codes, and
+pseudo-log-likelihood (PLL) — the port of `pgmvae_tpu/stage2.py`.
+
+  n1[v,k] = #{samples b : code_v(x_{b,-v}) = k and y[b,v] = 1}
+  n0[v,k] = likewise with y[b,v] = 0
+  cpt     = (n1 + 0.8) / (n1 + n0 + 1.6)
+  PLL(split) = sum_{v,k} n1*log(dist+1e-5) + n0*log(1-dist+1e-5)  / N_split
+
+where `dist` is always the CPT estimated on the train split.
+
+The split is uploaded once, padded to whole fixed-size chunks with weight-0
+rows (exact no-ops in the counts). Each chunk is one encoder pass, one
+nearest-code kernel launch, and a count update: a one-hot `torch.bmm`, or an
+`index_add_` past SCATTER_COLS of joint width. Counts are integers < 2^24,
+exact in f32 under any summation order, so they accumulate in f32 on the
+device and are finished in float64 on the host, like the JAX package's.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from pgmvae_tpu_torch import resolve_device
+from pgmvae_tpu_torch.models import vqvae
+
+SMOOTHING = 0.8     # reference core/model.py:88
+LOG_EPS = 1e-5      # reference core/model.py:93-94
+NAIVE_STAGE2_MAX_DIM = 20   # naive quantizer: 2^dim count columns; past
+#                             ~1M columns the [n_var, 2^dim] tables stop
+#                             being a sane tabulation
+SCATTER_COLS = 8192     # joint table width K * 2^m past which counting
+#                         switches from the one-hot bmm to index_add_: the
+#                         bmm must materialize a [n_var, B, K*2^m] one-hot,
+#                         the scatter touches only the [n_var, B] codes
+MAX_COUNT_BYTES = 6 << 30   # refuse joint tables whose TWO [n_var, K*2^m]
+#                             f32 count buffers exceed this
+
+
+def mutual_information_matrix(y: np.ndarray) -> np.ndarray:
+    """Pairwise mutual information [n, n] of binary columns, from the 2x2
+    joint tables that one [n, n] matmul gives."""
+    y = np.asarray(y, np.float64)
+    n_samples = max(y.shape[0], 1)
+    p1 = y.mean(axis=0)
+    p11 = (y.T @ y) / n_samples
+    p10 = np.clip(p1[:, None] - p11, 0.0, 1.0)
+    p01 = np.clip(p1[None, :] - p11, 0.0, 1.0)
+    p00 = np.clip(1.0 - p11 - p10 - p01, 0.0, 1.0)
+    mi = np.zeros_like(p11)
+    for pab, pa, pb in ((p11, p1, p1), (p10, p1, 1.0 - p1),
+                        (p01, 1.0 - p1, p1), (p00, 1.0 - p1, 1.0 - p1)):
+        denom = np.maximum(pa[:, None] * pb[None, :], 1e-12)
+        mi += pab * (np.log(np.maximum(pab, 1e-12)) - np.log(denom))
+    return mi
+
+
+def select_parents(y_train: np.ndarray, m: int) -> np.ndarray:
+    """Per-variable CPT parents: the m OTHER variables with the highest
+    train-split mutual information with each variable, [n, m] int32. The
+    CPT becomes p(y_v=1 | k, y_par) with K * 2^m tied cells per variable;
+    parents are a function of x_{-v}, so the PLL stays a legal PLL."""
+    mi = mutual_information_matrix(y_train)
+    np.fill_diagonal(mi, -np.inf)
+    order = np.argsort(-mi, axis=1)[:, :m]
+    return np.ascontiguousarray(order.astype(np.int32))
+
+
+def auto_chunk(n_var: int, num_codes: int, budget_bytes: int = 1 << 27) -> int:
+    """Chunk size bounding per-chunk device buffers (the masked input stack
+    [n_var, chunk, n_var], the one-hot [n_var, chunk, K] and the widest
+    hidden activation) to ~128 MB; between 32 and 4096 rows."""
+    per_row = max(1, n_var * (n_var + num_codes + 256) * 4)
+    return int(max(32, min(4096, budget_bytes // per_row)))
+
+
+class Stage2:
+    """Counts, CPT and PLL of one model configuration on `device`."""
+
+    def __init__(self, cfg: vqvae.VqVaeConfig, chunk: Optional[int] = None,
+                 parents: Optional[np.ndarray] = None,
+                 scatter: Optional[bool] = None, device=None):
+        self.device = resolve_device(device)
+        self.cfg = cfg
+        self.k = cfg.effective_codes
+        if cfg.quantizer == 'naive' and cfg.dim > NAIVE_STAGE2_MAX_DIM:
+            raise ValueError(
+                f"quantizer='naive' counts over 2^dim = 2**{cfg.dim} stage-2 "
+                f"code columns per variable; dim > {NAIVE_STAGE2_MAX_DIM} "
+                f"cannot be tabulated (use dim <= {NAIVE_STAGE2_MAX_DIM} or "
+                f"a finite-codebook quantizer)")
+        # joint-code CPTs: condition each variable's table on its code AND
+        # the observed values of `parents` [active_vars, m] partner
+        # variables (see select_parents) -> counts become [n, K, 2^m]
+        self.parents = None
+        self.n_states = 1
+        if parents is not None and parents.size:
+            parents = np.asarray(parents, np.int32)
+            m = parents.shape[1]
+            if not 0 < m <= 12:    # 2^m multiplies every count buffer
+                raise ValueError(f'cpt parents per variable must be in '
+                                 f'[1, 12], got {m}')
+            if parents.shape[0] < cfg.n_var:     # padded variable axis:
+                parents = np.pad(                # inert rows point at var 0
+                    parents,
+                    ((0, cfg.n_var - parents.shape[0]), (0, 0)))
+            self.parents = torch.as_tensor(parents, dtype=torch.long,
+                                           device=self.device)
+            self.n_states = 1 << m
+        cols = self.k * self.n_states
+        if 2 * cfg.n_var * cols * 4 > MAX_COUNT_BYTES:
+            raise ValueError(
+                f'joint-code CPT needs two [n_var={cfg.n_var}, '
+                f'K*2^m={cols}] f32 count buffers '
+                f'({2 * cfg.n_var * cols * 4 / 2**30:.1f} GiB) — past the '
+                f'{MAX_COUNT_BYTES / 2**30:.0f} GiB budget; '
+                f'use fewer parents or a smaller codebook')
+        self.scatter = (cols > SCATTER_COLS) if scatter is None else scatter
+        # the chunk budget sees the joint width unless the scatter path
+        # never materializes the one-hot
+        self.chunk = int(chunk or auto_chunk(
+            cfg.n_var, self.k if self.scatter else cols))
+
+    def _count_chunk(self, params, codebook, n1, n0, yb, wb):
+        """One fixed-shape chunk: yb [chunk, n_var], wb [chunk] validity
+        weights (0 on padded rows); adds into n1/n0 [n_var, K * n_states]
+        in place."""
+        cfg = self.cfg
+        codes = vqvae.encode_codes(params, codebook, yb, cfg).long()  # [n,B]
+        if self.parents is not None:
+            # parent-state index j[v,b] = binary word of the sample's
+            # values at v's parents; joint cell = code * 2^m + j
+            vals = yb[:, self.parents].long()                  # [B, n, m]
+            pw = 1 << torch.arange(self.parents.shape[1], device=yb.device)
+            codes = codes * self.n_states + (vals * pw).sum(-1).T
+        y1 = yb.T * wb[None, :]                                # [n, B]
+        y0 = (1.0 - yb.T) * wb[None, :]
+        if self.scatter:
+            cols = n1.shape[1]
+            rows = torch.arange(cfg.n_var, device=yb.device)[:, None]
+            flat = (rows * cols + codes).reshape(-1)
+            n1.view(-1).index_add_(0, flat, y1.reshape(-1))
+            n0.view(-1).index_add_(0, flat, y0.reshape(-1))
+        else:
+            onehot = torch.zeros(codes.shape + (n1.shape[1],),
+                                 dtype=yb.dtype, device=yb.device)
+            onehot.scatter_(2, codes[:, :, None], 1.0)         # [n, B, K*J]
+            n1 += torch.bmm(y1[:, None, :], onehot)[:, 0]
+            n0 += torch.bmm(y0[:, None, :], onehot)[:, 0]
+
+    def counts(self, params, codebook, y_host: np.ndarray
+               ) -> Tuple[np.ndarray, np.ndarray]:
+        """Dataset code/label co-occurrence counts as float64
+        [active_vars, K] ([active_vars, K, 2^m] with parents). Accepts
+        true-width samples when the model's variable axis is padded."""
+        cfg, chunk = self.cfg, self.chunk
+        y = np.asarray(y_host, np.float32)
+        n = y.shape[0]
+        rows = max(1, -(-n // chunk)) * chunk
+        yp = np.zeros((rows, cfg.n_var), np.float32)
+        yp[:n, :y.shape[1]] = y                 # padded variable axis too
+        wp = np.zeros(rows, np.float32)
+        wp[:n] = 1.0
+        yd = torch.from_numpy(yp).to(self.device)
+        wd = torch.from_numpy(wp).to(self.device)
+        cols = self.k * self.n_states
+        n1 = torch.zeros((cfg.n_var, cols), dtype=torch.float32,
+                         device=self.device)
+        n0 = torch.zeros_like(n1)
+        with torch.no_grad():
+            for start in range(0, rows, chunk):
+                self._count_chunk(params, codebook, n1, n0,
+                                  yd[start:start + chunk],
+                                  wd[start:start + chunk])
+        na = cfg.active_vars                # padding networks sliced away
+        n1 = n1.cpu().numpy().astype(np.float64)[:na]
+        n0 = n0.cpu().numpy().astype(np.float64)[:na]
+        if self.parents is not None:        # [na, K, 2^m] joint-code tables
+            n1 = n1.reshape(na, self.k, self.n_states)
+            n0 = n0.reshape(na, self.k, self.n_states)
+        return n1, n0
+
+    def cpt(self, params, codebook, y_train: np.ndarray) -> np.ndarray:
+        """Smoothed conditional probability table p(y_v=1 | code=k),
+        float64 [n_var, K]."""
+        n1, n0 = self.counts(params, codebook, y_train)
+        return (n1 + SMOOTHING) / (n1 + n0 + 2 * SMOOTHING)
+
+    def pseudo_log_likelihood(self, params, codebook, y_host: np.ndarray,
+                              dist: np.ndarray) -> float:
+        """Average per-sample PLL of a split under `dist` (counts from this
+        split, `dist` from train)."""
+        return self.pll_detail(params, codebook, y_host, dist)[0]
+
+    def pll_detail(self, params, codebook, y_host: np.ndarray,
+                   dist: np.ndarray) -> Tuple[float, np.ndarray]:
+        """(split PLL, per-variable contributions [active_vars] float64);
+        the scalar is the vector's sum."""
+        n1, n0 = self.counts(params, codebook, y_host)
+        lp1 = np.log(dist + LOG_EPS)
+        lp0 = np.log(1.0 - dist + LOG_EPS)
+        terms = n1 * lp1 + n0 * lp0
+        per_var = terms.reshape(terms.shape[0], -1).sum(1) / y_host.shape[0]
+        return float(per_var.sum()), per_var
+
+
+def compose_mixed_cpt(dists: dict, parents_by_m: dict, sel_ms
+                      ) -> Tuple[np.ndarray, Optional[np.ndarray]]:
+    """Compose per-variable winner tables (one M per variable) into ONE
+    uniform-width joint-code CPT [n, K, 2^m_max] with parents [n, m_max];
+    (dists[0], None) when every variable chose m == 0.
+
+    Exact: each variable's [K, 2^m] block is tiled along the word axis, so
+    entry [k, w] = original [k, w mod 2^m]; the low m bits are the
+    variable's own parent word and the padding slots never change the
+    looked-up value."""
+    sel_ms = np.asarray(sel_ms, np.int32)
+    n = sel_ms.shape[0]
+    m_max = int(sel_ms.max(initial=0))
+    if m_max == 0:
+        return np.asarray(dists[0], np.float64), None
+    k = next(iter(dists.values())).shape[1]
+    dist = np.empty((n, k, 1 << m_max), np.float64)
+    parents = np.zeros((n, m_max), np.int32)
+    for v in range(n):
+        m = int(sel_ms[v])
+        tab = np.asarray(dists[m][v], np.float64).reshape(k, -1)  # [K, 2^m]
+        dist[v] = np.tile(tab, (1, (1 << m_max) >> m))
+        if m:
+            parents[v, :m] = parents_by_m[m][v, :m]
+        if m < m_max:           # inert slots: any non-self variable works
+            parents[v, m:] = 0 if v != 0 else 1
+    return dist, parents
