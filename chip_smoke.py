@@ -5,13 +5,17 @@ Run from the root of a checkout, with no arguments:
 
     python3 chip_smoke.py
 
-It builds the port's CUDA kernel from the sources in the checkout, holds the
-kernel against its plain PyTorch version at the shapes of the main path,
-drives the serving slice (stage-2 CPT/PLL and PgmModel) at the full width of
-the bbc model, and checks what comes out. Each phase prints one JSON line;
-any failed check raises, so the script exits non-zero. The last three lines
-are the kernel summary, the card's name and power limit as nvidia-smi gives
-them, and `{"ok": true, "device": {...}}`.
+It builds the port's two CUDA kernels (the nearest-code search and the Adam
+update, one nvcc each, started together) from the sources in the checkout,
+holds each kernel against its plain PyTorch version at the shapes of the
+main paths, and drives both halves of the system at the full width of the
+bbc model: the serving slice (stage-2 CPT/PLL and PgmModel) and stage-1
+training (Trainer.fit, 14 steps), each with the kernels' launch counts set
+to 0 just before it and read just after; then the command line end to end
+on nltcs-shaped data. Each phase prints one JSON line; any failed check
+raises, so the script exits non-zero. The last three lines are the kernel
+summary, the card's name and power limit as nvidia-smi gives them, and
+`{"ok": true, "device": {...}}`.
 
 Without a CUDA device it exits non-zero and prints no result.
 """
@@ -19,9 +23,12 @@ Without a CUDA device it exits non-zero and prints no result.
 from __future__ import annotations
 
 import json
+import os
 import subprocess
 import sys
+import tempfile
 import time
+from concurrent.futures import ThreadPoolExecutor
 from unittest import mock
 
 import numpy as np
@@ -31,12 +38,20 @@ SEED = 0
 FP32_FLOPS = 67e12      # H100 SXM, fp32 outside the tensor cores
 HBM_BYTES = 3.35e12     # H100 SXM device memory rate
 NEAR_TIE_REL = 1e-5
-# (n, B, D, K): the four shapes of tests/test_pallas_vq.py, the slice's own
-# (a stage-2 chunk and the bbc test split served at once), one large K
+# (n, B, D, K): the four shapes of tests/test_pallas_vq.py, the slices' own
+# (a stage-2 chunk, the bbc test split served at once, a bbc train batch),
+# one large K
 KERNEL_SHAPES = [(3, 9, 5, 7), (5, 32, 8, 130), (4, 17, 10, 50),
                  (2, 64, 16, 1024), (1058, 32, 20, 50), (1058, 330, 20, 50),
-                 (1058, 256, 20, 4096)]
+                 (1058, 250, 20, 50), (1058, 256, 20, 4096)]
 MAIN_SHAPE = (1058, 32, 20, 50)   # the stage-2 chunk: most main-path launches
+# Adam leaves: the shapes of tests/test_fused_adam.py, bbc's three kinds of
+# weight leaf (first/last layer, hidden layer, a bias), and one leaf whose
+# pointer is not 16-byte aligned (the kernel's scalar path)
+ADAM_SHAPES = [(7, 9, 5), (7, 5, 5), (3, 4), (11,), (1058, 1058, 111),
+               (1058, 111, 111), (1058, 1, 111)]
+ADAM_STEPS = 3
+LR, EPS = 0.003, 1e-7
 
 
 def emit(phase: str, **fields) -> None:
@@ -116,22 +131,45 @@ def phase_device() -> str:
     return smi
 
 
+def _ptxas(log_path) -> dict:
+    """ptxas register and spill lines by kernel entry, from a build log
+    (absent when the library was already built)."""
+    out, entry = {}, None
+    if not log_path.exists():
+        return out
+    for line in log_path.read_text().splitlines():
+        if 'Compiling entry function' in line:
+            entry = line.split("'")[1]
+        elif entry and ('Used' in line or 'spill' in line):
+            out.setdefault(entry, []).append(line.split(':', 1)[-1].strip())
+    return out
+
+
 def phase_build():
-    from pgmvae_tpu_torch.ops import cuda_vq
+    """Both kernels' builds, one nvcc each, started together."""
+    from pgmvae_tpu_torch.ops import cuda_vq, fused_adam
+
+    def timed(module):
+        t0 = time.time()
+        module.build()
+        return time.time() - t0
+
     t0 = time.time()
-    cuda_vq.build()
-    seconds = time.time() - t0
-    log = cuda_vq.library_path().with_suffix('.log')
-    ptxas, dpad = {}, None
-    if log.exists():          # absent when the library was already built
-        for line in log.read_text().splitlines():
-            if 'Compiling entry function' in line and 'kernelILi' in line:
-                dpad = line.split('kernelILi')[1].split('E')[0]
-            elif dpad and ('Used' in line or 'spill' in line):
-                ptxas.setdefault(dpad, []).append(line.split(':', 1)[-1]
-                                                  .strip())
-    emit('build', seconds=seconds, library=str(cuda_vq.library_path().name),
-         ptxas_dpad24=ptxas.get('24'), ptxas_dpad128=ptxas.get('128'))
+    with ThreadPoolExecutor(max_workers=2) as pool:
+        futures = {name: pool.submit(timed, module) for name, module in
+                   (('vq_argmin', cuda_vq), ('adam', fused_adam))}
+        seconds = {name: f.result() for name, f in futures.items()}
+    vq = _ptxas(cuda_vq.library_path().with_suffix('.log'))
+    dpad = {e.split('kernelILi')[1].split('E')[0]: lines
+            for e, lines in vq.items() if 'kernelILi' in e}
+    adam = {('vector' if 'ILb1E' in e else 'scalar'): lines
+            for e, lines in _ptxas(
+                fused_adam.library_path().with_suffix('.log')).items()}
+    emit('build', seconds=seconds, wall_seconds=time.time() - t0,
+         libraries=[cuda_vq.library_path().name,
+                    fused_adam.library_path().name],
+         ptxas_dpad24=dpad.get('24'), ptxas_dpad128=dpad.get('128'),
+         ptxas_adam=adam)
 
 
 def phase_kernel():
@@ -176,6 +214,86 @@ def phase_kernel():
         rows[(kind, n, b, d, k)] = row
         emit('kernel', **row)
     return rows, max_err
+
+
+def _leaf_bytes_bound(numel: int) -> float:
+    """Least time (ms) of one Adam pass over `numel` parameters on an H100
+    SXM: p, m, v, g read and p, m, v written once, 28 bytes a parameter."""
+    return 28.0 * numel / HBM_BYTES * 1e3
+
+
+def _adam_pair(shapes, gen, unaligned=False):
+    """Two identical (params, grads, state) sets in the params layout, one
+    leaf per shape."""
+    from pgmvae_tpu_torch.ops import fused_adam
+    leaves = []
+    for shape in shapes:
+        p = torch.randn(shape, generator=gen, device='cuda') * 0.1
+        if unaligned:              # same values, 4 bytes past an alignment
+            buf = torch.empty(p.numel() + 1, device='cuda')
+            buf[1:] = p.reshape(-1)
+            p = buf[1:].view(shape)
+        leaves.append(p)
+    params = {'enc': [(p,) for p in leaves]}
+    twin = {'enc': [(p.clone(),) for p in leaves]}
+    return (params, fused_adam.adam_init(params, LR, EPS),
+            twin, fused_adam.adam_init(twin, LR, EPS))
+
+
+def phase_kernel_adam():
+    """The Adam kernel against `adam_update_plain` on the card, ADAM_STEPS
+    steps from the same state: p, m and v must be bit-equal. Then times at
+    bbc's 20 leaves."""
+    from pgmvae_tpu_torch.models import vqvae
+    from pgmvae_tpu_torch.ops import fused_adam
+    from pgmvae_tpu_torch.registry import default_units
+    gen = torch.Generator(device='cuda').manual_seed(SEED)
+    cases = [(s, False) for s in ADAM_SHAPES] + [((1000, 3), True)]
+    for shape, unaligned in cases:
+        params, st, twin, st2 = _adam_pair([shape], gen, unaligned)
+        for _ in range(ADAM_STEPS):
+            g = torch.randn(shape, generator=gen, device='cuda') * 0.01
+            st = fused_adam.adam_update(params, {'enc': [(g,)]}, st)
+            st2 = fused_adam.adam_update_plain(twin, {'enc': [(g.clone(),)]},
+                                               st2)
+        torch.cuda.synchronize()
+        pairs = [(params, twin), (st.mu, st2.mu), (st.nu, st2.nu)]
+        for (a,), (b,) in ((x['enc'][0], y['enc'][0]) for x, y in pairs):
+            assert torch.equal(a, b), (shape, float((a - b).abs().max()))
+        assert int(st.count) == int(st2.count) == ADAM_STEPS
+        emit('kernel_adam', shape=list(shape), unaligned=unaligned,
+             steps=ADAM_STEPS, bit_equal=True)
+
+    # times over the 20 leaves of the bbc model (section train)
+    cfg = vqvae.VqVaeConfig(n_var=1058, units=default_units(1058, 20),
+                            dim=20, num_codes=50, fan_mode='per_network')
+    params, _ = vqvae.init_model(gen, cfg)
+    leaves = vqvae.param_leaves(params)
+    grads = vqvae.map_params(
+        lambda p: torch.randn(p.shape, generator=gen, device='cuda') * 0.01,
+        params)
+    state = fused_adam.adam_init(params, LR, EPS)
+    numel = sum(p.numel() for p in leaves)
+    before = fused_adam.LAUNCHES
+    ms = cuda_ms(lambda: fused_adam.adam_update(params, grads, state))
+    plain_ms = cuda_ms(lambda: fused_adam.adam_update_plain(params, grads,
+                                                            state))
+    fused_adam.LAUNCHES = before          # timing launches are not counted
+    # yardstick only: PyTorch's own fused Adam over the same leaves (it
+    # adds eps after sqrt(v)/sqrt(bc2): the same bytes, other arithmetic)
+    lib_leaves = [p.detach().clone().requires_grad_() for p in leaves]
+    for p, g in zip(lib_leaves, vqvae.param_leaves(grads)):
+        p.grad = g
+    opt = torch.optim.Adam(lib_leaves, lr=LR, eps=EPS, fused=True)
+    library_ms = cuda_ms(opt.step)
+    del opt, lib_leaves
+    row = dict(leaves=len(leaves), params=numel, launches_per_step=len(
+        leaves), ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+        bound_ms=_leaf_bytes_bound(numel), bound_by='bytes',
+        achieved_tb_s=28.0 * numel / (ms * 1e-3) / 1e12,
+        shapes=[list(p.shape) for p in leaves])
+    emit('kernel_adam_bbc', **row)
+    return row
 
 
 def _bbc_like_splits(n_var: int):
@@ -335,9 +453,16 @@ def profile_run(phase: str, fn, top: int = 8) -> None:
             and e.self_device_time_total > 0]
     rows.sort(key=lambda r: -r[1])
     device_ms = sum(r[1] for r in rows)
+    # the same device time by the PyTorch operator that launched it
+    ops = [(e.key, e.self_device_time_total / 1e3, e.count)
+           for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CPU
+           and e.self_device_time_total > 0]
+    ops.sort(key=lambda r: -r[1])
     emit(phase, wall_ms=wall_ms, device_ms=device_ms,
          busy_share=device_ms / wall_ms,
-         top=[[name[:80], ms, count] for name, ms, count in rows[:top]])
+         top=[[name[:80], ms, count] for name, ms, count in rows[:top]],
+         top_ops=[[name[:60], ms, count] for name, ms, count in ops[:top]])
 
 
 def phase_small_reference():
@@ -373,6 +498,173 @@ def phase_small_reference():
     return gap
 
 
+def _bbc_train_config():
+    """The flagship bbc recipe (RESULTS.md:15) at the JAX package's bbc
+    benchmark batch of 250."""
+    from pgmvae_tpu_torch.models.vqvae import VqVaeConfig
+    from pgmvae_tpu_torch.registry import default_units
+    return VqVaeConfig(n_var=1058, units=default_units(1058, 20), dim=20,
+                       num_codes=50, cost=0.05, decay=0.9, quantizer='ema',
+                       dead_code_threshold=0.25, fan_mode='per_network')
+
+
+def _max_rel(a: torch.Tensor, b: torch.Tensor) -> float:
+    return float(((a - b).abs() / b.abs().clamp(min=1e-30)).max())
+
+
+def _kernel_vs_plain_step(tr, state, yb, w):
+    """One more train step from copies of `state` three ways on the card:
+    through the kernels; with the Adam kernel's plain version, which must
+    give the same state to 1e-6 relative (both run on the same codes); and
+    with both plain versions, which must agree to 1e-6 relative unless the
+    codes differ, and then only by near-ties. Returns (max abs difference
+    of the Adam-only comparison, max relative difference of the all-plain
+    one, code flips, flip gap)."""
+    from pgmvae_tpu_torch.models import vqvae
+    from pgmvae_tpu_torch.ops import cuda_vq, fused_adam
+    from pgmvae_tpu_torch.train import copy_state
+
+    def leaves(st):
+        return (vqvae.param_leaves(st.params)
+                + vqvae.param_leaves(st.opt_state.mu)
+                + vqvae.param_leaves(st.opt_state.nu) + list(st.ema))
+
+    def compare(a, b):
+        pairs = list(zip(leaves(a), leaves(b)))
+        return (max(float((x - y).abs().max()) for x, y in pairs),
+                max(_max_rel(x.float(), y.float()) for x, y in pairs))
+
+    with torch.no_grad():
+        z = vqvae.encode(state.params, yb, first_layer=tr.cfg.first_layer)
+        cb = tr.codebook(state)
+        flips, gap = near_ties(z, cb, cuda_vq.vq_codes_fused(z, cb),
+                               cuda_vq.vq_codes_plain(z, cb))
+    launches = (cuda_vq.LAUNCHES, fused_adam.LAUNCHES)
+    ker, _ = tr.train_step(copy_state(state), yb, w)
+    with mock.patch.object(fused_adam, 'adam_update',
+                           fused_adam.adam_update_plain):
+        adam_plain, _ = tr.train_step(copy_state(state), yb, w)
+        with mock.patch.object(cuda_vq, 'vq_codes_fused',
+                               cuda_vq.vq_codes_plain):
+            all_plain, _ = tr.train_step(copy_state(state), yb, w)
+    cuda_vq.LAUNCHES, fused_adam.LAUNCHES = launches   # comparison only
+    torch.cuda.synchronize()
+    adam_abs, adam_rel = compare(ker, adam_plain)
+    assert adam_rel <= 1e-6, ('Adam kernel step vs plain', adam_rel)
+    _, rel = compare(ker, all_plain)
+    if flips == 0:
+        assert rel <= 1e-6, ('kernel step vs plain step', rel)
+    return adam_abs, rel, flips, gap
+
+
+def phase_train():
+    """Stage-1 training at bbc width through both kernels: Trainer.fit for 2
+    epochs (14 steps, the last one ragged) with adam_impl='pallas', counted;
+    a kernel step against a plain step; stage-2 PLLs of the trained model;
+    a profile of one warm step."""
+    from pgmvae_tpu_torch.models import vqvae
+    from pgmvae_tpu_torch.ops import cuda_vq, fused_adam
+    from pgmvae_tpu_torch.stage2 import Stage2
+    from pgmvae_tpu_torch.train import Trainer
+
+    cfg = _bbc_train_config()
+    splits = _bbc_like_splits(cfg.n_var)
+    y = splits['train']
+    tr = Trainer(cfg, LR, 250, y.shape[0], adam_impl='pallas')
+    state = tr.init_state(torch.Generator(device='cuda').manual_seed(SEED))
+    n_leaves = len(vqvae.param_leaves(state.params))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ends = []
+
+    def log_fn(epoch, m):            # called after the epoch's host read
+        ends.append(time.time())
+
+    # ---- the main path, counted: every kernel launch from here to the read
+    cuda_vq.LAUNCHES = fused_adam.LAUNCHES = 0
+    t0 = time.time()
+    state, hist = tr.fit(state, y, 2, seed=SEED, log_fn=log_fn)
+    torch.cuda.synchronize()
+    fit_seconds = time.time() - t0
+    launches = {'vq_argmin': cuda_vq.LAUNCHES, 'adam': fused_adam.LAUNCHES}
+    # ---- end of the counted run
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    steps = 2 * tr.steps_per_epoch
+    assert tr.steps_per_epoch == 7 and steps == 14, tr.steps_per_epoch
+    assert launches == {'vq_argmin': steps, 'adam': steps * n_leaves} \
+        and n_leaves == 20, launches
+    assert all(np.isfinite(list(m)).all() for m in hist), hist
+    assert hist[1].loss < hist[0].loss, hist
+    warm_s = ends[1] - ends[0]
+    yb = torch.from_numpy(y[:250]).cuda()
+    w = torch.ones(250, device='cuda')
+    adam_abs, rel, flips, gap = _kernel_vs_plain_step(tr, state, yb, w)
+
+    cb = tr.codebook(state)
+    _, pll, secs = _stage2_plls(Stage2(cfg), state.params, cb, splits)
+    assert all(np.isfinite(v) and v < 0 for v in pll.values()), pll
+    emit('train', model=dict(n_var=cfg.n_var, units=list(cfg.units),
+                             dim=cfg.dim, num_codes=cfg.num_codes,
+                             quantizer=cfg.quantizer, decay=cfg.decay,
+                             cost=cfg.cost, dead_code_threshold=0.25,
+                             fan_mode=cfg.fan_mode, lr=LR, batch=250,
+                             adam_impl='pallas'),
+         steps=steps, launches=launches, adam_launches_per_step=n_leaves,
+         fit_seconds=fit_seconds, epoch_metrics=[m._asdict() for m in hist],
+         warm_epoch_seconds=warm_s,
+         warm_steps_per_s=tr.steps_per_epoch / warm_s,
+         warm_samples_per_s=y.shape[0] / warm_s,
+         peak_memory_gb=peak_gb, adam_kernel_vs_plain_step_max_abs=adam_abs,
+         all_kernels_vs_plain_step_max_rel=rel, step_code_flips=flips,
+         step_flip_gap=gap, pll_trained=pll, stage2_seconds=secs)
+    profile_run('profile_train_step',
+                lambda: tr.train_step(state, yb, w), top=10)
+    return launches, adam_abs, gap
+
+
+def _write_nltcs_like(root: str) -> None:
+    """Synthetic splits at nltcs's shape (16 columns, 16181/2157/3236 rows)
+    in the TRW format, from SEED."""
+    rng = np.random.default_rng(SEED)
+    rate = rng.random(16)
+    for split, rows in (('train', 16181), ('valid', 2157), ('test', 3236)):
+        y = (rng.random((rows, 16)) < rate).astype(np.uint8)
+        with open(os.path.join(root, f'nltcs.{split}.data'), 'w') as f:
+            f.write('\n'.join(','.join(map(str, r)) for r in y) + '\n')
+
+
+def phase_cli():
+    """The command line end to end on the card: the reference run's flags
+    with the Adam kernel, 3 epochs, on nltcs-shaped data."""
+    from pgmvae_tpu_torch import run
+    from pgmvae_tpu_torch.utils.logging import run_identifier
+    cwd = os.getcwd()
+    with tempfile.TemporaryDirectory() as tmp:
+        _write_nltcs_like(tmp)
+        os.chdir(tmp)             # logs/tuning/<identifier>/ lands here
+        try:
+            t0 = time.time()
+            rc = run.main(['-n', 'nltcs', '-k', '50', '-d', '10', '-b', '128',
+                           '-e', '3', '-r', '0.01', '-c', '0.25', '-m', '-s',
+                           '1', '--adam-impl', 'pallas', '--data-dir', tmp])
+            seconds = time.time() - t0
+        finally:
+            os.chdir(cwd)
+        with open(os.path.join(tmp, 'result.txt')) as f:
+            lines = f.read().splitlines()
+    assert rc == 0 and len(lines) == 1, (rc, lines)
+    ident, rest = lines[0].split(' ', 1)
+    fields = dict(kv.split(':') for kv in rest.split())
+    expect = run_identifier('nltcs', 50, 10, 128, 3, 0.01, 0.25, True, 0.99,
+                            1, adam_impl='pallas')
+    assert ident == expect and ident.endswith('_ad-pallas'), ident
+    plls = {k: float(fields[k]) for k in ('pll-train', 'pll-valid',
+                                           'pll-test')}
+    assert all(np.isfinite(v) and v < 0 for v in plls.values()), plls
+    emit('cli', identifier=ident, pll=plls, seconds=seconds)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device; nothing was run', file=sys.stderr)
@@ -381,8 +673,11 @@ def main() -> int:
     smi = phase_device()
     phase_build()
     rows, kernel_err = phase_kernel()
+    adam_row = phase_kernel_adam()
     launches, slice_err = phase_slice()
     small_err = phase_small_reference()
+    train_launches, train_err, train_gap = phase_train()
+    phase_cli()
     main_row = rows[('shape',) + MAIN_SHAPE]
     emit('done', seconds=time.time() - t_start)
     print(json.dumps({'kernels': [{
@@ -390,10 +685,22 @@ def main() -> int:
         'source': 'pgmvae_tpu_torch/ops/csrc/vq_argmin.cu',
         'replaces': 'pgmvae_tpu/ops/pallas_vq.py:38',
         'launches': launches,
-        'max_abs_err': max(kernel_err, slice_err, small_err),
+        'launches_by_path': {'serving': launches,
+                             'train': train_launches['vq_argmin']},
+        'max_abs_err': max(kernel_err, slice_err, small_err, train_gap),
         'ms': main_row['ms'], 'plain_ms': main_row['plain_ms'],
         'bound_ms': main_row['bound_ms'], 'bound_by': main_row['bound_by'],
-        'library_ms': main_row['library_ms'], 'shape': list(MAIN_SHAPE)}]}))
+        'library_ms': main_row['library_ms'], 'shape': list(MAIN_SHAPE)}, {
+        'name': 'adam', 'route': 'cuda',
+        'source': 'pgmvae_tpu_torch/ops/csrc/adam.cu',
+        'replaces': 'pgmvae_tpu/ops/fused_adam.py:79',
+        'launches': train_launches['adam'],
+        'launches_by_path': {'serving': 0, 'train': train_launches['adam']},
+        'max_abs_err': train_err,
+        'ms': adam_row['ms'], 'plain_ms': adam_row['plain_ms'],
+        'bound_ms': adam_row['bound_ms'], 'bound_by': adam_row['bound_by'],
+        'library_ms': adam_row['library_ms'],
+        'shape': adam_row['shapes']}]}))
     print(smi)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

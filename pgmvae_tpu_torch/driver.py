@@ -1,0 +1,349 @@
+"""Experiment driver: one (dataset x hyperparameters) cell, end to end (the
+port of `pgmvae_tpu/driver.py`, single device).
+
+`run_experiment` trains stage 1, optionally keeping the snapshot with the
+best valid PLL, then computes the stage-2 CPT and the PLL of the three
+splits, and the post-hoc joint-CPT records. It returns a plain dict, as the
+JAX package's does. `ExperimentConfig` is the port's own copy of the JAX
+package's, with the same fields, defaults, checks and identifier.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+@dataclasses.dataclass
+class ExperimentConfig:
+    name: str
+    embedding: int                      # K
+    dim: int                            # D
+    batch: int = 128
+    epoch: int = 200
+    rate: float = 0.001
+    cost: float = 0.25
+    ema: bool = False
+    decay: float = 0.99
+    seed: int = 0
+    note: str = ''
+    quantizer: Optional[str] = None     # override; default from `ema`
+    units: Optional[Tuple[int, ...]] = None
+    mesh_data: int = 1
+    mesh_model: int = 1
+    zero_debias: bool = True
+    dead_code_threshold: float = 0.0   # >0: EMA dead-code restarts
+    fan_mode: str = 'tf_stacked'    # init fan semantics (see initializers)
+    activation: str = 'selu'
+    l2_reg: float = 0.0
+    vq_impl: str = 'auto'
+    precision: str = 'default'
+    cmll: bool = False
+    select_on_valid: int = 0   # >0: evaluate valid PLL every N epochs and
+    #                            keep the best snapshot (anti-overfit; the
+    #                            reference always uses the final epoch)
+    cpt_parents: int = 0   # >0: joint-code CPTs — condition each variable's
+    #                        stage-2 table on the values of its m highest-MI
+    #                        partner variables as well as its code
+    #                        (stage2.select_parents); 0 = reference semantics
+    cpt_parents_eval: Tuple[int, ...] = ()  # extra parent counts evaluated
+    #                        POST-HOC on the trained (and, with
+    #                        select_on_valid, M=cpt_parents-selected) state:
+    #                        stage-1 training is independent of M, so one
+    #                        training yields one stage-2 record per listed M
+    #                        (identifier suffix cpe-M) — an S-way cheaper
+    #                        sweep than a --cpt-parents grid. With
+    #                        select_on_valid == 0 a cpe-M number is
+    #                        bit-identical to a from-scratch cptp-M cell
+    #                        (tests/test_cpt_parents.py); with selection the
+    #                        snapshot is picked on the PRIMARY M's valid PLL
+    cpt_parents_mix: bool = False  # with cpt_parents_eval: also emit ONE
+    #                        mixed stage-2 record where EACH VARIABLE picks
+    #                        its own M — from the candidate set
+    #                        {cpt_parents} + cpt_parents_eval — by its
+    #                        per-variable VALIDATION PLL contribution (PLL
+    #                        is a sum of per-variable terms, so the mixture
+    #                        is a legal PLL; the global winner-M is the
+    #                        special case where every variable agrees).
+    #                        Identifier flag cpm; selection ties break to
+    #                        the smaller M
+    first_layer: str = 'masked'  # first-encoder-layer implementation
+    #                        ('masked' | 'rank1' | 'auto'; models/vqvae.py)
+    packed_seeds: int = 1  # >1: this cell was trained as one lane of an
+    #                        S-seed vmapped device program (run_pipeline
+    #                        --pack-seeds). Encoded in the identifier (pk-S)
+    #                        because the packed program's different XLA
+    #                        tiling changes f32 accumulation order: measured
+    #                        sub-0.1-nat PLL shifts on most datasets, but a
+    #                        basin flip on bistable ones (students: packed
+    #                        -88.3 vs unpacked -150.4, logs/cmll-r3-rerun.out)
+    adam_impl: str = 'optax'  # 'fused'/'pallas': single-pass Adam update in
+    #                        the JAX package, ~1 ULP/step from optax there,
+    #                        so identifier-encoded; the port takes its one
+    #                        Adam kernel for all three
+    compute_dtype: str = 'f32'  # 'bf16': bfloat16 forward/backward with f32
+    #                        master params/moments/EMA/stage-2 (see
+    #                        VqVaeConfig.compute_dtype) — a different
+    #                        trajectory, identifier-encoded as cd-bf16
+    checkpoint: Optional[str] = None
+    resume: Optional[str] = None
+    data_dir: Optional[str] = None
+    verbose: bool = False
+    log_dir: Optional[str] = None       # JSONL metrics directory
+
+    def __post_init__(self):
+        # Fail BEFORE training, not after: Stage2 only sees M when stage 2
+        # starts, so an out-of-range --cpt-parents-eval used to waste a full
+        # training run (M too big) or silently evaluate M=0 under a
+        # mislabeled, non-round-trippable cpe--1 identifier (M<0). Bounds
+        # match Stage2.__init__ (2^M joint-state columns; M<=12 with the
+        # byte guard there — past SCATTER_COLS the scatter path counts
+        # without a one-hot, so wide tables are feasible).
+        if not 0 <= self.cpt_parents <= 12:
+            raise ValueError(f'cpt_parents must be in [0, 12], '
+                             f'got {self.cpt_parents}')
+        bad = [m for m in self.cpt_parents_eval if not 0 <= m <= 12]
+        if bad:
+            raise ValueError(f'cpt_parents_eval values must be in [0, 12], '
+                             f'got {bad}')
+        if self.cpt_parents_mix and not self.cpt_parents_eval:
+            raise ValueError('cpt_parents_mix selects per-variable among '
+                             'the cpt_parents_eval candidates; pass '
+                             '--cpt-parents-eval too')
+
+    @property
+    def identifier(self) -> str:
+        from pgmvae_tpu_torch.utils.logging import run_identifier
+        return run_identifier(self.name, self.embedding, self.dim, self.batch,
+                              self.epoch, self.rate, self.cost, self.ema,
+                              self.decay, self.seed, self.note,
+                              quantizer=self.quantizer, units=self.units,
+                              fan_mode=self.fan_mode,
+                              dead_code_threshold=self.dead_code_threshold,
+                              zero_debias=self.zero_debias,
+                              precision=self.precision,
+                              activation=self.activation, l2_reg=self.l2_reg,
+                              select_on_valid=self.select_on_valid,
+                              cpt_parents=self.cpt_parents,
+                              first_layer=self.first_layer,
+                              packed_seeds=self.packed_seeds,
+                              adam_impl=self.adam_impl,
+                              compute_dtype=self.compute_dtype,
+                              cpt_parents_eval=self.cpt_parents_eval,
+                              cpt_parents_mix=self.cpt_parents_mix)
+
+
+def _check_naive_dim(quantizer: str, dim: int) -> None:
+    """Refuse naive-quantizer dims whose stage-2 tables (2^dim columns)
+    could never be tabulated — BEFORE training burns a full run (the same
+    bound Stage2.__init__ enforces; reference bug context
+    core/quantizer.py:179-201)."""
+    from pgmvae_tpu_torch.stage2 import NAIVE_STAGE2_MAX_DIM
+    if quantizer == 'naive' and dim > NAIVE_STAGE2_MAX_DIM:
+        raise ValueError(
+            f"quantizer='naive' with dim={dim}: stage 2 counts over 2^dim "
+            f"= 2**{dim} code columns per variable; use dim <= "
+            f"{NAIVE_STAGE2_MAX_DIM} or a finite-codebook quantizer")
+
+
+def unported(exp: ExperimentConfig) -> list:
+    """What `exp` asks for that the port does not do yet, one message per
+    feature, each naming its ROADMAP.md item; empty when it can run."""
+    out = []
+    if exp.mesh_data * exp.mesh_model > 1:
+        out.append(f'a device mesh (mesh_data={exp.mesh_data}, '
+                   f'mesh_model={exp.mesh_model}): ROADMAP.md A11, '
+                   f'multi-GPU')
+    if exp.resume:
+        out.append('resume: ROADMAP.md A7, checkpoints')
+    if exp.checkpoint:
+        out.append('checkpoint: ROADMAP.md A7, checkpoints')
+    if exp.cmll:
+        out.append('cmll: ROADMAP.md A8, Gibbs CMLL')
+    if exp.adam_impl == 'fused_bf16':
+        out.append("adam_impl='fused_bf16': ROADMAP.md A3, fused_bf16 "
+                   "moments")
+    if exp.compute_dtype != 'f32':
+        out.append(f'compute_dtype={exp.compute_dtype!r}: ROADMAP.md A4, '
+                   f'bf16 compute')
+    return out
+
+
+def _posthoc_cpt_records(exp, cfg, params, codebook, y_train, y_valid,
+                         y_test, primary_id, platform, device) -> list:
+    """One stage-2 record per M in exp.cpt_parents_eval, computed from the
+    trained `params` (see ExperimentConfig.cpt_parents_eval), and with
+    exp.cpt_parents_mix one more record in which each variable keeps the M
+    whose validation PLL contribution is highest (ties to the smaller M)."""
+    from pgmvae_tpu_torch.stage2 import Stage2, select_parents
+
+    splits = (('train', y_train), ('valid', y_valid), ('test', y_test))
+    eval_ms = tuple(dict.fromkeys(exp.cpt_parents_eval))
+    loop_ms = eval_ms
+    if exp.cpt_parents_mix and exp.cpt_parents not in eval_ms:
+        loop_ms = eval_ms + (exp.cpt_parents,)   # primary M is a candidate
+    records, per_var = [], {}
+    for m in loop_ms:
+        te = time.time()
+        par = select_parents(y_train, m) if m > 0 else None
+        s2m = Stage2(cfg, parents=par, device=device)
+        dist_m = s2m.cpt(params, codebook, y_train)
+        pll_m = {}
+        for split, y in splits:
+            pll_m[split], pv = s2m.pll_detail(params, codebook, y, dist_m)
+            per_var.setdefault(m, {})[split] = pv
+        if m not in eval_ms:
+            continue       # primary M: its record is the cell's own
+        records.append({
+            'identifier': dataclasses.replace(
+                exp, cpt_parents_eval=(m,),
+                cpt_parents_mix=False).identifier,
+            'pll_train': pll_m['train'], 'pll_valid': pll_m['valid'],
+            'pll_test': pll_m['test'], 'cmll_test': 1,
+            'eval_wall': round(time.time() - te, 3),
+            'posthoc_of': primary_id,
+            'platform': platform,
+        })
+    if exp.cpt_parents_mix:
+        cands = sorted(per_var)                       # ascending: argmax's
+        idx = np.arange(cfg.active_vars)              # first-hit tie rule
+        stacked = {split: np.stack([per_var[m][split] for m in cands])
+                   for split, _ in splits}            # [C, active_vars]
+        sel = np.argmax(stacked['valid'], axis=0)
+        mixed = {split: float(stacked[split][sel, idx].sum())
+                 for split, _ in splits}
+        records.append({
+            'identifier': exp.identifier,     # full cpe list + cpm flag
+            'pll_train': mixed['train'], 'pll_valid': mixed['valid'],
+            'pll_test': mixed['test'], 'cmll_test': 1,
+            'eval_wall': 0.0,                 # composed from the cpe passes
+            'posthoc_of': primary_id,
+            'platform': platform,
+            'mix_candidates': cands,
+            'mix_m_histogram': {str(cands[i]): int(c) for i, c in
+                                enumerate(np.bincount(
+                                    sel, minlength=len(cands)))
+                                if c},
+        })
+    return records
+
+
+def run_experiment(exp: ExperimentConfig, device=None) -> dict:
+    """Stage-1 train + stage-2 CPT/PLL on `device` (None means CUDA)."""
+    from pgmvae_tpu_torch import resolve_device
+    from pgmvae_tpu_torch.data.loader import load_split
+    from pgmvae_tpu_torch.models.vqvae import VqVaeConfig
+    from pgmvae_tpu_torch.registry import REGISTRY
+    from pgmvae_tpu_torch.stage2 import Stage2, select_parents
+    from pgmvae_tpu_torch.train import Trainer, copy_state
+    from pgmvae_tpu_torch.utils.logging import MetricLogger
+
+    if exp.packed_seeds > 1:
+        raise ValueError(
+            f'{exp.identifier}: pk-{exp.packed_seeds} identifiers record a '
+            f'packed-program trajectory of the JAX package, which the port '
+            f'does not run')
+    missing = unported(exp)
+    if missing:
+        raise NotImplementedError('not ported yet: ' + '; '.join(missing))
+    if exp.name not in REGISTRY:
+        raise KeyError(f"unknown dataset '{exp.name}'; available: "
+                       f"{', '.join(sorted(REGISTRY))}")
+    device = resolve_device(device)
+    info = REGISTRY[exp.name]
+    quantizer = exp.quantizer or ('ema' if exp.ema else 'vq')
+    _check_naive_dim(quantizer, exp.dim)
+    units = tuple(exp.units) if exp.units else info.encoder_units(exp.dim)
+    cfg = VqVaeConfig(n_var=info.n_var, units=units, dim=exp.dim,
+                      num_codes=exp.embedding, cost=exp.cost, decay=exp.decay,
+                      quantizer=quantizer, zero_debias=exp.zero_debias,
+                      dead_code_threshold=exp.dead_code_threshold,
+                      fan_mode=exp.fan_mode, vq_impl=exp.vq_impl,
+                      matmul_precision=exp.precision,
+                      activation=exp.activation, l2_reg=exp.l2_reg,
+                      first_layer=exp.first_layer,
+                      compute_dtype=exp.compute_dtype)
+    logger = MetricLogger(exp.log_dir) if exp.log_dir else None
+
+    y_train = load_split(exp.name, 'train', exp.data_dir)
+    trainer = Trainer(cfg, exp.rate, exp.batch, len(y_train),
+                      adam_impl=exp.adam_impl, device=device)
+    state = trainer.init_state(exp.seed)
+    parents = (select_parents(y_train, exp.cpt_parents)
+               if exp.cpt_parents > 0 else None)
+    s2 = Stage2(cfg, parents=parents, device=device)
+    log_fn = logger.log_epoch if logger else None
+    best_epoch = exp.epoch
+    t0 = time.time()
+    if exp.select_on_valid > 0:
+        # block training with a valid-PLL check after each block: epoch
+        # generators depend on (seed, epoch) alone, so the trajectory is the
+        # one plain `fit` takes; only which point of it is kept differs
+        y_valid = load_split(exp.name, 'valid', exp.data_dir)
+        best_pll, best_state, done = -float('inf'), None, 0
+        while done < exp.epoch:
+            blk = min(exp.select_on_valid, exp.epoch - done)
+            state, _ = trainer.fit(state, y_train, blk, exp.seed,
+                                   verbose=exp.verbose, log_fn=log_fn,
+                                   start_epoch=done)
+            done += blk
+            cb = trainer.codebook(state)
+            d_sel = s2.cpt(state.params, cb, y_train)
+            pv = s2.pseudo_log_likelihood(state.params, cb, y_valid, d_sel)
+            if exp.verbose:
+                print(f'select-on-valid: epoch {done} pll-valid {pv:.5f}')
+            if pv > best_pll:
+                # train steps update the state in place: keep a copy
+                best_pll, best_state, best_epoch = pv, copy_state(state), done
+        if best_state is None:
+            # every valid PLL was NaN (a diverged cell) or epoch == 0
+            print('select-on-valid: no finite valid PLL seen; '
+                  'keeping the final state', flush=True)
+            best_epoch = exp.epoch
+        else:
+            state = best_state
+    else:
+        state, _ = trainer.fit(state, y_train, exp.epoch, exp.seed,
+                               verbose=exp.verbose, log_fn=log_fn)
+    if device.type == 'cuda':
+        torch.cuda.synchronize(device)
+    train_wall = time.time() - t0
+
+    codebook = trainer.codebook(state)
+    y_valid = load_split(exp.name, 'valid', exp.data_dir)
+    y_test = load_split(exp.name, 'test', exp.data_dir)
+    t1 = time.time()
+    dist = s2.cpt(state.params, codebook, y_train)
+    pll = {split: s2.pseudo_log_likelihood(state.params, codebook, y, dist)
+           for split, y in (('train', y_train), ('valid', y_valid),
+                            ('test', y_test))}
+    eval_wall = time.time() - t1
+
+    # the primary record's identity is independent of the post-hoc eval
+    # list (training and the primary stage 2 never see it)
+    primary_id = dataclasses.replace(exp, cpt_parents_eval=(),
+                                     cpt_parents_mix=False).identifier
+    platform = 'gpu' if device.type == 'cuda' else 'cpu'
+    result = {
+        'identifier': primary_id,
+        'pll_train': pll['train'], 'pll_valid': pll['valid'],
+        'pll_test': pll['test'], 'cmll_test': 1,
+        'train_wall': round(train_wall, 3), 'eval_wall': round(eval_wall, 3),
+        'samples_per_sec': round(exp.epoch * len(y_train)
+                                 / max(train_wall, 1e-9), 1),
+        'paper_pll': -info.paper_pll,
+        'platform': platform,
+    }
+    if exp.select_on_valid > 0:
+        result['best_epoch'] = best_epoch
+    if exp.cpt_parents_eval:
+        result['posthoc'] = _posthoc_cpt_records(
+            exp, cfg, state.params, codebook, y_train, y_valid, y_test,
+            primary_id, platform, device)
+    if logger:
+        logger.log_final(**result)
+        logger.close()
+    return result

@@ -1,11 +1,13 @@
-"""The batched multi-network VQ-VAE, forward subset (the port of the
-inference half of `pgmvae_tpu/models/vqvae.py`).
+"""The batched multi-network VQ-VAE (the port of
+`pgmvae_tpu/models/vqvae.py`): the forward pass, the training forward
+`apply_model` with its losses, and the rank-1 first layer's backward.
 
 `n_var` independent dense autoencoders run as ONE model: every parameter
 leaf carries a leading `n_var` axis and each dense layer is one
 `torch.baddbmm` of `[n,B,i]` by `[n,i,o]`. Params keep the JAX pytree
 layout as a plain dict of tensors, `{'enc': [(w, b), ...], 'dec': [...]}`,
-with the codebook `[n, D, K]` beside it.
+with the codebook `[n, D, K]` beside it (or inside it, as
+`params['codebook']`, when the 'vq' quantizer trains it with Adam).
 
 Leave-one-out uses the JAX package's padded masked design: every network
 sees the full sample y [B, n_var] with its own variable's input multiplied
@@ -157,13 +159,44 @@ def _dense_stack(layers, x, activation):
 FIRST_LAYER_RANK1_BYTES = 4 << 30
 
 
+def _rank1_linear(w0, y):
+    """sum_i y_i W[v,i,o] - y_v W[v,v,o]: the masked first layer's linear
+    map without the [n, B, n] masked input."""
+    base = torch.matmul(y, w0)                                       # [n,B,o]
+    diag = torch.diagonal(w0, dim1=0, dim2=1).T                      # [n,o]
+    return base - y.T[:, :, None] * diag[:, None, :]
+
+
+class _Rank1Linear(torch.autograd.Function):
+    """`_rank1_linear` with the JAX package's custom backward
+    (`_rank1_linear_bwd`): the weight gradient's diagonal W[v, v, :] is set
+    to an exact zero. The base and correction terms cancel there only up to
+    float residue, which Adam would amplify into drift of the inert
+    diagonal; the masked path gets its exact zero from the zeroed input."""
+
+    @staticmethod
+    def forward(ctx, w0, y):
+        ctx.save_for_backward(w0, y)
+        return _rank1_linear(w0, y)
+
+    @staticmethod
+    def backward(ctx, g):
+        w0, y = ctx.saved_tensors
+        gw = torch.einsum('bi,nbo->nio', y, g).contiguous()
+        gw.diagonal(dim1=0, dim2=1).zero_()
+        gy = None
+        if ctx.needs_input_grad[1]:
+            diag = torch.diagonal(w0, dim1=0, dim2=1).T              # [n,o]
+            gy = (torch.einsum('nbo,nio->bi', g, w0)
+                  - torch.einsum('nbo,no->bn', g, diag))
+        return gw, gy
+
+
 def _first_layer_rank1(w0, b0, y, act):
     """First encoder layer without materializing the [n, B, n] masked input:
     act(sum_i y_i W[v,i,o] - y_v W[v,v,o] + b), one matmul shared by all n
     networks plus a rank-1 diagonal correction."""
-    base = torch.matmul(y, w0)                                       # [n,B,o]
-    diag = torch.diagonal(w0, dim1=0, dim2=1).T                      # [n,o]
-    return act(base - y.T[:, :, None] * diag[:, None, :] + b0)
+    return act(_Rank1Linear.apply(w0, y) + b0)
 
 
 def encode(params, y: torch.Tensor,
@@ -201,10 +234,85 @@ def encode_codes(params, codebook, y: torch.Tensor, cfg: VqVaeConfig,
         return q.vq_codes(z, codebook, impl=cfg.vq_impl)
 
 
+def l2_penalty(params) -> torch.Tensor:
+    """Sum of squared dense-kernel entries (biases and codebook excluded),
+    the inert diagonals included."""
+    return sum(torch.sum(w * w)
+               for stack in (params['enc'], params['dec'])
+               for w, _ in stack)
+
+
+class ForwardOut(NamedTuple):
+    recon: torch.Tensor       # [n, B, n_var] sigmoid recon (diag masked)
+    z: torch.Tensor           # [n, B, D] pre-quantization latents
+    indices: torch.Tensor     # [n, B] code assignments
+    e_loss: torch.Tensor      # commitment loss
+    q_loss: torch.Tensor      # codebook loss (0 for ema/naive)
+
+
+def _decode(params, x: torch.Tensor, activation: str = 'selu'):
+    hidden, (w, b) = params['dec'][:-1], params['dec'][-1]
+    x = _dense_stack(hidden, x, activation_fn(activation))
+    return torch.sigmoid(torch.baddbmm(b, x, w))
+
+
+def apply_model(params, codebook, y: torch.Tensor, cfg: VqVaeConfig,
+                weights: Optional[torch.Tensor] = None,
+                var_ids: Optional[torch.Tensor] = None) -> ForwardOut:
+    """Full forward pass: y [B, n_var] -> recon [F, B, n_var] (each
+    network's own column is inert; mask it out of any loss with
+    `loo_mask`). `weights` [B] (0/1 for ragged final batches) weight every
+    mean of the quantizer's losses."""
+    z = encode(params, y, var_ids, cfg.activation, cfg.first_layer)
+    # with explicit var_ids the rows are selection positions, not variable
+    # ids: the padding row-mask only applies to the full-stack layout
+    na = (cfg.active_vars
+          if var_ids is None and cfg.active_vars < cfg.n_var else None)
+    if cfg.quantizer == 'naive':
+        out = q.naive_forward(z, weights, n_active=na)
+        latent, indices = out.output, q.naive_codes(z.detach())
+        e_loss = out.e_loss
+        q_loss = torch.zeros((), dtype=z.dtype, device=z.device)
+    else:
+        latent, indices, e_loss, q_loss = q.vq_forward(
+            z, codebook, weights, impl=cfg.vq_impl, n_active=na)
+    recon = _decode(params, latent, cfg.activation)
+    return ForwardOut(recon, z, indices, e_loss, q_loss)
+
+
 def map_params(fn, params):
-    """Apply `fn` to every leaf of a params dict, keeping its layout."""
-    return {name: [tuple(fn(p) for p in layer) for layer in stack]
-            for name, stack in params.items()}
+    """Apply `fn` to every leaf of a params dict, keeping its layout: each
+    value is a list of (w, b) layers, or one tensor (the 'vq' codebook)."""
+    return {name: ([tuple(fn(p) for p in layer) for layer in value]
+                   if isinstance(value, (list, tuple)) else fn(value))
+            for name, value in params.items()}
+
+
+def param_leaves(params) -> list:
+    """The leaves of a params dict in the JAX package's flatten order: keys
+    sorted, then layers, then (w, b)."""
+    leaves = []
+    for name in sorted(params):
+        value = params[name]
+        if isinstance(value, (list, tuple)):
+            leaves.extend(p for layer in value for p in layer)
+        else:
+            leaves.append(value)
+    return leaves
+
+
+def params_from_leaves(like, leaves):
+    """Inverse of `param_leaves`: `leaves` laid out as the params dict
+    `like`."""
+    it = iter(leaves)
+    built = {}
+    for name in sorted(like):
+        value = like[name]
+        if isinstance(value, (list, tuple)):
+            built[name] = [tuple(next(it) for _ in layer) for layer in value]
+        else:
+            built[name] = next(it)
+    return {name: built[name] for name in like}
 
 
 def gather_variables(params, codebook, fts: torch.Tensor):

@@ -8,8 +8,8 @@ there) or raises; on a CPU tensor it returns `vq_codes_plain`, the same
 arithmetic in plain PyTorch.
 
 The kernel is compiled with nvcc for sm_90a into a shared library with a
-plain C entry point, at first use, into `pgmvae_tpu_torch/_build/` (named by
-a hash of the source and flags), and bound with ctypes.
+plain C entry point, at first use, by `ops/_build.py`, and bound with
+ctypes.
 
 `LAUNCHES` counts kernel launches, so a run can show that its path went
 through the kernel.
@@ -18,67 +18,32 @@ through the kernel.
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
 from pathlib import Path
 
 import torch
+
+from pgmvae_tpu_torch.ops import _build
 
 LAUNCHES = 0
 MAX_D = 128     # widest latent the kernel takes (csrc/vq_argmin.cu)
 
 _SRC = Path(__file__).resolve().parent / 'csrc' / 'vq_argmin.cu'
-_BUILD_DIR = Path(__file__).resolve().parent.parent / '_build'
-_DEFAULT_NVCC = '/usr/local/cuda/bin/nvcc'
-_NVCC_FLAGS = ('-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17',
-               '-O3', '-shared', '-Xcompiler', '-fPIC', '-Xptxas', '-v')
+_FLAGS = ('-O3',)
 _lib = None
-
-
-def _find_nvcc() -> str:
-    for home in (os.environ.get('CUDA_HOME'), os.environ.get('CUDA_PATH')):
-        if home and os.path.isfile(os.path.join(home, 'bin', 'nvcc')):
-            return os.path.join(home, 'bin', 'nvcc')
-    found = shutil.which('nvcc')
-    if found:
-        return found
-    if os.path.isfile(_DEFAULT_NVCC):
-        return _DEFAULT_NVCC
-    raise RuntimeError(
-        f'nvcc not found: the CUDA kernel vq_argmin is built at first use '
-        f'from {_SRC.name} and needs the CUDA toolkit (set CUDA_HOME or put '
-        f'nvcc on PATH)')
 
 
 def library_path() -> Path:
     """Where `build` puts the compiled library for this source and flags."""
-    tag = hashlib.sha256(_SRC.read_bytes()
-                         + ' '.join(_NVCC_FLAGS).encode()).hexdigest()[:16]
-    return _BUILD_DIR / f'libvq_argmin-{tag}.so'
+    return _build.library_path('vq_argmin', _SRC, _build.BASE_FLAGS + _FLAGS)
 
 
 def build() -> ctypes.CDLL:
-    """Compile (once per source) and load the kernel's library. Raises if
-    nvcc is missing or the build fails; the compiler's log (ptxas register
-    and spill counts included) is kept beside the library as `.log`."""
+    """Compile (once per source) and load the kernel's library; see
+    `_build.build`."""
     global _lib
     if _lib is not None:
         return _lib
-    so = library_path()
-    if not so.exists():
-        nvcc = _find_nvcc()
-        _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = so.with_name(f'{so.name}.{os.getpid()}.tmp')
-        cmd = [nvcc, *_NVCC_FLAGS, '-o', str(tmp), str(_SRC)]
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f'nvcc failed with code {proc.returncode}: '
-                               f'{" ".join(cmd)}\n{proc.stderr}')
-        so.with_suffix('.log').write_text(proc.stdout + proc.stderr)
-        os.replace(tmp, so)
-    lib = ctypes.CDLL(str(so))
+    lib = _build.build('vq_argmin', _SRC, _FLAGS)
     lib.vq_argmin.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
                               ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
                               ctypes.c_int, ctypes.c_int, ctypes.c_int,

@@ -1,11 +1,16 @@
-"""Vector-quantization ops, forward only (the port of the inference subset of
-`pgmvae_tpu/ops/quantizer.py`).
+"""Vector-quantization ops (the port of `pgmvae_tpu/ops/quantizer.py`):
+the nearest-code search, the straight-through forward with its losses, the
+EMA codebook statistics and update, dead-code restarts and the naive binary
+quantizer.
 
 Array conventions: z [n_var, B, D], codebook [n_var, D, K], indices
-[n_var, B] int32.
+[n_var, B] int32, counts [n_var, K], dw [n_var, D, K]. Every function
+returns new tensors; none writes into its inputs.
 """
 
 from __future__ import annotations
+
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -61,3 +66,175 @@ def naive_codes(z: torch.Tensor) -> torch.Tensor:
     power = 2 ** torch.arange(dim, dtype=torch.int32, device=z.device)
     bits = torch.clamp(torch.round(z), 0.0, 1.0).to(torch.int32)
     return torch.sum(bits * power, dim=-1, dtype=torch.int32)
+
+
+def _masked_mean(x: torch.Tensor, weights: Optional[torch.Tensor],
+                 n_active: Optional[int] = None) -> torch.Tensor:
+    """Mean over all elements of x [n, B, D], with optional per-sample
+    weights on axis 1 (0 on the padded rows of a ragged batch). With a
+    padded variable axis, `n_active` excludes networks >= n_active from both
+    the sum and the denominator."""
+    n = x.shape[0]
+    if n_active is not None and n_active < n:
+        row = torch.arange(n, device=x.device).view(n, 1, 1)
+        x = x * (row < n_active).to(x.dtype)
+        n = n_active
+    if weights is None:
+        return torch.sum(x) / (n * x.shape[1] * x.shape[2])
+    return torch.sum(x * weights[None, :, None]) / (
+        n * x.shape[2] * torch.sum(weights))
+
+
+class VqOut(NamedTuple):
+    output: torch.Tensor    # [n, B, D] straight-through quantized latents
+    indices: torch.Tensor   # [n, B] code assignments
+    e_loss: torch.Tensor    # commitment loss (scalar)
+    q_loss: torch.Tensor    # codebook loss (scalar; unused in EMA mode)
+
+
+def vq_forward(z: torch.Tensor, codebook: torch.Tensor,
+               weights: Optional[torch.Tensor] = None, impl: str = 'xla',
+               n_active: Optional[int] = None) -> VqOut:
+    """Quantize with straight-through gradients and both latent losses:
+
+    e_loss = mean((sg(q) - z)^2)   commitment
+    q_loss = mean((q - sg(z))^2)   codebook
+    output = z + sg(q - z)         straight-through estimator
+
+    The codes come from `vq_codes` (the CUDA kernel on the card); the
+    codebook's gradient flows through the gather of `vq_quantize`."""
+    indices = vq_codes(z, codebook, impl=impl)
+    quantized = vq_quantize(codebook, indices)
+    e_loss = _masked_mean((quantized.detach() - z) ** 2, weights, n_active)
+    q_loss = _masked_mean((quantized - z.detach()) ** 2, weights, n_active)
+    output = z + (quantized - z).detach()
+    return VqOut(output, indices, e_loss, q_loss)
+
+
+def code_stats(z: torch.Tensor, indices: torch.Tensor, num_codes: int,
+               weights: Optional[torch.Tensor] = None):
+    """Per-variable assignment statistics for the EMA update:
+
+    counts[v,k] = sum_b w_b * 1[indices[v,b]=k]
+    dw[v,:,k]   = sum_b w_b * z[v,b,:] * 1[indices[v,b]=k]
+
+    through a one-hot [n, B, K] and one `torch.bmm`."""
+    onehot = torch.zeros(indices.shape + (num_codes,), dtype=z.dtype,
+                         device=z.device)
+    onehot.scatter_(2, indices.long()[:, :, None], 1.0)              # [n,B,K]
+    if weights is not None:
+        onehot = onehot * weights[None, :, None]
+    counts = torch.sum(onehot, dim=1)                                # [n,K]
+    dw = torch.bmm(z.transpose(1, 2), onehot)                        # [n,D,K]
+    return counts, dw
+
+
+class EmaState(NamedTuple):
+    """EMA-codebook state. With `zero_debias=True` (TF's
+    `assign_moving_average` default) `counts` and `dw` hold the biased
+    shadow accumulators, zero at the start, and `step` drives the
+    correction `1 - decay**step`; with `zero_debias=False` they hold the
+    moving averages and `dw` starts from the codebook."""
+    codebook: torch.Tensor   # [n, D, K]
+    counts: torch.Tensor     # [n, K]
+    dw: torch.Tensor         # [n, D, K]
+    step: torch.Tensor       # int32 scalar
+
+
+def ema_init(codebook: torch.Tensor, zero_debias: bool = True) -> EmaState:
+    dw0 = torch.zeros_like(codebook) if zero_debias else codebook.clone()
+    return EmaState(
+        codebook=codebook,
+        counts=torch.zeros((codebook.shape[0], codebook.shape[2]),
+                           dtype=codebook.dtype, device=codebook.device),
+        dw=dw0,
+        step=torch.zeros((), dtype=torch.int32, device=codebook.device))
+
+
+def _debias(decay: float, step: torch.Tensor, dtype) -> torch.Tensor:
+    return 1.0 - torch.pow(decay, step.to(dtype))
+
+
+def ema_update(state: EmaState, batch_counts: torch.Tensor,
+               batch_dw: torch.Tensor, decay: float, epsilon: float = 1e-5,
+               zero_debias: bool = True) -> EmaState:
+    """One EMA codebook update from batch statistics: moving averages of
+    counts and dw, Laplace smoothing of the cluster sizes, and
+    codebook = dw / smoothed counts."""
+    counts = state.counts * decay + batch_counts * (1.0 - decay)
+    dw = state.dw * decay + batch_dw * (1.0 - decay)
+    step = state.step + 1
+    if zero_debias:
+        bias = _debias(decay, step, state.codebook.dtype)
+        ema_c, ema_w = counts / bias, dw / bias
+    else:
+        ema_c, ema_w = counts, dw
+    k = state.codebook.shape[2]
+    n = torch.sum(ema_c, dim=1, keepdim=True)                        # [n,1]
+    smoothed = (ema_c + epsilon) / (n + k * epsilon) * n             # [n,K]
+    codebook = ema_w / smoothed[:, None, :]
+    return EmaState(codebook=codebook, counts=counts, dw=dw, step=step)
+
+
+def restart_dead_codes(state: EmaState, z: torch.Tensor,
+                       generator: torch.Generator, threshold: float,
+                       decay: float, zero_debias: bool = True,
+                       weights: Optional[torch.Tensor] = None) -> EmaState:
+    """Reseed dead codebook entries from random batch latents: a code whose
+    (debiased) EMA usage is below `threshold` moves to a latent of the
+    batch, drawn for each (variable, code) uniformly over the rows with
+    weight > 0, and its statistics restart at (count=1, dw=latent).
+
+    The draw uses `generator` (on z's device) and no host round trip; the
+    update itself is `_apply_restart`, so tests can feed it the indices
+    the JAX package drew."""
+    n, b, _ = z.shape
+    k = state.codebook.shape[2]
+    u = torch.rand((n, k), generator=generator, device=z.device)
+    if weights is None:
+        ridx = torch.clamp((u * b).long(), max=b - 1)
+    else:
+        # the j-th valid row, j uniform on [0, #valid): searchsorted over
+        # the running count of valid rows
+        valid = torch.cumsum((weights > 0).to(torch.int64), 0)      # [B]
+        j = torch.minimum((u * valid[-1]).long(), valid[-1] - 1)
+        ridx = torch.searchsorted(valid, j.reshape(-1), right=True)
+        ridx = ridx.reshape(n, k)
+    return _apply_restart(state, z, ridx, threshold, decay, zero_debias)
+
+
+def _apply_restart(state: EmaState, z: torch.Tensor, ridx: torch.Tensor,
+                   threshold: float, decay: float,
+                   zero_debias: bool = True) -> EmaState:
+    """The deterministic half of `restart_dead_codes`: ridx [n, K] holds the
+    batch row drawn for each (variable, code)."""
+    if zero_debias:
+        bias = _debias(decay, torch.clamp(state.step, min=1),
+                       state.codebook.dtype)
+    else:
+        bias = torch.ones((), dtype=state.codebook.dtype, device=z.device)
+    dead = state.counts / bias < threshold                           # [n,K]
+    d = z.shape[2]
+    idx = ridx.long()[:, :, None].expand(-1, -1, d)                  # [n,K,D]
+    # [n,D,K], contiguous, so that the codebook taken from it stays
+    # contiguous for the nearest-code kernel
+    candidates = torch.gather(z, 1, idx).transpose(1, 2).contiguous()
+    dead_dk = dead[:, None, :]
+    codebook = torch.where(dead_dk, candidates, state.codebook)
+    counts = torch.where(dead, bias * 1.0, state.counts)
+    dw = torch.where(dead_dk, bias * candidates, state.dw)
+    return EmaState(codebook=codebook, counts=counts, dw=dw, step=state.step)
+
+
+class NaiveOut(NamedTuple):
+    output: torch.Tensor
+    e_loss: torch.Tensor
+
+
+def naive_forward(z: torch.Tensor, weights: Optional[torch.Tensor] = None,
+                  n_active: Optional[int] = None) -> NaiveOut:
+    """loss = mean(-(z-0.5)^2), which pushes latents to 0/1; the output is a
+    hard 0/1 step through the reference's clamp trick."""
+    e_loss = _masked_mean(-((z - 0.5) ** 2), weights, n_active)
+    output = torch.clamp(torch.clamp(z - 0.499999, min=0.0) * 1e7, max=1.0)
+    return NaiveOut(output, e_loss)

@@ -1,0 +1,141 @@
+"""The port's driver and command line against the JAX package's: the same
+ExperimentConfig fields, checks and identifiers, a lossless
+parse_identifier, a `result.txt` line whose identifier is the JAX one, and
+select-on-valid and post-hoc joint-CPT records on synthetic nltcs-shaped
+splits."""
+
+import dataclasses
+import os
+
+import numpy as np
+import pytest
+
+from pgmvae_tpu.driver import ExperimentConfig as JExp
+from pgmvae_tpu.utils.logging import parse_identifier as jparse
+from pgmvae_tpu.utils.logging import run_identifier as jrun_identifier
+from pgmvae_tpu_torch import run as trun
+from pgmvae_tpu_torch.driver import ExperimentConfig as TExp
+from pgmvae_tpu_torch.driver import run_experiment
+from pgmvae_tpu_torch.utils.logging import parse_identifier, run_identifier
+
+BASE = dict(name='nltcs', embedding=50, dim=10)
+GRID = [
+    {},
+    dict(batch=128, epoch=100, rate=0.01, cost=0.25, ema=True, seed=1,
+         adam_impl='pallas'),
+    dict(adam_impl='fused', note='run-a'),
+    dict(adam_impl='fused_bf16', compute_dtype='bf16'),
+    dict(name='bbc', embedding=50, dim=20, batch=250, epoch=600, rate=0.003,
+         cost=0.05, ema=True, decay=0.9, dead_code_threshold=0.25,
+         fan_mode='per_network', select_on_valid=50),
+    dict(quantizer='naive', units=(8, 6), zero_debias=False,
+         precision='highest', activation='gelu', l2_reg=0.001),
+    dict(cpt_parents=3, cpt_parents_eval=(1, 4), cpt_parents_mix=True,
+         first_layer='rank1', packed_seeds=3),
+]
+
+
+def test_config_fields_and_defaults_match_jax():
+    jf = [(f.name, f.default) for f in dataclasses.fields(JExp)]
+    tf = [(f.name, f.default) for f in dataclasses.fields(TExp)]
+    assert tf == jf
+
+
+@pytest.mark.parametrize('over', GRID)
+def test_identifier_equals_jax(over):
+    kw = {**BASE, **over}
+    ident = TExp(**kw).identifier
+    assert ident == JExp(**kw).identifier
+    assert parse_identifier(ident) == jparse(ident)
+    assert TExp(**parse_identifier(ident)).identifier == ident
+
+
+@pytest.mark.parametrize('over,match', [
+    (dict(cpt_parents=13), 'cpt_parents'),
+    (dict(cpt_parents_eval=(2, -1)), 'cpt_parents_eval'),
+    (dict(cpt_parents_mix=True), 'cpt-parents-eval'),
+])
+def test_config_checks_match_jax(over, match):
+    for cls in (JExp, TExp):
+        with pytest.raises(ValueError, match=match):
+            cls(**BASE, **over)
+
+
+def test_run_identifier_refuses_ambiguous_notes_as_jax_does():
+    for fn in (run_identifier, jrun_identifier):
+        with pytest.raises(ValueError, match='ambiguous'):
+            fn('nltcs', 50, 10, 128, 100, 0.01, 0.25, True, 0.99, 1,
+               note='x_pk-3')
+
+
+def _write_splits(root, rows=(600, 200, 200), seed=0):
+    """nltcs-shaped splits (16 columns) in the TRW format: one row of
+    comma-separated 0/1 per line."""
+    rng = np.random.default_rng(seed)
+    rate = rng.random(16)
+    for split, n in zip(('train', 'valid', 'test'), rows):
+        y = (rng.random((n, 16)) < rate).astype(np.uint8)
+        with open(os.path.join(root, f'nltcs.{split}.data'), 'w') as f:
+            f.write('\n'.join(','.join(map(str, r)) for r in y) + '\n')
+
+
+def test_cli_writes_the_jax_identifier(tmp_path, monkeypatch):
+    _write_splits(tmp_path)
+    monkeypatch.chdir(tmp_path)
+    flags = ['-n', 'nltcs', '-k', '50', '-d', '10', '-b', '128', '-e', '2',
+             '-r', '0.01', '-c', '0.25', '-m', '-s', '1',
+             '--adam-impl', 'pallas']
+    rc = trun.main(flags + ['--device', '-1', '--data-dir', str(tmp_path),
+                            '--result-file', str(tmp_path / 'result.txt')])
+    assert rc == 0
+    lines = (tmp_path / 'result.txt').read_text().splitlines()
+    assert len(lines) == 1
+    ident, rest = lines[0].split(' ', 1)
+    assert ident == jrun_identifier('nltcs', 50, 10, 128, 2, 0.01, 0.25,
+                                    True, 0.99, 1, adam_impl='pallas')
+    assert ident.endswith('_ad-pallas')
+    fields = dict(kv.split(':') for kv in rest.split())
+    assert set(fields) == {'pll-train', 'pll-valid', 'pll-test', 'cmll-test'}
+    assert all(np.isfinite(float(fields[k])) and float(fields[k]) < 0
+               for k in ('pll-train', 'pll-valid', 'pll-test'))
+    assert fields['cmll-test'] == '1'
+    # per-epoch metrics go to logs/tuning/<identifier>/metrics.jsonl
+    assert (tmp_path / 'logs' / 'tuning' / ident / 'metrics.jsonl').exists()
+
+
+def test_select_on_valid_picks_the_best_block(tmp_path):
+    _write_splits(tmp_path, seed=1)
+    base = dict(name='nltcs', embedding=20, dim=6, batch=256, epoch=6,
+                rate=0.01, ema=True, seed=0, note='seltest',
+                data_dir=str(tmp_path))
+    plain = run_experiment(TExp(**base), device='cpu')
+    sel = run_experiment(TExp(**base, select_on_valid=2), device='cpu')
+    assert 'best_epoch' not in plain and plain['platform'] == 'cpu'
+    assert sel['best_epoch'] in (2, 4, 6)
+    # the blocks follow plain fit's trajectory: the kept snapshot can only
+    # match or beat the final epoch's valid PLL
+    assert sel['pll_valid'] >= plain['pll_valid'] - 1e-9
+    assert 'sov-2' in sel['identifier'] and 'sov' not in plain['identifier']
+
+
+def test_posthoc_records_carry_the_jax_identifiers(tmp_path):
+    _write_splits(tmp_path, seed=2)
+    kw = dict(name='nltcs', embedding=10, dim=4, batch=256, epoch=1,
+              rate=0.01, ema=True, seed=0, cpt_parents=1,
+              cpt_parents_eval=(2, 0), cpt_parents_mix=True)
+    res = run_experiment(TExp(**kw, data_dir=str(tmp_path)), device='cpu')
+    jexp = JExp(**kw)
+    assert res['identifier'] == dataclasses.replace(
+        jexp, cpt_parents_eval=(), cpt_parents_mix=False).identifier
+    ids = [r['identifier'] for r in res['posthoc']]
+    assert ids == [dataclasses.replace(jexp, cpt_parents_eval=(m,),
+                                       cpt_parents_mix=False).identifier
+                   for m in (2, 0)] + [jexp.identifier]
+    mix = res['posthoc'][-1]
+    assert mix['mix_candidates'] == [0, 1, 2]
+    assert sum(mix['mix_m_histogram'].values()) == 16
+    # each variable picks its best valid contribution: the mix is at least
+    # as good on valid as every candidate, the primary M included
+    assert mix['pll_valid'] >= max(
+        [r['pll_valid'] for r in res['posthoc'][:-1]]
+        + [res['pll_valid']]) - 1e-9

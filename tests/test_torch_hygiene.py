@@ -1,7 +1,7 @@
 """Rules of the PyTorch/CUDA port that no parity test shows: it never
 imports the JAX side, it runs on CUDA unless told otherwise, its kernel
-wrapper takes the plain version only for CPU tensors, and a missing nvcc is
-a clear error."""
+wrappers take the plain versions only for CPU tensors, a missing nvcc is a
+clear error, and features not ported yet refuse to run."""
 
 import os
 import pkgutil
@@ -14,10 +14,13 @@ import pytest
 import torch
 
 import pgmvae_tpu_torch
+from pgmvae_tpu_torch import driver
+from pgmvae_tpu_torch import run as trun
 from pgmvae_tpu_torch.models import vqvae as tv
-from pgmvae_tpu_torch.ops import cuda_vq
+from pgmvae_tpu_torch.ops import _build, cuda_vq, fused_adam
 from pgmvae_tpu_torch.serving import PgmModel
 from pgmvae_tpu_torch.stage2 import Stage2
+from pgmvae_tpu_torch.train import Trainer
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 BLOCKED = ('jax', 'flax', 'optax', 'pgmvae_tpu')
@@ -58,7 +61,10 @@ def test_port_imports_without_jax_side():
                          capture_output=True, text=True, env=env, cwd=ROOT,
                          timeout=300)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) == len(_port_modules()) >= 12
+    assert int(out.stdout.strip()) == len(_port_modules()) >= 19
+    assert {'pgmvae_tpu_torch.' + m for m in (
+        'ops._build', 'ops.fused_adam', 'train', 'driver', 'run',
+        'utils.logging')} <= set(_port_modules())
 
 
 def test_no_import_line_names_the_jax_side():
@@ -85,6 +91,8 @@ def test_entry_points_default_to_cuda_and_raise_without_it(monkeypatch):
         Stage2(CFG)
     with pytest.raises(RuntimeError, match="device='cpu'"):
         PgmModel(CFG, params, codebook, dist)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        Trainer(CFG, 0.01, 8, 40)
     assert pgmvae_tpu_torch.resolve_device('cpu') == torch.device('cpu')
 
 
@@ -123,13 +131,97 @@ def test_wrapper_refuses_devices_it_has_no_kernel_for():
         cuda_vq.vq_codes_fused(z, w)
 
 
-def test_build_without_nvcc_is_a_clear_error(monkeypatch, tmp_path):
+def _no_nvcc(monkeypatch, tmp_path):
     monkeypatch.setattr(cuda_vq, '_lib', None)
-    monkeypatch.setattr(cuda_vq, '_BUILD_DIR', tmp_path / '_build')
-    monkeypatch.setattr(cuda_vq, '_DEFAULT_NVCC', str(tmp_path / 'no-nvcc'))
-    monkeypatch.setattr(cuda_vq.shutil, 'which', lambda name: None)
+    monkeypatch.setattr(fused_adam, '_lib', None)
+    monkeypatch.setattr(_build, 'BUILD_DIR', tmp_path / '_build')
+    monkeypatch.setattr(_build, 'DEFAULT_NVCC', str(tmp_path / 'no-nvcc'))
+    monkeypatch.setattr(_build.shutil, 'which', lambda name: None)
     monkeypatch.delenv('CUDA_HOME', raising=False)
     monkeypatch.delenv('CUDA_PATH', raising=False)
-    with pytest.raises(RuntimeError, match='nvcc not found'):
-        cuda_vq.build()
+
+
+def test_build_without_nvcc_is_a_clear_error(monkeypatch, tmp_path):
+    _no_nvcc(monkeypatch, tmp_path)
+    for module, name in ((cuda_vq, 'vq_argmin'), (fused_adam, 'adam')):
+        with pytest.raises(RuntimeError, match=f'nvcc not found.*{name}'):
+            module.build()
     assert not (tmp_path / '_build').exists()
+
+
+def test_kernels_build_for_sm90a_and_adam_without_fma(monkeypatch,
+                                                      tmp_path):
+    """Each kernel's nvcc line: Hopper's sm_90a, the source of the repo,
+    -fmad=false for adam only (its bit-equality with the plain version
+    rests on it), and never --use_fast_math. A failing compiler stands in
+    for nvcc, so the line comes back in the error."""
+    _no_nvcc(monkeypatch, tmp_path)
+    fake = tmp_path / 'nvcc'
+    fake.write_text('#!/bin/sh\nexit 3\n')
+    fake.chmod(0o755)
+    monkeypatch.setattr(_build, 'DEFAULT_NVCC', str(fake))
+    for module, src, fmad in ((cuda_vq, 'vq_argmin.cu', False),
+                              (fused_adam, 'adam.cu', True)):
+        with pytest.raises(RuntimeError, match='nvcc failed with code 3') as e:
+            module.build()
+        cmd = str(e.value).splitlines()[0]
+        assert 'arch=compute_90a,code=sm_90a' in cmd and cmd.endswith(src)
+        assert ('-fmad=false' in cmd) is fmad
+        assert 'fast_math' not in cmd
+        assert module.library_path().parent == tmp_path / '_build'
+    assert cuda_vq.library_path() != fused_adam.library_path()
+
+
+def test_adam_on_cpu_tensors_launches_nothing():
+    params = {'enc': [(torch.ones((2, 3, 4)), torch.zeros((2, 1, 4)))]}
+    grads = tv.map_params(lambda p: torch.full_like(p, 0.5), params)
+    st = fused_adam.adam_init(params, 0.01)
+    before = fused_adam.LAUNCHES
+    st = fused_adam.adam_update(params, grads, st)
+    assert fused_adam.LAUNCHES == before == 0
+    assert int(st.count) == 1
+    # the first step moves every parameter by lr against its gradient
+    np.testing.assert_allclose(params['enc'][0][0].numpy(), 0.99, rtol=1e-5)
+
+
+@pytest.mark.parametrize('kind', ['fused_bf16', 'bf16'])
+def test_trainer_refuses_what_is_not_ported(kind):
+    cfg = CFG._replace(compute_dtype='bf16') if kind == 'bf16' else CFG
+    adam_impl = 'fused_bf16' if kind == 'fused_bf16' else None
+    item = 'A3' if kind == 'fused_bf16' else 'A4'
+    with pytest.raises(NotImplementedError, match=f'ROADMAP.md {item}'):
+        Trainer(cfg, 0.01, 8, 40, adam_impl=adam_impl, device='cpu')
+    with pytest.raises(ValueError, match='unknown adam_impl'):
+        Trainer(CFG, 0.01, 8, 40, adam_impl='sgd', device='cpu')
+    tr = Trainer(CFG, 0.01, 8, 40, device='cpu')
+    with pytest.raises(NotImplementedError, match='packed'):
+        tr.fit_packed(None, None, 1, None)
+    y = np.zeros((40, 6), np.float32)
+    tr.stream_bytes = y.nbytes - 1
+    with pytest.raises(NotImplementedError, match='streaming'):
+        tr.fit(tr.init_state(0), y, 1, seed=0)
+
+
+UNPORTED = [
+    (['--resume', 'ckpt'], dict(resume='ckpt'), 'A7'),
+    (['--checkpoint', 'ckpt'], dict(checkpoint='ckpt'), 'A7'),
+    (['--cmll'], dict(cmll=True), 'A8'),
+    (['--mesh-model', '2'], dict(mesh_model=2), 'A11'),
+    (['--mesh-data', '2'], dict(mesh_data=2), 'A11'),
+    (['--compute-dtype', 'bf16'], dict(compute_dtype='bf16'), 'A4'),
+    (['--adam-impl', 'fused_bf16'], dict(adam_impl='fused_bf16'), 'A3'),
+]
+
+
+@pytest.mark.parametrize('flags,fields,item', UNPORTED)
+def test_unported_features_raise_and_the_cli_exits_2(flags, fields, item,
+                                                     capsys, tmp_path):
+    exp = driver.ExperimentConfig(name='nltcs', embedding=5, dim=3,
+                                  **fields)
+    with pytest.raises(NotImplementedError, match=f'ROADMAP.md {item}'):
+        driver.run_experiment(exp, device='cpu')
+    rc = trun.main(['-n', 'nltcs', '-k', '5', '-d', '3', '--device', '-1',
+                    '--result-file', str(tmp_path / 'r.txt')] + flags)
+    assert rc == 2
+    assert f'ROADMAP.md {item}' in capsys.readouterr().err
+    assert not (tmp_path / 'r.txt').exists()
