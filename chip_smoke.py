@@ -8,11 +8,14 @@ Run from the root of a checkout, with no arguments:
 It builds the port's two CUDA kernels (the nearest-code search and the Adam
 update, one nvcc each, started together) from the sources in the checkout,
 holds each kernel against its plain PyTorch version at the shapes of the
-main paths, and drives both halves of the system at the full width of the
-bbc model: the serving slice (stage-2 CPT/PLL and PgmModel) and stage-1
-training (Trainer.fit, 14 steps), each with the kernels' launch counts set
-to 0 just before it and read just after; then the command line end to end
-on nltcs-shaped data. Each phase prints one JSON line; any failed check
+main paths (timed by CUDA events over back-to-back calls, `ms`, and by the
+profiler's device time of the kernels alone, `device_ms`), and drives the
+system's paths, each with the kernels' launch counts set to 0 just before
+it and read just after: at the full width of the bbc model the serving
+slice (stage-2 CPT/PLL and PgmModel) and stage-1 training (Trainer.fit, 14
+steps); at the width of the kdd sweep (K=4096) 200 train steps, a stage-2
+CPT and the test split's PLL; then the command line end to end on
+nltcs-shaped data. Each phase prints one JSON line; any failed check
 raises, so the script exits non-zero. The last three lines are the kernel
 summary, the card's name and power limit as nvidia-smi gives them, and
 `{"ok": true, "device": {...}}`.
@@ -40,11 +43,18 @@ HBM_BYTES = 3.35e12     # H100 SXM device memory rate
 NEAR_TIE_REL = 1e-5
 # (n, B, D, K): the four shapes of tests/test_pallas_vq.py, the slices' own
 # (a stage-2 chunk, the bbc test split served at once, a bbc train batch),
-# one large K
+# one large K, and the kdd sweep's train batch and stage-2 chunk
 KERNEL_SHAPES = [(3, 9, 5, 7), (5, 32, 8, 130), (4, 17, 10, 50),
                  (2, 64, 16, 1024), (1058, 32, 20, 50), (1058, 330, 20, 50),
-                 (1058, 250, 20, 50), (1058, 256, 20, 4096)]
+                 (1058, 250, 20, 50), (1058, 256, 20, 4096),
+                 (64, 32, 10, 4096), (64, 118, 10, 4096)]
 MAIN_SHAPE = (1058, 32, 20, 50)   # the stage-2 chunk: most main-path launches
+TIE_SPLIT = (64, 32, 10, 4096)    # ties across code tiles and strips
+PROFILE_CALLS = 20                # calls averaged by device_ms
+VQ_NAMES = ('vq_argmin_kernel', 'vq_merge_kernel')   # the kernel's launches
+# the reference's shipped sweep (batch-job.sh:43-52): kdd, K=4096, D=10,
+# batch 32, lr 2e-4, cost 0.35 (the first of its four), seed 5, EMA
+KDD_ROWS, KDD_BATCH, KDD_LR, KDD_COST, KDD_SEED = 6400, 32, 2e-4, 0.35, 5
 # Adam leaves: the shapes of tests/test_fused_adam.py, bbc's three kinds of
 # weight leaf (first/last layer, hidden layer, a bias), and one leaf whose
 # pointer is not 16-byte aligned (the kernel's scalar path)
@@ -59,8 +69,11 @@ def emit(phase: str, **fields) -> None:
 
 
 def cuda_ms(fn, target_s: float = 0.25) -> float:
-    """Mean device time of fn() in ms, by CUDA events over a run of calls
-    sized to take about `target_s`, after a warm-up call."""
+    """Mean time of fn() in ms, by CUDA events over a run of calls sized to
+    take about `target_s`, after a warm-up call. The host makes the calls
+    back to back, so where its dispatch of a call takes longer than the
+    call's kernels (below about 20 us) this times the dispatch; `device_ms`
+    times the kernels alone."""
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
@@ -77,6 +90,24 @@ def cuda_ms(fn, target_s: float = 0.25) -> float:
     end.record()
     end.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms(fn, calls: int = PROFILE_CALLS) -> float:
+    """Device time of fn() in ms: the sum of its CUDA kernels' device time
+    (torch.profiler, as profile_run reads it), averaged over `calls` warm
+    calls. Unlike cuda_ms it leaves out the host's dispatch between calls."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    total_us = sum(e.self_device_time_total for e in prof.key_averages()
+                   if e.device_type == torch.autograd.DeviceType.CUDA)
+    assert total_us > 0, 'the profiler saw no device time'
+    return total_us / 1e3 / calls
 
 
 def bound(n: int, b: int, d: int, k: int):
@@ -160,16 +191,56 @@ def phase_build():
                    (('vq_argmin', cuda_vq), ('adam', fused_adam))}
         seconds = {name: f.result() for name, f in futures.items()}
     vq = _ptxas(cuda_vq.library_path().with_suffix('.log'))
-    dpad = {e.split('kernelILi')[1].split('E')[0]: lines
-            for e, lines in vq.items() if 'kernelILi' in e}
+    # by template arguments: vq_argmin_kernel<DPAD, RB, SUB> -> 'DPAD_RB_SUB'
+    dpad = {}
+    for e, lines in vq.items():
+        if 'kernelILi' in e:
+            args = e.split('kernelILi')[1].split('ELi')[:3]
+            dpad['_'.join(args[:2] + [args[2].split('E')[0]])] = lines
     adam = {('vector' if 'ILb1E' in e else 'scalar'): lines
             for e, lines in _ptxas(
                 fused_adam.library_path().with_suffix('.log')).items()}
     emit('build', seconds=seconds, wall_seconds=time.time() - t0,
          libraries=[cuda_vq.library_path().name,
                     fused_adam.library_path().name],
-         ptxas_dpad24=dpad.get('24'), ptxas_dpad128=dpad.get('128'),
+         ptxas_vq={key: dpad.get(key) for key in ('16_4_1', '16_4_4',
+                                                   '24_8_1', '24_8_4',
+                                                   '128_4_1')},
          ptxas_adam=adam)
+
+
+def _tie_edges():
+    """Code ranges (first copy, repeat) that straddle the kernel's code tile
+    edge inside a strip and its strip edge between blocks at TIE_SPLIT,
+    16 codes each side of the edge."""
+    from pgmvae_tpu_torch.ops import cuda_vq
+    p = cuda_vq.plan(*TIE_SPLIT)
+    assert p.strips > 1 and p.strip_k > p.tk, p
+    return [(range(e - 16, e), range(e, e + 16)) for e in (p.tk, p.strip_k)]
+
+
+def _kernel_case(kind, n, b, d, k, gen):
+    """Inputs (z, w) of one kernel case on the card."""
+    if kind == 'shape':
+        return (torch.randn((n, b, d), generator=gen, device='cuda'),
+                torch.randn((n, d, k), generator=gen, device='cuda'))
+    if kind in ('tie', 'tie_split'):     # every code identical
+        return (torch.zeros((n, b, d), device='cuda'),
+                torch.ones((n, d, k), device='cuda'))
+    w = torch.randn((n, d, k), generator=gen, device='cuda')
+    if kind == 'tie_tiles':              # codes 64..127 repeat codes 0..63
+        w[:, :, 64:128] = w[:, :, 0:64]
+        return torch.randn((n, b, d), generator=gen, device='cuda'), w
+    # tie_strips: repeated codes across the tile and the strip edge, each
+    # sample placed next to one first copy, so the pair is its nearest
+    src = []
+    for first, repeat in _tie_edges():
+        w[:, :, repeat.start:repeat.stop] = w[:, :, first.start:first.stop]
+        src.extend(first)
+    src = torch.tensor(src, device='cuda')[torch.arange(b) % len(src)]
+    z = w[:, :, src].transpose(1, 2).contiguous()
+    z += 1e-3 * torch.randn(z.shape, generator=gen, device='cuda')
+    return z, w
 
 
 def phase_kernel():
@@ -177,27 +248,23 @@ def phase_kernel():
     gen = torch.Generator(device='cuda').manual_seed(SEED)
     rows, max_err = {}, 0.0
     cases = ([('shape', s) for s in KERNEL_SHAPES]
-             + [('tie', (1, 8, 4, 12)), ('tie_tiles', (2, 40, 8, 130))])
+             + [('tie', (1, 8, 4, 12)), ('tie_tiles', (2, 40, 8, 130)),
+                ('tie_split', TIE_SPLIT), ('tie_strips', TIE_SPLIT)])
     for kind, (n, b, d, k) in cases:
-        if kind == 'shape':
-            z = torch.randn((n, b, d), generator=gen, device='cuda')
-            w = torch.randn((n, d, k), generator=gen, device='cuda')
-        elif kind == 'tie':          # every code identical
-            z = torch.zeros((n, b, d), device='cuda')
-            w = torch.ones((n, d, k), device='cuda')
-        else:                        # codes 64..127 repeat codes 0..63:
-            #                          ties across the kernel's K tiles
-            z = torch.randn((n, b, d), generator=gen, device='cuda')
-            w = torch.randn((n, d, k), generator=gen, device='cuda')
-            w[:, :, 64:128] = w[:, :, 0:64]
+        z, w = _kernel_case(kind, n, b, d, k, gen)
         got = cuda_vq.vq_codes_fused(z, w)
         ref = cuda_vq.vq_codes_plain(z, w)
         torch.cuda.synchronize()
-        if kind == 'tie':
+        # a repeated code scores bit-equal to its first copy: the first
+        # must win
+        if kind in ('tie', 'tie_split'):
             assert int(got.max()) == 0 and int(ref.max()) == 0, kind
-        elif kind == 'tie_tiles':    # a repeated code scores bit-equal to
-            #                          its first copy: the first must win
+        elif kind == 'tie_tiles':
             assert not bool(((got >= 64) & (got < 128)).any()), kind
+        elif kind == 'tie_strips':
+            for _, repeat in _tie_edges():
+                assert not bool(((got >= repeat.start)
+                                 & (got < repeat.stop)).any()), kind
         mism, gap = near_ties(z, w, got, ref)
         max_err = max(max_err, gap)
         row = dict(kind=kind, shape=[n, b, d, k], mismatches=mism,
@@ -205,12 +272,17 @@ def phase_kernel():
         if kind == 'shape':
             w2 = torch.sum(w * w, dim=1, keepdim=True)
             bms, by = bound(n, b, d, k)
-            row.update(
-                ms=cuda_ms(lambda: cuda_vq.vq_codes_fused(z, w)),
-                plain_ms=cuda_ms(lambda: cuda_vq.vq_codes_plain(z, w)),
-                library_ms=cuda_ms(
-                    lambda: torch.baddbmm(w2, z, w, alpha=-2).argmin(-1)),
-                bound_ms=bms, bound_by=by)
+            fns = {'': lambda: cuda_vq.vq_codes_fused(z, w),
+                   'plain_': lambda: cuda_vq.vq_codes_plain(z, w),
+                   'library_': lambda: torch.baddbmm(
+                       w2, z, w, alpha=-2).argmin(-1)}
+            for name, fn in fns.items():
+                row[name + 'ms'] = cuda_ms(fn)
+                row[name + 'device_ms'] = device_ms(fn)
+            row.update(bound_ms=bms, bound_by=by,
+                       bound_share=bms / row['device_ms'],
+                       vs_library=row['library_device_ms']
+                       / row['device_ms'])
         rows[(kind, n, b, d, k)] = row
         emit('kernel', **row)
     return rows, max_err
@@ -275,9 +347,14 @@ def phase_kernel_adam():
     state = fused_adam.adam_init(params, LR, EPS)
     numel = sum(p.numel() for p in leaves)
     before = fused_adam.LAUNCHES
-    ms = cuda_ms(lambda: fused_adam.adam_update(params, grads, state))
-    plain_ms = cuda_ms(lambda: fused_adam.adam_update_plain(params, grads,
-                                                            state))
+
+    def kernel():
+        fused_adam.adam_update(params, grads, state)
+
+    def plain():
+        fused_adam.adam_update_plain(params, grads, state)
+    ms, kernel_dev = cuda_ms(kernel), device_ms(kernel)
+    plain_ms, plain_dev = cuda_ms(plain), device_ms(plain)
     fused_adam.LAUNCHES = before          # timing launches are not counted
     # yardstick only: PyTorch's own fused Adam over the same leaves (it
     # adds eps after sqrt(v)/sqrt(bc2): the same bytes, other arithmetic)
@@ -285,10 +362,12 @@ def phase_kernel_adam():
     for p, g in zip(lib_leaves, vqvae.param_leaves(grads)):
         p.grad = g
     opt = torch.optim.Adam(lib_leaves, lr=LR, eps=EPS, fused=True)
-    library_ms = cuda_ms(opt.step)
+    library_ms, library_dev = cuda_ms(opt.step), device_ms(opt.step)
     del opt, lib_leaves
     row = dict(leaves=len(leaves), params=numel, launches_per_step=len(
         leaves), ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+        device_ms=kernel_dev, plain_device_ms=plain_dev,
+        library_device_ms=library_dev,
         bound_ms=_leaf_bytes_bound(numel), bound_by='bytes',
         achieved_tb_s=28.0 * numel / (ms * 1e-3) / 1e12,
         shapes=[list(p.shape) for p in leaves])
@@ -427,14 +506,17 @@ def phase_slice():
          tie_flip_max_gap=max_gap)
     profile_run('profile_stage2_test_pll',
                 lambda: s2.pseudo_log_likelihood(params, codebook, y_test,
-                                                 dist))
-    profile_run('profile_serving_score', lambda: model.score(y_test))
+                                                 dist), watch=VQ_NAMES)
+    profile_run('profile_serving_score', lambda: model.score(y_test),
+                watch=VQ_NAMES)
     return launches, max_gap
 
 
-def profile_run(phase: str, fn, top: int = 8) -> None:
+def profile_run(phase: str, fn, top: int = 8, watch=()) -> None:
     """Device time by kernel (torch.profiler) of one warm call of fn, and
-    the device's busy share of that call's unprofiled wall time."""
+    the device's busy share of that call's unprofiled wall time; for each
+    name in `watch`, the device time and count of the kernels whose name
+    holds it."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -459,8 +541,10 @@ def profile_run(phase: str, fn, top: int = 8) -> None:
            if e.device_type == torch.autograd.DeviceType.CPU
            and e.self_device_time_total > 0]
     ops.sort(key=lambda r: -r[1])
+    watched = {w: [sum(r[1] for r in rows if w in r[0]),
+                   sum(r[2] for r in rows if w in r[0])] for w in watch}
     emit(phase, wall_ms=wall_ms, device_ms=device_ms,
-         busy_share=device_ms / wall_ms,
+         busy_share=device_ms / wall_ms, watched=watched,
          top=[[name[:80], ms, count] for name, ms, count in rows[:top]],
          top_ops=[[name[:60], ms, count] for name, ms, count in ops[:top]])
 
@@ -619,8 +703,111 @@ def phase_train():
          all_kernels_vs_plain_step_max_rel=rel, step_code_flips=flips,
          step_flip_gap=gap, pll_trained=pll, stage2_seconds=secs)
     profile_run('profile_train_step',
-                lambda: tr.train_step(state, yb, w), top=10)
+                lambda: tr.train_step(state, yb, w), top=10, watch=VQ_NAMES)
     return launches, adam_abs, gap
+
+
+def _kdd_like_splits():
+    """Synthetic binary data at kdd's shape (64 columns, 180092/19907/34955
+    rows): independent sparse columns, made with numpy from SEED."""
+    from pgmvae_tpu_torch.registry import REGISTRY
+    info = REGISTRY['kdd']
+    rng = np.random.default_rng(SEED)
+    rate = rng.beta(0.5, 8.0, size=info.n_var)
+    return {split: (rng.random((rows, info.n_var)) < rate).astype(np.float32)
+            for split, rows in (('train', info.n_train),
+                                ('valid', info.n_valid),
+                                ('test', info.n_test))}
+
+
+def phase_train_kdd():
+    """The kdd sweep's cell at its full width (n_var 64, units 50_40_30_20,
+    D=10, K=4096, EMA, batch 32) through both kernels, cut to one epoch of
+    200 steps over the first KDD_ROWS rows, a stage-2 CPT on those rows and
+    the PLL of the whole test split; each part counted. Then a kernel step
+    against a plain step, the test PLL against a run through the plain
+    version, and a profile of one warm step."""
+    from pgmvae_tpu_torch.models import vqvae
+    from pgmvae_tpu_torch.ops import cuda_vq, fused_adam
+    from pgmvae_tpu_torch.registry import REGISTRY
+    from pgmvae_tpu_torch.stage2 import Stage2
+    from pgmvae_tpu_torch.train import Trainer
+
+    info = REGISTRY['kdd']
+    cfg = vqvae.VqVaeConfig(n_var=info.n_var, units=info.units, dim=10,
+                            num_codes=4096, cost=KDD_COST, quantizer='ema')
+    splits = _kdd_like_splits()
+    y = splits['train'][:KDD_ROWS]
+    y_test = splits['test']
+    tr = Trainer(cfg, KDD_LR, KDD_BATCH, y.shape[0], adam_impl='pallas')
+    state = tr.init_state(torch.Generator(device='cuda').manual_seed(
+        KDD_SEED))
+    n_leaves = len(vqvae.param_leaves(state.params))
+    s2 = Stage2(cfg)
+    torch.cuda.synchronize()
+
+    # ---- the training path, counted
+    cuda_vq.LAUNCHES = fused_adam.LAUNCHES = 0
+    t0 = time.time()
+    state, hist = tr.fit(state, y, 1, seed=KDD_SEED)
+    torch.cuda.synchronize()
+    fit_seconds = time.time() - t0
+    launches = {'vq_argmin': cuda_vq.LAUNCHES, 'adam': fused_adam.LAUNCHES}
+    # ---- the stage-2 path, counted
+    cb = tr.codebook(state)
+    cuda_vq.LAUNCHES = 0
+    t0 = time.time()
+    dist = s2.cpt(state.params, cb, y)
+    pll_test = s2.pseudo_log_likelihood(state.params, cb, y_test, dist)
+    stage2_seconds = time.time() - t0
+    s2_launches = cuda_vq.LAUNCHES
+    # ---- end of the counted runs
+
+    steps = tr.steps_per_epoch
+    chunks = -(-y.shape[0] // s2.chunk) + -(-y_test.shape[0] // s2.chunk)
+    assert steps == 200 and s2.chunk == 118 and chunks == 55 + 297, (
+        steps, s2.chunk, chunks)
+    assert launches == {'vq_argmin': steps, 'adam': steps * n_leaves}, \
+        launches
+    assert s2_launches == chunks, (s2_launches, chunks)
+    assert all(np.isfinite(list(m)).all() for m in hist), hist
+    assert np.isfinite(pll_test) and pll_test < 0, pll_test
+
+    yb = torch.from_numpy(y[:KDD_BATCH]).cuda()
+    w = torch.ones(KDD_BATCH, device='cuda')
+    adam_abs, rel, flips, gap = _kernel_vs_plain_step(tr, state, yb, w)
+    with mock.patch.object(cuda_vq, 'vq_codes_fused', cuda_vq.vq_codes_plain):
+        pll_plain = s2.pseudo_log_likelihood(state.params, cb, y_test, dist)
+    s2_flips, s2_gap = 0, 0.0
+    if abs(pll_test - pll_plain) > 1e-9:     # account for tie-flips, or fail
+        z, kc, pc = _chunk_codes(s2, state.params, cb, y_test)
+        s2_flips, s2_gap = near_ties(z, cb, kc, pc)
+        assert s2_flips > 0, (pll_test, pll_plain)
+    emit('train_kdd', model=dict(n_var=cfg.n_var, units=list(cfg.units),
+                                 dim=cfg.dim, num_codes=cfg.num_codes,
+                                 quantizer=cfg.quantizer, decay=cfg.decay,
+                                 cost=cfg.cost, fan_mode=cfg.fan_mode,
+                                 lr=KDD_LR, batch=KDD_BATCH, seed=KDD_SEED,
+                                 adam_impl='pallas'),
+         splits={s: int(v.shape[0]) for s, v in splits.items()},
+         reduced=[f'200 steps: one epoch over the first {KDD_ROWS} train '
+                  f'rows (the sweep: 200 epochs over 180092)',
+                  f'stage 2: CPT on those {KDD_ROWS} rows and the PLL of '
+                  f'the test split only',
+                  'synthetic independent columns, not kdd data'],
+         steps=steps, launches=launches, stage2_launches=s2_launches,
+         stage2_chunk=s2.chunk, fit_seconds=fit_seconds,
+         steps_per_s=steps / fit_seconds, stage2_seconds=stage2_seconds,
+         epoch_metrics=[m._asdict() for m in hist], pll_test=pll_test,
+         pll_test_plain_kernel_off=pll_plain,
+         adam_kernel_vs_plain_step_max_abs=adam_abs,
+         all_kernels_vs_plain_step_max_rel=rel, step_code_flips=flips,
+         step_flip_gap=gap, stage2_code_flips=s2_flips,
+         stage2_flip_gap=s2_gap)
+    profile_run('profile_train_kdd_step',
+                lambda: tr.train_step(state, yb, w), top=10, watch=VQ_NAMES)
+    return {'train': launches['vq_argmin'], 'stage2': s2_launches,
+            'adam': launches['adam']}, max(gap, s2_gap), adam_abs
 
 
 def _write_nltcs_like(root: str) -> None:
@@ -677,29 +864,33 @@ def main() -> int:
     launches, slice_err = phase_slice()
     small_err = phase_small_reference()
     train_launches, train_err, train_gap = phase_train()
+    kdd_launches, kdd_gap, kdd_adam_err = phase_train_kdd()
     phase_cli()
     main_row = rows[('shape',) + MAIN_SHAPE]
     emit('done', seconds=time.time() - t_start)
+    vq_paths = {'serving': launches, 'train': train_launches['vq_argmin'],
+                'train_kdd': kdd_launches['train'],
+                'stage2_kdd': kdd_launches['stage2']}
+    adam_paths = {'serving': 0, 'train': train_launches['adam'],
+                  'train_kdd': kdd_launches['adam'], 'stage2_kdd': 0}
+    timed = ('ms', 'device_ms', 'plain_ms', 'plain_device_ms',
+             'bound_ms', 'bound_by', 'library_ms', 'library_device_ms')
     print(json.dumps({'kernels': [{
         'name': 'vq_argmin', 'route': 'cuda',
         'source': 'pgmvae_tpu_torch/ops/csrc/vq_argmin.cu',
         'replaces': 'pgmvae_tpu/ops/pallas_vq.py:38',
-        'launches': launches,
-        'launches_by_path': {'serving': launches,
-                             'train': train_launches['vq_argmin']},
-        'max_abs_err': max(kernel_err, slice_err, small_err, train_gap),
-        'ms': main_row['ms'], 'plain_ms': main_row['plain_ms'],
-        'bound_ms': main_row['bound_ms'], 'bound_by': main_row['bound_by'],
-        'library_ms': main_row['library_ms'], 'shape': list(MAIN_SHAPE)}, {
+        'launches': sum(vq_paths.values()), 'launches_by_path': vq_paths,
+        'max_abs_err': max(kernel_err, slice_err, small_err, train_gap,
+                           kdd_gap),
+        **{key: main_row[key] for key in timed},
+        'shape': list(MAIN_SHAPE)}, {
         'name': 'adam', 'route': 'cuda',
         'source': 'pgmvae_tpu_torch/ops/csrc/adam.cu',
         'replaces': 'pgmvae_tpu/ops/fused_adam.py:79',
-        'launches': train_launches['adam'],
-        'launches_by_path': {'serving': 0, 'train': train_launches['adam']},
-        'max_abs_err': train_err,
-        'ms': adam_row['ms'], 'plain_ms': adam_row['plain_ms'],
-        'bound_ms': adam_row['bound_ms'], 'bound_by': adam_row['bound_by'],
-        'library_ms': adam_row['library_ms'],
+        'launches': sum(adam_paths.values()),
+        'launches_by_path': adam_paths,
+        'max_abs_err': max(train_err, kdd_adam_err),
+        **{key: adam_row[key] for key in timed},
         'shape': adam_row['shapes']}]}))
     print(smi)
     print(json.dumps({'ok': True, 'device': {

@@ -11,14 +11,18 @@ The kernel is compiled with nvcc for sm_90a into a shared library with a
 plain C entry point, at first use, by `ops/_build.py`, and bound with
 ctypes.
 
-`LAUNCHES` counts kernel launches, so a run can show that its path went
-through the kernel.
+`plan(n, B, D, K)` chooses the launch (tile sizes, variables a block, code
+strips), and the C entry point checks it. `LAUNCHES` counts calls that
+launched the kernel (one or, when K is split into strips, two launches),
+so a run can show that its path went through it.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 from pathlib import Path
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -44,15 +48,120 @@ def build() -> ctypes.CDLL:
     if _lib is not None:
         return _lib
     lib = _build.build('vq_argmin', _SRC, _FLAGS)
-    lib.vq_argmin.argtypes = [ctypes.c_void_p, ctypes.c_void_p,
-                              ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-                              ctypes.c_int, ctypes.c_int, ctypes.c_int,
-                              ctypes.c_void_p]
+    lib.vq_argmin.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 11
+                              + [ctypes.c_void_p])
     lib.vq_argmin.restype = ctypes.c_int
     lib.vq_argmin_error_string.argtypes = [ctypes.c_int]
     lib.vq_argmin_error_string.restype = ctypes.c_char_p
     _lib = lib
     return lib
+
+
+SMS = 132                 # streaming multiprocessors of an H100 SXM
+MAX_THREADS = 256         # threads a block (csrc/vq_argmin.cu)
+SMEM_BYTES = 48 * 1024    # static shared-memory limit of a block
+RK = 4                    # codes in a thread's register micro-tile
+TX = 4                    # code lanes of a warp
+ROWS = 32 // TX           # sample rows of a warp
+MAX_WK = 4                # warps across a code tile
+MAX_WY = 2                # warps across a sample tile
+SUB = 4                   # code sub-tiles a ring tile, where they pay
+STAGES = 2                # code tiles in the kernel's ring
+MIN_BLOCKS = 2 * SMS      # fewer blocks than this split K across blocks
+MAX_GRID_Y = 65535
+
+
+class Plan(NamedTuple):
+    """One launch of the kernel. A block holds `vpb` variables and, for
+    each, a sample tile of `tb` = wy * ROWS * rb samples (wy warps) against
+    ring tiles of `tk` = sub * wk * TX * RK codes: wk warps split a sub-tile
+    of wk * TX * RK codes, and each scores `sub` sub-tiles a ring tile. A
+    thread scores rb samples x RK codes in registers. Codes are cut into
+    `strips` strips of `strip_k` codes, one block each; with more than one
+    strip a second launch merges the strips' partial minima."""
+    rb: int
+    wy: int
+    wk: int
+    sub: int
+    vpb: int
+    strip_k: int
+    strips: int
+    grid: Tuple[int, int, int]    # (sample tiles, variable groups, strips)
+    threads: int
+    smem_bytes: int
+
+    @property
+    def tb(self) -> int:
+        return self.wy * ROWS * self.rb
+
+    @property
+    def tk(self) -> int:
+        return self.sub * self.wk * TX * RK
+
+
+def _pow2_at_least(x: int) -> int:
+    return 1 << max(0, (int(x) - 1).bit_length())
+
+
+def _smem_bytes(d: int, rb: int, wy: int, wk: int, vpb: int,
+                sub: int = 1) -> int:
+    """Shared memory of a block (csrc/vq_argmin.cu `smem_floats`): the z
+    tile [vpb][d][tb + 4], a ring of STAGES code tiles [STAGES][vpb][d][tk]
+    and the merge buffer of (value, index) [vpb][wk][tb]."""
+    tb, tk = wy * ROWS * rb, sub * wk * TX * RK
+    return 4 * vpb * (d * (tb + 4) + STAGES * d * tk + 2 * wk * tb)
+
+
+@functools.lru_cache(maxsize=1024)
+def plan(n: int, b: int, d: int, k: int) -> Plan:
+    """The launch for z [n, b, d] and codebook [n, d, k] (pure: the CPU
+    tests check it). Raises ValueError on what the kernel does not take."""
+    if min(n, b, d, k) < 1:
+        raise ValueError(f'empty shape {(n, b, d, k)}')
+    if d > MAX_D:
+        raise ValueError(f'the vq_argmin kernel takes D <= {MAX_D}, got {d}')
+    rb = 8 if b >= 64 and d <= 32 else 4      # past D=32, rb=8 would spill
+    wk = min(MAX_WK, _pow2_at_least(-(-k // (TX * RK))))
+    if k <= MAX_WK * TX * RK:     # codes in two tiles: the second loads
+        wk = max(1, wk // 2)      # while the first is scored
+    wy = min(MAX_WY, _pow2_at_least(-(-b // (ROWS * rb))))
+    while _smem_bytes(d, rb, wy, wk, 1) > SMEM_BYTES:
+        if wy > 1:
+            wy //= 2
+        elif wk > 1:
+            wk //= 2
+        else:
+            rb = 4
+    tks, tb = wk * TX * RK, wy * ROWS * rb
+    ktiles, btiles = -(-k // tks), -(-b // tb)
+    vpb = 1
+    if k <= MAX_WK * TX * RK:     # few codes: pack variables into a block
+        while (64 * vpb * wy * wk <= 128 and vpb < n
+               and -(-n // (2 * vpb)) * btiles >= 2 * MIN_BLOCKS
+               and _smem_bytes(d, rb, wy, wk, 2 * vpb) <= SMEM_BYTES):
+            vpb *= 2
+    blocks = -(-n // vpb) * btiles
+    strips = 1
+    if blocks < MIN_BLOCKS and ktiles > 1:
+        strips = min(ktiles, _pow2_at_least(-(-MIN_BLOCKS // blocks)))
+    codes = -(-ktiles // strips) * tks        # codes a strip
+    # four sub-tiles a ring tile spread the ring's wait and barriers over
+    # four times the codes, where a strip holds two such tiles or more; a
+    # ring tile that would not fit takes half the code warps
+    sub = 1
+    if d <= 32 and codes >= 2 * SUB * tks:
+        for wk_sub in (wk, wk // 2):
+            if wk_sub and _smem_bytes(d, rb, wy, wk_sub, vpb,
+                                      SUB) <= SMEM_BYTES:
+                wk, sub, tks = wk_sub, SUB, wk_sub * TX * RK
+                break
+    strip_k = -(-codes // (sub * tks)) * sub * tks
+    strips = -(-k // strip_k)
+    grid = (btiles, -(-n // vpb), strips)
+    if grid[1] > MAX_GRID_Y or grid[2] > MAX_GRID_Y or btiles >= 2 ** 31:
+        raise ValueError(f'shape {(n, b, d, k)} is past the kernel\'s grid')
+    return Plan(rb, wy, wk, sub, vpb, strip_k, strips, grid,
+                32 * wy * wk * vpb, _smem_bytes(d, rb, wy, wk, vpb, sub))
 
 
 def _check(z: torch.Tensor, codebook: torch.Tensor) -> None:
@@ -93,17 +202,26 @@ def vq_codes_fused(z: torch.Tensor, codebook: torch.Tensor) -> torch.Tensor:
         raise ValueError('the vq_argmin kernel takes contiguous z and codebook')
     n, b, d = z.shape
     k = codebook.shape[2]
-    if d > MAX_D:
-        raise ValueError(f'the vq_argmin kernel takes D <= {MAX_D}, got {d}')
-    if n >= 2 ** 31 or k >= 2 ** 31 or b > 128 * 65535:
+    if max(n, b, k) >= 2 ** 31:
         raise ValueError(f'shape {(n, b, d, k)} is past the kernel\'s grid')
     out = torch.empty((n, b), dtype=torch.int32, device=z.device)
     if n == 0 or b == 0:
         return out
+    p = plan(n, b, d, k)
     lib = build()
-    stream = torch.cuda.current_stream(z.device).cuda_stream
-    err = lib.vq_argmin(z.data_ptr(), codebook.data_ptr(), out.data_ptr(),
-                        n, b, d, k, z.device.index, stream)
+    with torch.cuda.device(z.device):
+        part_v = part_i = None
+        if p.strips > 1:
+            part_v = torch.empty((p.strips, n, b), dtype=torch.float32,
+                                 device=z.device)
+            part_i = torch.empty((p.strips, n, b), dtype=torch.int32,
+                                 device=z.device)
+        err = lib.vq_argmin(
+            z.data_ptr(), codebook.data_ptr(), out.data_ptr(),
+            None if part_v is None else part_v.data_ptr(),
+            None if part_i is None else part_i.data_ptr(), n, b, d, k, p.rb,
+            p.wy, p.wk, p.sub, p.vpb, p.strip_k, p.strips,
+            torch.cuda.current_stream().cuda_stream)
     if err != 0:
         msg = lib.vq_argmin_error_string(err).decode()
         raise RuntimeError(f'vq_argmin launch failed: CUDA error {err} '

@@ -35,7 +35,9 @@ def auto_impl(n_var: int, batch: int, num_codes: int) -> str:
     """The JAX package's 'auto' rule: 'xla' while the f32 [n, B, K]
     distance tensor stays under AUTO_PALLAS_BYTES, 'pallas' beyond. The port
     reads `vq_impl` only for its validity: its one CUDA kernel never builds
-    that tensor, so it serves every shape."""
+    that tensor and plans its launch for each shape (`cuda_vq.plan`: many
+    variables with few codes, or few with many), so it serves every shape
+    and there is no library path to switch to."""
     nbytes = 4.0 * n_var * batch * num_codes
     return 'pallas' if nbytes > AUTO_PALLAS_BYTES else 'xla'
 
