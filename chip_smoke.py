@@ -6,18 +6,23 @@ Run from the root of a checkout, with no arguments:
     python3 chip_smoke.py
 
 It builds the port's two CUDA kernels (the nearest-code search and the Adam
-update, one nvcc each, started together) from the sources in the checkout,
-holds each kernel against its plain PyTorch version at the shapes of the
-main paths (timed by CUDA events over back-to-back calls, `ms`, and by the
-profiler's device time of the kernels alone, `device_ms`), and drives the
-system's paths, each with the kernels' launch counts set to 0 just before
-it and read just after: at the full width of the bbc model the serving
-slice (stage-2 CPT/PLL and PgmModel) and stage-1 training (Trainer.fit, 14
-steps); at the width of the kdd sweep (K=4096) 200 train steps, a stage-2
-CPT and the test split's PLL; then the command line end to end on
-nltcs-shaped data. Each phase prints one JSON line; any failed check
-raises, so the script exits non-zero. The last three lines are the kernel
-summary, the card's name and power limit as nvidia-smi gives them, and
+update with its bfloat16-moment variant, one nvcc each, started together)
+from the sources in the checkout, holds each kernel against its plain
+PyTorch version at the shapes of the main paths (timed by CUDA events over
+back-to-back calls, `ms`, and by the profiler's device time of the kernels
+alone, `device_ms`, or where the profiler sees none by events around calls
+queued behind a sleep on the device), and drives the system's paths, each with the kernels'
+launch counts set to 0 just before it and read just after: at the full
+width of the bbc model the serving slice (stage-2 CPT/PLL and PgmModel),
+stage-1 training (Trainer.fit, 14 steps) and a Gibbs CMLL of the trained
+model (2,100 steps, held against a chain through the plain version); at the
+width of the kdd sweep (K=4096) 200 train steps, a stage-2 CPT and the test
+split's PLL, a checkpoint's round trip (save, load, serve, resume) and the
+driver's own CMLL (18,000 steps); then the command line end to end on
+nltcs-shaped data, with a checkpoint, CMLL, a resume and bfloat16 Adam
+moments. Each phase prints one JSON line; any failed check raises, so the
+script exits non-zero. The last three lines are the kernel summary, the
+card's name and power limit as nvidia-smi gives them, and
 `{"ok": true, "device": {...}}`.
 
 Without a CUDA device it exits non-zero and prints no result.
@@ -43,14 +48,20 @@ HBM_BYTES = 3.35e12     # H100 SXM device memory rate
 NEAR_TIE_REL = 1e-5
 # (n, B, D, K): the four shapes of tests/test_pallas_vq.py, the slices' own
 # (a stage-2 chunk, the bbc test split served at once, a bbc train batch),
-# one large K, and the kdd sweep's train batch and stage-2 chunk
+# one large K, the kdd sweep's train batch and stage-2 chunk, and a Gibbs
+# step's (11 blocks over bbc's test split, over 1,024 kdd test rows and over
+# all 34,955; the nltcs command line's 16 blocks over its test split)
+GIBBS_SHAPES = [(11, 330, 20, 50), (11, 1024, 10, 4096),
+                (11, 34955, 10, 4096), (16, 3236, 10, 50)]
 KERNEL_SHAPES = [(3, 9, 5, 7), (5, 32, 8, 130), (4, 17, 10, 50),
                  (2, 64, 16, 1024), (1058, 32, 20, 50), (1058, 330, 20, 50),
                  (1058, 250, 20, 50), (1058, 256, 20, 4096),
-                 (64, 32, 10, 4096), (64, 118, 10, 4096)]
+                 (64, 32, 10, 4096), (64, 118, 10, 4096)] + GIBBS_SHAPES
 MAIN_SHAPE = (1058, 32, 20, 50)   # the stage-2 chunk: most main-path launches
 TIE_SPLIT = (64, 32, 10, 4096)    # ties across code tiles and strips
 PROFILE_CALLS = 20                # calls averaged by device_ms
+PROFILER_TRIES = 3                # profiler sessions before giving up
+DEVICE_TIMER = {'profiler': 0, 'queued_events': 0}   # device_ms calls
 VQ_NAMES = ('vq_argmin_kernel', 'vq_merge_kernel')   # the kernel's launches
 # the reference's shipped sweep (batch-job.sh:43-52): kdd, K=4096, D=10,
 # batch 32, lr 2e-4, cost 0.35 (the first of its four), seed 5, EMA
@@ -62,6 +73,11 @@ ADAM_SHAPES = [(7, 9, 5), (7, 5, 5), (3, 4), (11,), (1058, 1058, 111),
                (1058, 111, 111), (1058, 1, 111)]
 ADAM_STEPS = 3
 LR, EPS = 0.003, 1e-7
+# Gibbs CMLL: bbc's chain cut to 20 sweeps (burn-in 2) of p1 = 105; the
+# plain-version hold's steps; the segment profiled; kdd's test rows chained
+CMLL_SMP, CMLL_BURN, CMLL_HOLD, CMLL_SEGMENT = 20, 2, 512, 64
+KDD_CMLL_ROWS = 1024
+RESUME_STEPS = 20
 
 
 def emit(phase: str, **fields) -> None:
@@ -92,21 +108,68 @@ def cuda_ms(fn, target_s: float = 0.25) -> float:
     return start.elapsed_time(end) / reps
 
 
+def _profile(run):
+    """torch.profiler's key averages of run() (which ends in a synchronize),
+    from the first of PROFILER_TRIES sessions that saw device time: a
+    session can come back without any device events. None if none saw
+    any."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(PROFILER_TRIES):
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            run()
+        averages = prof.key_averages()
+        if any(e.device_type == torch.autograd.DeviceType.CUDA
+               and e.self_device_time_total > 0 for e in averages):
+            return averages
+    return None
+
+
+def queued_events_ms(fn, calls: int = PROFILE_CALLS) -> float:
+    """Device time of fn() in ms by CUDA events around `calls` calls queued
+    behind a sleep on the device, so that the host's dispatch is hidden and
+    the calls' kernels run back to back (the gaps between them count). The
+    sleep doubles until it outlasts the host's queueing, up to ~0.3 s."""
+    fn()
+    torch.cuda.synchronize()
+    marks = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    cycles = 1 << 22
+    for _ in range(8):
+        marks[0].record()
+        torch.cuda._sleep(cycles)
+        marks[1].record()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        queued_ms = (time.perf_counter() - t0) * 1e3
+        marks[2].record()
+        marks[2].synchronize()
+        if marks[0].elapsed_time(marks[1]) > queued_ms + 1.0:
+            break
+        cycles *= 2
+    return marks[1].elapsed_time(marks[2]) / calls
+
+
 def device_ms(fn, calls: int = PROFILE_CALLS) -> float:
     """Device time of fn() in ms: the sum of its CUDA kernels' device time
     (torch.profiler, as profile_run reads it), averaged over `calls` warm
-    calls. Unlike cuda_ms it leaves out the host's dispatch between calls."""
-    from torch.profiler import ProfilerActivity, profile
+    calls. Unlike cuda_ms it leaves out the host's dispatch between calls.
+    Where no profiler session sees device time, queued_events_ms stands in
+    (DEVICE_TIMER counts the calls each way)."""
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+
+    def run():
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    total_us = sum(e.self_device_time_total for e in prof.key_averages()
+    averages = _profile(run)
+    if averages is None:
+        DEVICE_TIMER['queued_events'] += 1
+        return queued_events_ms(fn, calls)
+    DEVICE_TIMER['profiler'] += 1
+    total_us = sum(e.self_device_time_total for e in averages
                    if e.device_type == torch.autograd.DeviceType.CUDA)
-    assert total_us > 0, 'the profiler saw no device time'
     return total_us / 1e3 / calls
 
 
@@ -156,9 +219,15 @@ def phase_device() -> str:
     smi = nvidia_smi()
     assert torch.backends.cuda.matmul.allow_tf32 is False, 'TF32 is on'
     torch.backends.cudnn.allow_tf32 = False
+    x = torch.ones(1024, device='cuda')
+
+    def probe():                      # also starts the profiler's tracing
+        x.add_(1)
+        torch.cuda.synchronize()
     emit('device', nvidia_smi=smi, torch=torch.__version__,
          cuda=torch.version.cuda, name=torch.cuda.get_device_name(0),
-         count=torch.cuda.device_count())
+         count=torch.cuda.device_count(),
+         profiler_sees_device=_profile(probe) is not None)
     return smi
 
 
@@ -197,7 +266,9 @@ def phase_build():
         if 'kernelILi' in e:
             args = e.split('kernelILi')[1].split('ELi')[:3]
             dpad['_'.join(args[:2] + [args[2].split('E')[0]])] = lines
-    adam = {('vector' if 'ILb1E' in e else 'scalar'): lines
+    # adam_kernel<M, VEC>: by moment type and vector or scalar path
+    adam = {('bf16_' if 'bfloat16' in e else 'f32_')
+            + ('vector' if 'Lb1E' in e else 'scalar'): lines
             for e, lines in _ptxas(
                 fused_adam.library_path().with_suffix('.log')).items()}
     emit('build', seconds=seconds, wall_seconds=time.time() - t0,
@@ -279,6 +350,8 @@ def phase_kernel():
             for name, fn in fns.items():
                 row[name + 'ms'] = cuda_ms(fn)
                 row[name + 'device_ms'] = device_ms(fn)
+            # the stand-in timer of device_ms, held beside it on every run
+            row['queued_events_ms'] = queued_events_ms(fns[''])
             row.update(bound_ms=bms, bound_by=by,
                        bound_share=bms / row['device_ms'],
                        vs_library=row['library_device_ms']
@@ -288,15 +361,16 @@ def phase_kernel():
     return rows, max_err
 
 
-def _leaf_bytes_bound(numel: int) -> float:
+def _leaf_bytes_bound(numel: int, per_param: float = 28.0) -> float:
     """Least time (ms) of one Adam pass over `numel` parameters on an H100
-    SXM: p, m, v, g read and p, m, v written once, 28 bytes a parameter."""
-    return 28.0 * numel / HBM_BYTES * 1e3
+    SXM: p, m, v, g read and p, m, v written once, 28 bytes a parameter
+    (20 with bfloat16 moments)."""
+    return per_param * numel / HBM_BYTES * 1e3
 
 
-def _adam_pair(shapes, gen, unaligned=False):
-    """Two identical (params, grads, state) sets in the params layout, one
-    leaf per shape."""
+def _adam_pair(shapes, gen, unaligned=False, moment_dtype=torch.float32):
+    """Two identical (params, state) sets in the params layout, one leaf
+    per shape."""
     from pgmvae_tpu_torch.ops import fused_adam
     leaves = []
     for shape in shapes:
@@ -308,21 +382,24 @@ def _adam_pair(shapes, gen, unaligned=False):
         leaves.append(p)
     params = {'enc': [(p,) for p in leaves]}
     twin = {'enc': [(p.clone(),) for p in leaves]}
-    return (params, fused_adam.adam_init(params, LR, EPS),
-            twin, fused_adam.adam_init(twin, LR, EPS))
+    return (params, fused_adam.adam_init(params, LR, EPS, moment_dtype),
+            twin, fused_adam.adam_init(twin, LR, EPS, moment_dtype))
 
 
-def phase_kernel_adam():
-    """The Adam kernel against `adam_update_plain` on the card, ADAM_STEPS
-    steps from the same state: p, m and v must be bit-equal. Then times at
-    bbc's 20 leaves."""
+def phase_kernel_adam(moment_dtype=torch.float32):
+    """The Adam kernel (with float32 or, its variant, bfloat16 moments)
+    against `adam_update_plain` on the card, ADAM_STEPS steps from the same
+    state: p, m and v must be bit-equal. Then times at bbc's 20 leaves."""
     from pgmvae_tpu_torch.models import vqvae
     from pgmvae_tpu_torch.ops import fused_adam
     from pgmvae_tpu_torch.registry import default_units
+    bf16 = moment_dtype == torch.bfloat16
+    name = 'kernel_adam_bf16' if bf16 else 'kernel_adam'
     gen = torch.Generator(device='cuda').manual_seed(SEED)
     cases = [(s, False) for s in ADAM_SHAPES] + [((1000, 3), True)]
     for shape, unaligned in cases:
-        params, st, twin, st2 = _adam_pair([shape], gen, unaligned)
+        params, st, twin, st2 = _adam_pair([shape], gen, unaligned,
+                                           moment_dtype)
         for _ in range(ADAM_STEPS):
             g = torch.randn(shape, generator=gen, device='cuda') * 0.01
             st = fused_adam.adam_update(params, {'enc': [(g,)]}, st)
@@ -331,9 +408,11 @@ def phase_kernel_adam():
         torch.cuda.synchronize()
         pairs = [(params, twin), (st.mu, st2.mu), (st.nu, st2.nu)]
         for (a,), (b,) in ((x['enc'][0], y['enc'][0]) for x, y in pairs):
-            assert torch.equal(a, b), (shape, float((a - b).abs().max()))
+            assert torch.equal(a, b), (shape, float((a.float()
+                                                     - b.float()).abs().max()))
+        assert st.mu['enc'][0][0].dtype == moment_dtype
         assert int(st.count) == int(st2.count) == ADAM_STEPS
-        emit('kernel_adam', shape=list(shape), unaligned=unaligned,
+        emit(name, shape=list(shape), unaligned=unaligned,
              steps=ADAM_STEPS, bit_equal=True)
 
     # times over the 20 leaves of the bbc model (section train)
@@ -344,9 +423,10 @@ def phase_kernel_adam():
     grads = vqvae.map_params(
         lambda p: torch.randn(p.shape, generator=gen, device='cuda') * 0.01,
         params)
-    state = fused_adam.adam_init(params, LR, EPS)
+    state = fused_adam.adam_init(params, LR, EPS, moment_dtype)
     numel = sum(p.numel() for p in leaves)
-    before = fused_adam.LAUNCHES
+    per_param = 20.0 if bf16 else 28.0
+    before = (fused_adam.LAUNCHES, fused_adam.LAUNCHES_BF16)
 
     def kernel():
         fused_adam.adam_update(params, grads, state)
@@ -354,24 +434,32 @@ def phase_kernel_adam():
     def plain():
         fused_adam.adam_update_plain(params, grads, state)
     ms, kernel_dev = cuda_ms(kernel), device_ms(kernel)
+    kernel_queued = queued_events_ms(kernel)
     plain_ms, plain_dev = cuda_ms(plain), device_ms(plain)
-    fused_adam.LAUNCHES = before          # timing launches are not counted
-    # yardstick only: PyTorch's own fused Adam over the same leaves (it
-    # adds eps after sqrt(v)/sqrt(bc2): the same bytes, other arithmetic)
-    lib_leaves = [p.detach().clone().requires_grad_() for p in leaves]
-    for p, g in zip(lib_leaves, vqvae.param_leaves(grads)):
-        p.grad = g
-    opt = torch.optim.Adam(lib_leaves, lr=LR, eps=EPS, fused=True)
-    library_ms, library_dev = cuda_ms(opt.step), device_ms(opt.step)
-    del opt, lib_leaves
+    # timing launches are not counted
+    fused_adam.LAUNCHES, fused_adam.LAUNCHES_BF16 = before
+    library_ms = library_dev = None
+    if not bf16:
+        # yardstick only: PyTorch's own fused Adam over the same leaves (it
+        # adds eps after sqrt(v)/sqrt(bc2): the same bytes, other
+        # arithmetic); it keeps the moments in the parameters' dtype, so
+        # there is no library call for bfloat16 moments
+        lib_leaves = [p.detach().clone().requires_grad_() for p in leaves]
+        for p, g in zip(lib_leaves, vqvae.param_leaves(grads)):
+            p.grad = g
+        opt = torch.optim.Adam(lib_leaves, lr=LR, eps=EPS, fused=True)
+        library_ms, library_dev = cuda_ms(opt.step), device_ms(opt.step)
+        del opt, lib_leaves
+    bound_ms = _leaf_bytes_bound(numel, per_param)
     row = dict(leaves=len(leaves), params=numel, launches_per_step=len(
         leaves), ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-        device_ms=kernel_dev, plain_device_ms=plain_dev,
-        library_device_ms=library_dev,
-        bound_ms=_leaf_bytes_bound(numel), bound_by='bytes',
-        achieved_tb_s=28.0 * numel / (ms * 1e-3) / 1e12,
+        device_ms=kernel_dev, queued_events_ms=kernel_queued,
+        plain_device_ms=plain_dev,
+        library_device_ms=library_dev, bound_ms=bound_ms, bound_by='bytes',
+        bound_share=bound_ms / kernel_dev, bytes_per_param=per_param,
+        achieved_tb_s=per_param * numel / (ms * 1e-3) / 1e12,
         shapes=[list(p.shape) for p in leaves])
-    emit('kernel_adam_bbc', **row)
+    emit(name + '_bbc', **row)
     return row
 
 
@@ -516,28 +604,32 @@ def profile_run(phase: str, fn, top: int = 8, watch=()) -> None:
     """Device time by kernel (torch.profiler) of one warm call of fn, and
     the device's busy share of that call's unprofiled wall time; for each
     name in `watch`, the device time and count of the kernels whose name
-    holds it."""
-    from torch.profiler import ProfilerActivity, profile
+    holds it. Where no profiler session sees device time, the line says so
+    and carries the wall time alone."""
     fn()
     torch.cuda.synchronize()
     t0 = time.time()
     fn()
     torch.cuda.synchronize()
     wall_ms = (time.time() - t0) * 1e3
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
+
+    def run():
         fn()
         torch.cuda.synchronize()
+    averages = _profile(run)
+    if averages is None:
+        emit(phase, wall_ms=wall_ms, profiler_saw_device=False)
+        return
     # device-side events only: a host op's entry repeats its kernels' time
     rows = [(e.key, e.self_device_time_total / 1e3, e.count)
-            for e in prof.key_averages()
+            for e in averages
             if e.device_type == torch.autograd.DeviceType.CUDA
             and e.self_device_time_total > 0]
     rows.sort(key=lambda r: -r[1])
     device_ms = sum(r[1] for r in rows)
     # the same device time by the PyTorch operator that launched it
     ops = [(e.key, e.self_device_time_total / 1e3, e.count)
-           for e in prof.key_averages()
+           for e in averages
            if e.device_type == torch.autograd.DeviceType.CPU
            and e.self_device_time_total > 0]
     ops.sort(key=lambda r: -r[1])
@@ -686,8 +778,12 @@ def phase_train():
     adam_abs, rel, flips, gap = _kernel_vs_plain_step(tr, state, yb, w)
 
     cb = tr.codebook(state)
-    _, pll, secs = _stage2_plls(Stage2(cfg), state.params, cb, splits)
+    dist, pll, secs = _stage2_plls(Stage2(cfg), state.params, cb, splits)
     assert all(np.isfinite(v) and v < 0 for v in pll.values()), pll
+    # the trained model for the CMLL phase (the profile below steps on)
+    trained = dict(cfg=cfg, params=vqvae.map_params(torch.clone,
+                                                    state.params),
+                   codebook=cb.clone(), dist=dist, y_test=splits['test'])
     emit('train', model=dict(n_var=cfg.n_var, units=list(cfg.units),
                              dim=cfg.dim, num_codes=cfg.num_codes,
                              quantizer=cfg.quantizer, decay=cfg.decay,
@@ -704,7 +800,7 @@ def phase_train():
          step_flip_gap=gap, pll_trained=pll, stage2_seconds=secs)
     profile_run('profile_train_step',
                 lambda: tr.train_step(state, yb, w), top=10, watch=VQ_NAMES)
-    return launches, adam_abs, gap
+    return launches, adam_abs, gap, trained
 
 
 def _kdd_like_splits():
@@ -731,7 +827,7 @@ def phase_train_kdd():
     from pgmvae_tpu_torch.ops import cuda_vq, fused_adam
     from pgmvae_tpu_torch.registry import REGISTRY
     from pgmvae_tpu_torch.stage2 import Stage2
-    from pgmvae_tpu_torch.train import Trainer
+    from pgmvae_tpu_torch.train import Trainer, copy_state
 
     info = REGISTRY['kdd']
     cfg = vqvae.VqVaeConfig(n_var=info.n_var, units=info.units, dim=10,
@@ -773,6 +869,10 @@ def phase_train_kdd():
     assert all(np.isfinite(list(m)).all() for m in hist), hist
     assert np.isfinite(pll_test) and pll_test < 0, pll_test
 
+    # the trained state and its CPT for the checkpoint and CMLL phases (the
+    # profile below steps on in place)
+    trained = dict(tr=tr, state=copy_state(state), dist=dist, splits=splits,
+                   pll_test=pll_test, y=y)
     yb = torch.from_numpy(y[:KDD_BATCH]).cuda()
     w = torch.ones(KDD_BATCH, device='cuda')
     adam_abs, rel, flips, gap = _kernel_vs_plain_step(tr, state, yb, w)
@@ -806,8 +906,259 @@ def phase_train_kdd():
          stage2_flip_gap=s2_gap)
     profile_run('profile_train_kdd_step',
                 lambda: tr.train_step(state, yb, w), top=10, watch=VQ_NAMES)
-    return {'train': launches['vq_argmin'], 'stage2': s2_launches,
-            'adam': launches['adam']}, max(gap, s2_gap), adam_abs
+    return ({'train': launches['vq_argmin'], 'stage2': s2_launches,
+             'adam': launches['adam']}, max(gap, s2_gap), adam_abs, trained)
+
+
+def _state_leaves(st) -> list:
+    """Every tensor of a port TrainState, in a fixed order."""
+    from pgmvae_tpu_torch.models import vqvae
+    opt = st.opt_state
+    return (vqvae.param_leaves(st.params) + list(st.ema or ())
+            + vqvae.param_leaves(opt.mu) + vqvae.param_leaves(opt.nu)
+            + [opt.count, opt.learning_rate, st.step])
+
+
+def _uniforms(chain, steps: int, seed: int) -> torch.Tensor:
+    """Uniforms [steps, blocks, B] for `steps` steps of `chain`, drawn on
+    the card up front from a generator seeded `seed`."""
+    gen = torch.Generator(device='cuda').manual_seed(seed)
+    return torch.rand((steps, chain.blocks, chain.x.shape[0]), generator=gen,
+                      device='cuda')
+
+
+def _gibbs_hold(model: dict, p1: int, steps: int):
+    """Two chains from the same state and the same uniforms for `steps`
+    steps, one through the kernel and one through its plain version (burn-in
+    0, so every step after the first counts). Their counts must be equal;
+    else the first step at which the chains part must be a code flip that
+    is a float64-proven near-tie. Returns (equal, first parting step or
+    None, code flips there, their largest gap). Not counted."""
+    from pgmvae_tpu_torch import gibbs
+    from pgmvae_tpu_torch.models import vqvae
+    from pgmvae_tpu_torch.ops import cuda_vq
+    args = (model['params'], model['codebook'], model['cfg'], model['dist'],
+            model['y_test'], p1, 0)
+    ker, plain = gibbs.GibbsChain(*args), gibbs.GibbsChain(*args)
+    us = _uniforms(ker, steps, SEED + 1)
+    launches = cuda_vq.LAUNCHES
+    try:
+        for i in range(steps):
+            before = ker.state.clone()
+            ker.step(i, us[i])
+            with mock.patch.object(cuda_vq, 'vq_codes_fused',
+                                   cuda_vq.vq_codes_plain):
+                plain.step(i, us[i])
+            if torch.equal(ker.state, plain.state):
+                continue
+            # the step's codes both ways, from the state before it
+            y = ker.marker + torch.remainder(i, ker.vol)
+            sub, cb = vqvae.gather_variables(ker.params, ker.codebook, y)
+            with torch.no_grad():
+                z = vqvae.encode(sub, before, y, ker.cfg.activation,
+                                 ker.cfg.first_layer)
+                flips, gap = near_ties(z, cb, cuda_vq.vq_codes_fused(z, cb),
+                                       cuda_vq.vq_codes_plain(z, cb))
+            assert flips > 0, ('the chains parted without a code flip', i)
+            return False, i, flips, gap
+    finally:
+        cuda_vq.LAUNCHES = launches
+    assert torch.equal(ker.counts, plain.counts)
+    return True, None, 0, 0.0
+
+
+def phase_cmll(model: dict):
+    """The Gibbs CMLL of the bbc model that `train` trained, through the
+    public entry point, counted: bbc's test split, the driver's p1 = 105 (11
+    blocks, the last of 8), cut to CMLL_SMP sweeps with burn-in CMLL_BURN.
+    Then the hold against the plain version and a profile of a
+    CMLL_SEGMENT-step segment."""
+    from pgmvae_tpu_torch import gibbs
+    from pgmvae_tpu_torch.ops import cuda_vq
+    cfg, y_test = model['cfg'], model['y_test']
+    p1 = max(cfg.n_var // 10, 1)
+    gen = torch.Generator(device='cuda').manual_seed(SEED)
+    torch.cuda.synchronize()
+
+    # ---- the main path, counted: every kernel launch from here to the read
+    cuda_vq.LAUNCHES = 0
+    t0 = time.time()
+    value = gibbs.conditional_marginal_log_likelihood(
+        model['params'], model['codebook'], cfg, model['dist'], y_test,
+        p1=p1, num_smp=CMLL_SMP, burn_in=CMLL_BURN, generator=gen)
+    seconds = time.time() - t0          # it ends in a read of the device
+    launches = cuda_vq.LAUNCHES
+    # ---- end of the counted run
+
+    steps = CMLL_SMP * p1
+    assert p1 == 105 and steps == 2100 and launches == steps, (p1, launches)
+    assert np.isfinite(value) and value < 0, value
+    equal, first, flips, gap = _gibbs_hold(model, p1, CMLL_HOLD)
+    chain = gibbs.GibbsChain(model['params'], model['codebook'], cfg,
+                             model['dist'], y_test, p1, CMLL_BURN)
+    assert chain.blocks == 11 and chain.vol_last == 8, chain.blocks
+    full = 3000 * p1                    # the driver's 3000 sweeps
+    emit('cmll', model=dict(n_var=cfg.n_var, units=list(cfg.units),
+                            dim=cfg.dim, num_codes=cfg.num_codes),
+         rows=int(y_test.shape[0]), p1=p1, blocks=chain.blocks,
+         vol_last=chain.vol_last, num_smp=CMLL_SMP, burn_in=CMLL_BURN,
+         steps=steps, launches=launches, cmll=value, seconds=seconds,
+         steps_per_s=steps / seconds, full_steps=full,
+         full_seconds_extrapolated=full * seconds / steps,
+         hold_steps=CMLL_HOLD, hold_counts_equal=equal,
+         hold_first_parting_step=first, hold_code_flips=flips,
+         hold_flip_gap=gap,
+         reduced=[f'{CMLL_SMP} sweeps with burn-in {CMLL_BURN} (the driver: '
+                  f'3000 and 150)', 'the 14-step model of phase train',
+                  'synthetic independent columns, not bbc data'])
+    us = _uniforms(chain, CMLL_SEGMENT, SEED + 2)
+    profile_run('profile_cmll_segment',
+                lambda: chain.run(0, CMLL_SEGMENT, us.__getitem__), top=10,
+                watch=VQ_NAMES)
+    return launches, gap
+
+
+def phase_checkpoint(kdd: dict):
+    """A checkpoint of the kdd-width model that `train_kdd` trained: save;
+    load into a fresh template (every leaf bit-equal); serve the file with
+    `PgmModel.from_checkpoint` (the test split's mean score equals the
+    stage-2 test PLL to 1e-5 relative) and resume RESUME_STEPS train steps
+    from the loaded state, both counted; the same steps from an in-memory
+    copy must give the same state bit for bit."""
+    from pgmvae_tpu_torch import checkpoint as ckpt
+    from pgmvae_tpu_torch.models import vqvae
+    from pgmvae_tpu_torch.ops import cuda_vq, fused_adam
+    from pgmvae_tpu_torch.serving import PgmModel
+    from pgmvae_tpu_torch.train import copy_state
+
+    tr, state, dist = kdd['tr'], kdd['state'], kdd['dist']
+    y_test = kdd['splits']['test']
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, 'kdd.ckpt')
+        torch.cuda.synchronize()
+        t0 = time.time()
+        ckpt.save(path, tr.cfg, state, dist,
+                  extra={'identifier': 'kdd-sweep-cell',
+                         'pll': {'test': kdd['pll_test']}})
+        save_s = time.time() - t0
+        nbytes = os.path.getsize(path)
+        template = tr.init_state(
+            torch.Generator(device='cuda').manual_seed(SEED + 1))
+        torch.cuda.synchronize()
+        t0 = time.time()
+        cfg, loaded, dist2, extra = ckpt.load(path, state_template=template)
+        torch.cuda.synchronize()
+        load_s = time.time() - t0
+        assert cfg == tr.cfg and np.array_equal(dist2, dist), cfg
+        assert extra['identifier'] == 'kdd-sweep-cell', extra
+        for a, b in zip(_state_leaves(loaded), _state_leaves(state)):
+            assert (a.dtype == b.dtype and a.device == b.device
+                    and torch.equal(a, b)), (a.shape, a.dtype, b.dtype)
+        assert loaded.opt_state.eps == state.opt_state.eps
+
+        # ---- serving from the file, counted
+        cuda_vq.LAUNCHES = 0
+        t0 = time.time()
+        scores = PgmModel.from_checkpoint(path).score(y_test)
+        serve_s = time.time() - t0
+        serve_launches = cuda_vq.LAUNCHES
+        # ---- end of the counted run
+    assert serve_launches == 1, serve_launches
+    np.testing.assert_allclose(scores.mean(), kdd['pll_test'], rtol=1e-5)
+
+    y = kdd['y']
+    w = torch.ones(KDD_BATCH, device='cuda')
+    batches = [torch.from_numpy(y[i * KDD_BATCH:(i + 1) * KDD_BATCH]).cuda()
+               for i in range(RESUME_STEPS)]
+    mem = copy_state(state)
+    torch.cuda.synchronize()
+    # ---- resumed training from the file, counted
+    cuda_vq.LAUNCHES = fused_adam.LAUNCHES = 0
+    for yb in batches:
+        loaded, _ = tr.train_step(loaded, yb, w)
+    torch.cuda.synchronize()
+    resume = {'vq_argmin': cuda_vq.LAUNCHES, 'adam': fused_adam.LAUNCHES}
+    # ---- end of the counted run; the in-memory twin is the comparison
+    for yb in batches:
+        mem, _ = tr.train_step(mem, yb, w)
+    cuda_vq.LAUNCHES, fused_adam.LAUNCHES = resume['vq_argmin'], \
+        resume['adam']
+    torch.cuda.synchronize()
+    pairs = list(zip(_state_leaves(loaded), _state_leaves(mem)))
+    bit_equal = all(torch.equal(a, b) for a, b in pairs)
+    gap = 0.0 if bit_equal else max(_max_rel(a.float(), b.float())
+                                    for a, b in pairs)
+    assert gap < 1e-6, ('resumed vs in-memory', gap)
+    n_leaves = len(vqvae.param_leaves(state.params))
+    assert resume == {'vq_argmin': RESUME_STEPS,
+                      'adam': RESUME_STEPS * n_leaves}, resume
+    emit('checkpoint', model='kdd sweep cell (phase train_kdd)',
+         file_bytes=nbytes, save_seconds=save_s, load_seconds=load_s,
+         leaves=len(pairs), load_bit_equal=True,
+         serve_rows=int(y_test.shape[0]), serve_seconds=serve_s,
+         serve_launches=serve_launches, score_mean=float(scores.mean()),
+         pll_test=kdd['pll_test'], resume_steps=RESUME_STEPS,
+         resume_launches=resume, resume_bit_equal=bit_equal,
+         resume_max_rel_gap=gap)
+    return ({'vq_argmin': serve_launches + resume['vq_argmin'],
+             'adam': resume['adam']})
+
+
+def phase_cmll_kdd(kdd: dict):
+    """The driver's own CMLL at the kdd sweep's width on the model
+    `train_kdd` trained, through the public entry point, counted: p1 = 6
+    (11 blocks, the last of 4), 3000 sweeps, burn-in 150, so 18,000 steps,
+    over the first KDD_CMLL_ROWS test rows. Then a profile of one
+    CMLL_SEGMENT-step segment over the whole test split."""
+    from pgmvae_tpu_torch import gibbs
+    from pgmvae_tpu_torch.ops import cuda_vq
+    tr, state = kdd['tr'], kdd['state']
+    cfg, cb = tr.cfg, tr.codebook(state)
+    p1 = max(cfg.n_var // 10, 1)
+    y_all = kdd['splits']['test']
+    y = y_all[:KDD_CMLL_ROWS]
+    gen = torch.Generator(device='cuda').manual_seed(KDD_SEED)
+    torch.cuda.synchronize()
+
+    # ---- the main path, counted: every kernel launch from here to the read
+    cuda_vq.LAUNCHES = 0
+    t0 = time.time()
+    value = gibbs.conditional_marginal_log_likelihood(
+        state.params, cb, cfg, kdd['dist'], y, p1=p1, num_smp=3000,
+        burn_in=150, generator=gen)
+    seconds = time.time() - t0
+    launches = cuda_vq.LAUNCHES
+    # ---- end of the counted run
+
+    steps = 3000 * p1
+    assert p1 == 6 and steps == 18000 and launches == steps, (p1, launches)
+    assert np.isfinite(value) and value < 0, value
+    chain = gibbs.GibbsChain(state.params, cb, cfg, kdd['dist'], y_all, p1,
+                             150)
+    assert chain.blocks == 11 and chain.vol_last == 4, chain.blocks
+    us = _uniforms(chain, CMLL_SEGMENT, SEED + 3)
+    launches_before = cuda_vq.LAUNCHES
+    torch.cuda.synchronize()
+    t0 = time.time()
+    chain.run(0, CMLL_SEGMENT, us.__getitem__)
+    torch.cuda.synchronize()
+    full_s = time.time() - t0
+    emit('cmll_kdd', rows=int(y.shape[0]), p1=p1, blocks=chain.blocks,
+         vol_last=chain.vol_last, num_smp=3000, burn_in=150, steps=steps,
+         launches=launches, cmll=value, seconds=seconds,
+         steps_per_s=steps / seconds, full_split_rows=int(y_all.shape[0]),
+         full_split_segment_steps=CMLL_SEGMENT,
+         full_split_segment_seconds=full_s,
+         full_split_steps_per_s=CMLL_SEGMENT / full_s,
+         reduced=[f'the first {KDD_CMLL_ROWS} of {y_all.shape[0]} test rows '
+                  f'(the whole split: one {CMLL_SEGMENT}-step segment, '
+                  f'timed)', 'the 200-step model of phase train_kdd',
+                  'synthetic independent columns, not kdd data'])
+    profile_run('profile_cmll_kdd_full_split_segment',
+                lambda: chain.run(0, CMLL_SEGMENT, us.__getitem__), top=10,
+                watch=VQ_NAMES)
+    cuda_vq.LAUNCHES = launches_before      # timing launches are not counted
+    return launches
 
 
 def _write_nltcs_like(root: str) -> None:
@@ -821,35 +1172,116 @@ def _write_nltcs_like(root: str) -> None:
             f.write('\n'.join(','.join(map(str, r)) for r in y) + '\n')
 
 
-def phase_cli():
-    """The command line end to end on the card: the reference run's flags
-    with the Adam kernel, 3 epochs, on nltcs-shaped data."""
+# the reference run's flags (ROADMAP.md), epochs and Adam per run
+CLI_FLAGS = ['-n', 'nltcs', '-k', '50', '-d', '10', '-b', '128', '-r',
+             '0.01', '-c', '0.25', '-m', '-s', '1']
+
+
+def _cli(tmp: str, flags: list):
+    """One run of the command line in `tmp` (its logs and result.txt land
+    there), counted: (exit code, its result lines, launches, seconds)."""
     from pgmvae_tpu_torch import run
-    from pgmvae_tpu_torch.utils.logging import run_identifier
+    from pgmvae_tpu_torch.ops import cuda_vq, fused_adam
+    result = os.path.join(tmp, 'result.txt')
+    seen = 0
+    if os.path.exists(result):
+        with open(result) as f:
+            seen = len(f.read().splitlines())
     cwd = os.getcwd()
+    os.chdir(tmp)
+    # ---- the main path, counted
+    cuda_vq.LAUNCHES = fused_adam.LAUNCHES = fused_adam.LAUNCHES_BF16 = 0
+    try:
+        t0 = time.time()
+        rc = run.main(CLI_FLAGS + flags + ['--data-dir', tmp])
+        seconds = time.time() - t0
+    finally:
+        os.chdir(cwd)
+    launches = {'vq_argmin': cuda_vq.LAUNCHES, 'adam': fused_adam.LAUNCHES,
+                'adam_bf16': fused_adam.LAUNCHES_BF16}
+    # ---- end of the counted run
+    lines = []
+    if os.path.exists(result):
+        with open(result) as f:
+            lines = f.read().splitlines()[seen:]
+    return rc, lines, launches, seconds
+
+
+def phase_cli():
+    """The command line end to end on the card, on nltcs-shaped data, each
+    run counted: the reference run's flags with the Adam kernel for 3
+    epochs; the same with --checkpoint and --cmll; --resume from that file
+    for 1 epoch; --adam-impl fused_bf16 (the kernel's bfloat16 variant).
+    Then PgmModel.from_checkpoint serves the file."""
+    from pgmvae_tpu_torch.data.loader import load_split
+    from pgmvae_tpu_torch.ops import cuda_vq
+    from pgmvae_tpu_torch.registry import REGISTRY
+    from pgmvae_tpu_torch.serving import PgmModel
+    from pgmvae_tpu_torch.utils.logging import run_identifier
+    runs = {}
     with tempfile.TemporaryDirectory() as tmp:
         _write_nltcs_like(tmp)
-        os.chdir(tmp)             # logs/tuning/<identifier>/ lands here
-        try:
-            t0 = time.time()
-            rc = run.main(['-n', 'nltcs', '-k', '50', '-d', '10', '-b', '128',
-                           '-e', '3', '-r', '0.01', '-c', '0.25', '-m', '-s',
-                           '1', '--adam-impl', 'pallas', '--data-dir', tmp])
-            seconds = time.time() - t0
-        finally:
-            os.chdir(cwd)
-        with open(os.path.join(tmp, 'result.txt')) as f:
-            lines = f.read().splitlines()
-    assert rc == 0 and len(lines) == 1, (rc, lines)
-    ident, rest = lines[0].split(' ', 1)
-    fields = dict(kv.split(':') for kv in rest.split())
-    expect = run_identifier('nltcs', 50, 10, 128, 3, 0.01, 0.25, True, 0.99,
-                            1, adam_impl='pallas')
-    assert ident == expect and ident.endswith('_ad-pallas'), ident
-    plls = {k: float(fields[k]) for k in ('pll-train', 'pll-valid',
-                                           'pll-test')}
-    assert all(np.isfinite(v) and v < 0 for v in plls.values()), plls
-    emit('cli', identifier=ident, pll=plls, seconds=seconds)
+        path = os.path.join(tmp, 'm.ckpt')
+        for name, epochs, flags in (
+                ('pallas', 3, ['--adam-impl', 'pallas']),
+                ('checkpoint_cmll', 3, ['--adam-impl', 'pallas',
+                                        '--checkpoint', path, '--cmll']),
+                ('resume', 1, ['--adam-impl', 'pallas', '--resume', path]),
+                ('fused_bf16', 3, ['--adam-impl', 'fused_bf16'])):
+            rc, lines, launches, seconds = _cli(tmp, ['-e', str(epochs)]
+                                                + flags)
+            assert rc == 0 and len(lines) == 1, (name, rc, lines)
+            ident, rest = lines[0].split(' ', 1)
+            fields = {k: float(v) for k, v in
+                      (kv.split(':') for kv in rest.split())}
+            runs[name] = dict(identifier=ident, result=fields,
+                              launches=launches, seconds=seconds)
+        y_test = load_split('nltcs', 'test', tmp)
+        # ---- serving the checkpoint, counted
+        cuda_vq.LAUNCHES = 0
+        scores = PgmModel.from_checkpoint(path).score(y_test)
+        serve_launches = cuda_vq.LAUNCHES
+        # ---- end of the counted run
+    for name, r in runs.items():
+        epochs = 1 if name == 'resume' else 3
+        expect = run_identifier(
+            'nltcs', 50, 10, 128, epochs, 0.01, 0.25, True, 0.99, 1,
+            adam_impl='fused_bf16' if name == 'fused_bf16' else 'pallas')
+        assert r['identifier'] == expect, (name, r['identifier'], expect)
+        plls = [r['result'][k] for k in ('pll-train', 'pll-valid',
+                                         'pll-test')]
+        assert all(np.isfinite(v) and v < 0 for v in plls), (name, plls)
+        cmll = r['result']['cmll-test']
+        if name == 'checkpoint_cmll':
+            assert np.isfinite(cmll) and cmll != 1 and cmll < 0, cmll
+        else:
+            assert cmll == 1, (name, cmll)
+    assert runs['pallas']['identifier'].endswith('_ad-pallas')
+    assert runs['fused_bf16']['identifier'].endswith('_ad-fused_bf16')
+    # launches: the CMLL's 3000 steps (p1 = 1), one epoch fewer for the
+    # resume; the bfloat16 moments take the variant and only it
+    steps = -(-16181 // 128)
+    n_leaves = 4 * (len(REGISTRY['nltcs'].encoder_units(10)) + 1)
+    vq = {name: r['launches']['vq_argmin'] for name, r in runs.items()}
+    assert vq['checkpoint_cmll'] - vq['pallas'] == 3000, vq
+    assert vq['pallas'] - vq['resume'] == 2 * steps, vq
+    assert vq['fused_bf16'] == vq['pallas'], vq
+    for name, r in runs.items():
+        n = (1 if name == 'resume' else 3) * steps * n_leaves
+        want = ({'adam': 0, 'adam_bf16': n} if name == 'fused_bf16'
+                else {'adam': n, 'adam_bf16': 0})
+        got = {k: r['launches'][k] for k in want}
+        assert got == want, (name, got, want)
+    assert serve_launches == 1, serve_launches
+    np.testing.assert_allclose(scores.mean(),
+                               runs['checkpoint_cmll']['result']['pll-test'],
+                               rtol=1e-5)
+    emit('cli', runs=runs, serve_launches=serve_launches,
+         serve_score_mean=float(scores.mean()))
+    total = {k: sum(r['launches'][k] for r in runs.values())
+             for k in ('vq_argmin', 'adam', 'adam_bf16')}
+    total['vq_argmin'] += serve_launches
+    return total
 
 
 def main() -> int:
@@ -861,18 +1293,29 @@ def main() -> int:
     phase_build()
     rows, kernel_err = phase_kernel()
     adam_row = phase_kernel_adam()
+    adam_bf16_row = phase_kernel_adam(torch.bfloat16)
     launches, slice_err = phase_slice()
     small_err = phase_small_reference()
-    train_launches, train_err, train_gap = phase_train()
-    kdd_launches, kdd_gap, kdd_adam_err = phase_train_kdd()
-    phase_cli()
+    train_launches, train_err, train_gap, trained = phase_train()
+    cmll_launches, cmll_gap = phase_cmll(trained)
+    del trained
+    kdd_launches, kdd_gap, kdd_adam_err, kdd = phase_train_kdd()
+    ckpt_launches = phase_checkpoint(kdd)
+    cmll_kdd_launches = phase_cmll_kdd(kdd)
+    del kdd
+    cli_launches = phase_cli()
     main_row = rows[('shape',) + MAIN_SHAPE]
-    emit('done', seconds=time.time() - t_start)
+    emit('done', seconds=time.time() - t_start, device_ms_by=DEVICE_TIMER)
     vq_paths = {'serving': launches, 'train': train_launches['vq_argmin'],
                 'train_kdd': kdd_launches['train'],
-                'stage2_kdd': kdd_launches['stage2']}
+                'stage2_kdd': kdd_launches['stage2'], 'cmll': cmll_launches,
+                'checkpoint': ckpt_launches['vq_argmin'],
+                'cmll_kdd': cmll_kdd_launches,
+                'cli': cli_launches['vq_argmin']}
     adam_paths = {'serving': 0, 'train': train_launches['adam'],
-                  'train_kdd': kdd_launches['adam'], 'stage2_kdd': 0}
+                  'train_kdd': kdd_launches['adam'], 'stage2_kdd': 0,
+                  'checkpoint': ckpt_launches['adam'],
+                  'cli': cli_launches['adam']}
     timed = ('ms', 'device_ms', 'plain_ms', 'plain_device_ms',
              'bound_ms', 'bound_by', 'library_ms', 'library_device_ms')
     print(json.dumps({'kernels': [{
@@ -881,8 +1324,9 @@ def main() -> int:
         'replaces': 'pgmvae_tpu/ops/pallas_vq.py:38',
         'launches': sum(vq_paths.values()), 'launches_by_path': vq_paths,
         'max_abs_err': max(kernel_err, slice_err, small_err, train_gap,
-                           kdd_gap),
+                           kdd_gap, cmll_gap),
         **{key: main_row[key] for key in timed},
+        'device_ms_by': DEVICE_TIMER,
         'shape': list(MAIN_SHAPE)}, {
         'name': 'adam', 'route': 'cuda',
         'source': 'pgmvae_tpu_torch/ops/csrc/adam.cu',
@@ -891,7 +1335,17 @@ def main() -> int:
         'launches_by_path': adam_paths,
         'max_abs_err': max(train_err, kdd_adam_err),
         **{key: adam_row[key] for key in timed},
-        'shape': adam_row['shapes']}]}))
+        'device_ms_by': DEVICE_TIMER,
+        'shape': adam_row['shapes']}, {
+        'name': 'adam_bf16', 'route': 'cuda',
+        'source': 'pgmvae_tpu_torch/ops/csrc/adam.cu',
+        'replaces': 'pgmvae_tpu/ops/fused_adam.py:187',
+        'launches': cli_launches['adam_bf16'],
+        'launches_by_path': {'cli': cli_launches['adam_bf16']},
+        'max_abs_err': 0.0,       # bit-equal to its plain version
+        **{key: adam_bf16_row[key] for key in timed},
+        'device_ms_by': DEVICE_TIMER,
+        'shape': adam_bf16_row['shapes']}]}))
     print(smi)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

@@ -8,7 +8,8 @@ each leaf, e.g. `jax.tree.map(np.asarray, state)`), which keeps this module
 free of jax: its train state is read by attribute, as the named tuples
 `TrainState(params, ema, opt_state, step)`, `EmaState` and optax's
 `InjectHyperparamsState(count, hyperparams, inner_state=(ScaleByAdamState(
-count, mu, nu), EmptyState()))`.
+count, mu, nu), EmptyState()))`. bfloat16 leaves (the moments of adam_impl
+'fused_bf16') cross as their 16-bit words: numpy has no bfloat16 of its own.
 """
 
 from __future__ import annotations
@@ -17,10 +18,30 @@ import numpy as np
 import torch
 
 from pgmvae_tpu_torch import resolve_device
-from pgmvae_tpu_torch.models.vqvae import VqVaeConfig, map_params
+from pgmvae_tpu_torch.models.vqvae import (VqVaeConfig, map_params,
+                                            param_leaves, params_from_leaves)
 from pgmvae_tpu_torch.ops.fused_adam import AdamState
 from pgmvae_tpu_torch.ops.quantizer import EmaState
 from pgmvae_tpu_torch.train import TrainState
+
+
+def _tensor(x, device) -> torch.Tensor:
+    """A numpy leaf of the JAX side as a tensor on `device` (a copy); a
+    bfloat16 array through its 16-bit words."""
+    x = np.asarray(x)
+    if x.dtype.name == 'bfloat16':
+        return torch.from_numpy(x.view(np.int16).copy()).view(
+            torch.bfloat16).to(device)
+    return torch.tensor(x, device=device)
+
+
+def _numpy(x: torch.Tensor, like=None) -> np.ndarray:
+    """A tensor as numpy; a bfloat16 tensor as its 16-bit words viewed as
+    the dtype of `like`, the JAX side's bfloat16 leaf."""
+    x = x.detach().cpu()
+    if x.dtype == torch.bfloat16:
+        return x.view(torch.int16).numpy().view(np.asarray(like).dtype)
+    return x.numpy()
 
 
 def params_from_jax(params, codebook, device=None):
@@ -29,7 +50,7 @@ def params_from_jax(params, codebook, device=None):
     device = resolve_device(device)
 
     def leaf(x):
-        return torch.tensor(np.asarray(x), device=device)
+        return _tensor(x, device)
 
     return (map_params(leaf, params),
             None if codebook is None else leaf(codebook))
@@ -56,7 +77,7 @@ def train_state_from_jax(state_np, cfg: VqVaeConfig, device=None
                          f'{cfg.quantizer!r}')
 
     def leaf(x):
-        return torch.tensor(np.asarray(x), device=device)
+        return _tensor(x, device)
 
     ema = None
     if state_np.ema is not None:
@@ -77,8 +98,12 @@ def train_state_to_numpy(state: TrainState, like):
     """Inverse of `train_state_from_jax`: the port's state as numpy leaves
     in the structure of `like`, a JAX train state of numpy leaves (its
     named tuples are filled with `_replace`)."""
-    def leaf(x):
-        return x.detach().cpu().numpy()
+    leaf = _numpy
+
+    def moments(tree, like_tree):
+        return params_from_leaves(tree, [
+            _numpy(x, ref) for x, ref in zip(param_leaves(tree),
+                                             param_leaves(like_tree))])
 
     ema = like.ema
     if state.ema is not None:
@@ -92,7 +117,7 @@ def train_state_to_numpy(state: TrainState, like):
     count = leaf(opt.count)
     opt_np = like.opt_state._replace(
         count=count, hyperparams=hp,
-        inner_state=(adam._replace(count=count, mu=map_params(leaf, opt.mu),
-                                   nu=map_params(leaf, opt.nu)), rest))
+        inner_state=(adam._replace(count=count, mu=moments(opt.mu, adam.mu),
+                                   nu=moments(opt.nu, adam.nu)), rest))
     return like._replace(params=map_params(leaf, state.params), ema=ema,
                          opt_state=opt_np, step=leaf(state.step))

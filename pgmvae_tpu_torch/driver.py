@@ -1,11 +1,14 @@
 """Experiment driver: one (dataset x hyperparameters) cell, end to end (the
 port of `pgmvae_tpu/driver.py`, single device).
 
-`run_experiment` trains stage 1, optionally keeping the snapshot with the
-best valid PLL, then computes the stage-2 CPT and the PLL of the three
-splits, and the post-hoc joint-CPT records. It returns a plain dict, as the
-JAX package's does. `ExperimentConfig` is the port's own copy of the JAX
-package's, with the same fields, defaults, checks and identifier.
+`run_experiment` trains stage 1 (from a checkpoint with `resume`),
+optionally keeping the snapshot with the best valid PLL, then computes the
+stage-2 CPT and the PLL of the three splits, the Gibbs CMLL of the test
+split with `cmll`, writes a checkpoint with `checkpoint`, and the post-hoc
+joint-CPT records (with a mixture's own CMLL and `<checkpoint>.mix`). It
+returns a plain dict, as the JAX package's does. `ExperimentConfig` is the
+port's own copy of the JAX package's, with the same fields, defaults,
+checks and identifier.
 """
 
 from __future__ import annotations
@@ -83,7 +86,8 @@ class ExperimentConfig:
     adam_impl: str = 'optax'  # 'fused'/'pallas': single-pass Adam update in
     #                        the JAX package, ~1 ULP/step from optax there,
     #                        so identifier-encoded; the port takes its one
-    #                        Adam kernel for all three
+    #                        Adam kernel for all three ('fused_bf16': its
+    #                        bfloat16-moment variant)
     compute_dtype: str = 'f32'  # 'bf16': bfloat16 forward/backward with f32
     #                        master params/moments/EMA/stage-2 (see
     #                        VqVaeConfig.compute_dtype) — a different
@@ -157,27 +161,36 @@ def unported(exp: ExperimentConfig) -> list:
         out.append(f'a device mesh (mesh_data={exp.mesh_data}, '
                    f'mesh_model={exp.mesh_model}): ROADMAP.md A11, '
                    f'multi-GPU')
-    if exp.resume:
-        out.append('resume: ROADMAP.md A7, checkpoints')
-    if exp.checkpoint:
-        out.append('checkpoint: ROADMAP.md A7, checkpoints')
-    if exp.cmll:
-        out.append('cmll: ROADMAP.md A8, Gibbs CMLL')
-    if exp.adam_impl == 'fused_bf16':
-        out.append("adam_impl='fused_bf16': ROADMAP.md A3, fused_bf16 "
-                   "moments")
     if exp.compute_dtype != 'f32':
         out.append(f'compute_dtype={exp.compute_dtype!r}: ROADMAP.md A4, '
                    f'bf16 compute')
     return out
 
 
+def _cmll(exp, cfg, params, codebook, dist, y_test, parents, device,
+          verbose=False):
+    """A Gibbs CMLL of the test split with the reference's settings
+    (p1 = n_var // 10, 3000 sweeps, burn-in 150; reference run.py:74),
+    uniforms from a generator seeded with exp.seed."""
+    from pgmvae_tpu_torch import gibbs
+    return gibbs.conditional_marginal_log_likelihood(
+        params, codebook, cfg, dist, y_test,
+        p1=max(y_test.shape[1] // 10, 1), num_smp=3000, burn_in=150,
+        generator=torch.Generator(device=device).manual_seed(exp.seed),
+        verbose=verbose, parents=parents)
+
+
 def _posthoc_cpt_records(exp, cfg, params, codebook, y_train, y_valid,
-                         y_test, primary_id, platform, device) -> list:
+                         y_test, primary_id, platform, device,
+                         state=None) -> list:
     """One stage-2 record per M in exp.cpt_parents_eval, computed from the
     trained `params` (see ExperimentConfig.cpt_parents_eval), and with
     exp.cpt_parents_mix one more record in which each variable keeps the M
-    whose validation PLL contribution is highest (ties to the smaller M)."""
+    whose validation PLL contribution is highest (ties to the smaller M).
+    With exp.cmll the mix record gets its own CMLL over the winners'
+    tables composed into one joint CPT (stage2.compose_mixed_cpt, exact);
+    with exp.checkpoint (and `state` given) those tables are saved to
+    `<checkpoint>.mix`, which PgmModel.from_checkpoint serves."""
     from pgmvae_tpu_torch.stage2 import Stage2, select_parents
 
     splits = (('train', y_train), ('valid', y_valid), ('test', y_test))
@@ -186,11 +199,17 @@ def _posthoc_cpt_records(exp, cfg, params, codebook, y_train, y_valid,
     if exp.cpt_parents_mix and exp.cpt_parents not in eval_ms:
         loop_ms = eval_ms + (exp.cpt_parents,)   # primary M is a candidate
     records, per_var = [], {}
+    keep_tables = exp.cpt_parents_mix and (       # mix-CMLL / mix-checkpoint
+        exp.cmll or (exp.checkpoint and state is not None))
+    dists_by_m, parents_by_m = {}, {}
     for m in loop_ms:
         te = time.time()
         par = select_parents(y_train, m) if m > 0 else None
         s2m = Stage2(cfg, parents=par, device=device)
         dist_m = s2m.cpt(params, codebook, y_train)
+        if keep_tables:
+            dists_by_m[m] = dist_m
+            parents_by_m[m] = par
         pll_m = {}
         for split, y in splits:
             pll_m[split], pv = s2m.pll_detail(params, codebook, y, dist_m)
@@ -228,11 +247,32 @@ def _posthoc_cpt_records(exp, cfg, params, codebook, y_train, y_valid,
                                     sel, minlength=len(cands)))
                                 if c},
         })
+        if keep_tables:
+            from pgmvae_tpu_torch.stage2 import compose_mixed_cpt
+            sel_ms = np.asarray(cands, np.int32)[sel]
+            mdist, mpar = compose_mixed_cpt(dists_by_m, parents_by_m, sel_ms)
+            if exp.cmll:
+                tcm = time.time()
+                # the same Gibbs settings as the cell's own CMLL
+                records[-1]['cmll_test'] = _cmll(exp, cfg, params, codebook,
+                                                 mdist, y_test, mpar, device)
+                records[-1]['cmll_wall'] = round(time.time() - tcm, 3)
+                records[-1]['cmll_m_max'] = int(sel_ms.max(initial=0))
+            if exp.checkpoint and state is not None:
+                from pgmvae_tpu_torch import checkpoint as ckpt
+                extra = {'identifier': exp.identifier, 'pll': mixed,
+                         'mix_m_histogram': records[-1]['mix_m_histogram']}
+                if mpar is not None:
+                    extra['cpt_parents'] = mpar.tolist()
+                ckpt.save(exp.checkpoint + '.mix', cfg, state, mdist,
+                          extra=extra)
+                records[-1]['checkpoint'] = exp.checkpoint + '.mix'
     return records
 
 
 def run_experiment(exp: ExperimentConfig, device=None) -> dict:
     """Stage-1 train + stage-2 CPT/PLL on `device` (None means CUDA)."""
+    from pgmvae_tpu_torch import checkpoint as ckpt
     from pgmvae_tpu_torch import resolve_device
     from pgmvae_tpu_torch.data.loader import load_split
     from pgmvae_tpu_torch.models.vqvae import VqVaeConfig
@@ -272,6 +312,23 @@ def run_experiment(exp: ExperimentConfig, device=None) -> dict:
     trainer = Trainer(cfg, exp.rate, exp.batch, len(y_train),
                       adam_impl=exp.adam_impl, device=device)
     state = trainer.init_state(exp.seed)
+    if exp.resume:
+        saved_cfg, state, _, _ = ckpt.load(exp.resume, state_template=state)
+        # the loader does not check shapes, and semantic fields (decay,
+        # cost, zero_debias, quantizer ...) would silently change training
+        # dynamics: refuse any mismatch up front. The run then trains
+        # exp.epoch more epochs, epoch generators from 0, as the JAX
+        # package's does.
+        mismatches = [
+            f'{f}: checkpoint={getattr(saved_cfg, f)!r} '
+            f'cli={getattr(cfg, f)!r}'
+            for f in VqVaeConfig._fields
+            if f not in ('vq_impl', 'matmul_precision')  # execution-only knobs
+            and getattr(saved_cfg, f) != getattr(cfg, f)]
+        if mismatches:
+            raise ValueError(
+                f'--resume {exp.resume}: checkpoint config does not match the '
+                f'requested run: ' + '; '.join(mismatches))
     parents = (select_parents(y_train, exp.cpt_parents)
                if exp.cpt_parents > 0 else None)
     s2 = Stage2(cfg, parents=parents, device=device)
@@ -322,6 +379,20 @@ def run_experiment(exp: ExperimentConfig, device=None) -> dict:
                             ('test', y_test))}
     eval_wall = time.time() - t1
 
+    cmll_test = 1  # the reference hardcodes 1 when CMLL is off (run.py:77)
+    cmll_wall = None
+    if exp.cmll:
+        t2 = time.time()
+        cmll_test = _cmll(exp, cfg, state.params, codebook, dist, y_test,
+                          parents, device, verbose=exp.verbose)
+        cmll_wall = round(time.time() - t2, 3)
+
+    if exp.checkpoint:
+        extra = {'identifier': exp.identifier, 'pll': pll}
+        if parents is not None:
+            extra['cpt_parents'] = parents.tolist()
+        ckpt.save(exp.checkpoint, cfg, state, dist, extra=extra)
+
     # the primary record's identity is independent of the post-hoc eval
     # list (training and the primary stage 2 never see it)
     primary_id = dataclasses.replace(exp, cpt_parents_eval=(),
@@ -330,7 +401,7 @@ def run_experiment(exp: ExperimentConfig, device=None) -> dict:
     result = {
         'identifier': primary_id,
         'pll_train': pll['train'], 'pll_valid': pll['valid'],
-        'pll_test': pll['test'], 'cmll_test': 1,
+        'pll_test': pll['test'], 'cmll_test': cmll_test,
         'train_wall': round(train_wall, 3), 'eval_wall': round(eval_wall, 3),
         'samples_per_sec': round(exp.epoch * len(y_train)
                                  / max(train_wall, 1e-9), 1),
@@ -339,10 +410,12 @@ def run_experiment(exp: ExperimentConfig, device=None) -> dict:
     }
     if exp.select_on_valid > 0:
         result['best_epoch'] = best_epoch
+    if cmll_wall is not None:
+        result['cmll_wall'] = cmll_wall
     if exp.cpt_parents_eval:
         result['posthoc'] = _posthoc_cpt_records(
             exp, cfg, state.params, codebook, y_train, y_valid, y_test,
-            primary_id, platform, device)
+            primary_id, platform, device, state=state)
     if logger:
         logger.log_final(**result)
         logger.close()

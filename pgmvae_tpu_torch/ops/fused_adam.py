@@ -16,7 +16,14 @@ corrections and the learning rate kept on the device.
 `adam_update_plain` (the same arithmetic in the same order in plain
 PyTorch) for CPU tensors, and raises for any other device. Both write the
 new params and moments into the tensors they are given: a caller that must
-keep the old values copies them first. `LAUNCHES` counts kernel launches.
+keep the old values copies them first.
+
+The moments are float32, or bfloat16 (`adam_init(..., moment_dtype=
+torch.bfloat16)`, adam_impl 'fused_bf16'): then the kernel's bfloat16
+variant runs, which computes in float32 from the widened moments and rounds
+only the stored m' and v' to nearest even, as the JAX package's 'xla_bf16'
+update does. `LAUNCHES` and `LAUNCHES_BF16` count the two variants'
+launches.
 
 The kernel's library is built with `-fmad=false`, so on the card it is
 bit-equal to `adam_update_plain` on the same inputs.
@@ -35,6 +42,8 @@ from pgmvae_tpu_torch.models.vqvae import map_params, param_leaves
 from pgmvae_tpu_torch.ops import _build
 
 LAUNCHES = 0
+LAUNCHES_BF16 = 0
+MOMENT_DTYPES = (torch.float32, torch.bfloat16)
 
 _SRC = Path(__file__).resolve().parent / 'csrc' / 'adam.cu'
 _FLAGS = ('-O3', '-fmad=false')
@@ -67,19 +76,30 @@ def build() -> ctypes.CDLL:
         ctypes.c_longlong, ctypes.c_float, ctypes.c_float, ctypes.c_float,
         ctypes.c_void_p]
     lib.adam_update.restype = ctypes.c_int
+    lib.adam_update_bf16.argtypes = lib.adam_update.argtypes
+    lib.adam_update_bf16.restype = ctypes.c_int
     lib.adam_error_string.argtypes = [ctypes.c_int]
     lib.adam_error_string.restype = ctypes.c_char_p
     _lib = lib
     return lib
 
 
-def adam_init(params, learning_rate: float, eps: float = 1e-7) -> AdamState:
-    """Zero moments in the params layout, count 0, on the params' device."""
+def adam_init(params, learning_rate: float, eps: float = 1e-7,
+              moment_dtype: torch.dtype = torch.float32) -> AdamState:
+    """Zero moments of `moment_dtype` (float32, or bfloat16 for adam_impl
+    'fused_bf16') in the params layout, count 0, on the params' device."""
+    if moment_dtype not in MOMENT_DTYPES:
+        raise ValueError(f'Adam moments are float32 or bfloat16, not '
+                         f'{moment_dtype}')
     device = param_leaves(params)[0].device
+
+    def zeros(p):
+        return torch.zeros_like(p, dtype=moment_dtype)
+
     return AdamState(
         count=torch.zeros((), dtype=torch.int32, device=device),
-        mu=map_params(torch.zeros_like, params),
-        nu=map_params(torch.zeros_like, params),
+        mu=map_params(zeros, params),
+        nu=map_params(zeros, params),
         learning_rate=torch.tensor(learning_rate, dtype=torch.float32,
                                    device=device),
         eps=float(np.float32(eps)))
@@ -111,9 +131,12 @@ def _quads(params, grads, state: AdamState):
         raise ValueError(f'Adam operands lie on more than one device: '
                          f'{sorted(map(str, devices))}')
     for quad in quads:
-        if any(t.dtype != torch.float32 for t in quad):
-            raise ValueError(f'the Adam update takes float32 leaves; got '
-                             f'{[t.dtype for t in quad]}')
+        p, m, v, g = quad
+        if (p.dtype != torch.float32 or g.dtype != torch.float32
+                or m.dtype != v.dtype or m.dtype not in MOMENT_DTYPES):
+            raise ValueError(f'the Adam update takes float32 params and '
+                             f'grads, and float32 or bfloat16 moments of one '
+                             f'dtype; got {[t.dtype for t in quad]}')
         if any(t.shape != quad[0].shape for t in quad):
             raise ValueError(f'leaf shapes differ: '
                              f'{[tuple(t.shape) for t in quad]}')
@@ -129,8 +152,10 @@ def _plain(quads, scalars, b1: float, b2: float, eps: float) -> None:
     omb2 = _f32(np.float32(1.0) - np.float32(b2))
     b1, b2 = _f32(b1), _f32(b2)
     for p, m, v, g in quads:
-        m2 = b1 * m + omb1 * g
-        v2 = b2 * v + omb2 * (g * g)
+        # bfloat16 moments widen exactly; p takes the unrounded m2, v2, and
+        # copy_ rounds the stored moments to nearest even
+        m2 = b1 * m.float() + omb1 * g
+        v2 = b2 * v.float() + omb2 * (g * g)
         u = (m2 / bc1) / (torch.sqrt(v2 / bc2) + eps)
         p.copy_(p + (-lr) * u)
         m.copy_(m2)
@@ -139,21 +164,25 @@ def _plain(quads, scalars, b1: float, b2: float, eps: float) -> None:
 
 def _kernel(quads, scalars, b1: float, b2: float, eps: float,
             device: torch.device) -> None:
-    global LAUNCHES
+    global LAUNCHES, LAUNCHES_BF16
     lib = build()
     stream = torch.cuda.current_stream(device).cuda_stream
     with torch.cuda.device(device):
         for p, m, v, g in quads:
             if p.numel() == 0:
                 continue
-            err = lib.adam_update(p.data_ptr(), m.data_ptr(), v.data_ptr(),
-                                  g.data_ptr(), scalars.data_ptr(),
-                                  p.numel(), b1, b2, eps, stream)
+            bf16 = m.dtype == torch.bfloat16
+            fn = lib.adam_update_bf16 if bf16 else lib.adam_update
+            err = fn(p.data_ptr(), m.data_ptr(), v.data_ptr(), g.data_ptr(),
+                     scalars.data_ptr(), p.numel(), b1, b2, eps, stream)
             if err != 0:
                 msg = lib.adam_error_string(err).decode()
                 raise RuntimeError(f'adam launch failed: CUDA error {err} '
                                    f'({msg}) at shape {tuple(p.shape)}')
-            LAUNCHES += 1
+            if bf16:
+                LAUNCHES_BF16 += 1
+            else:
+                LAUNCHES += 1
 
 
 def _update(params, grads, state: AdamState, b1: float, b2: float,
@@ -176,8 +205,9 @@ def adam_update(params, grads, state: AdamState, b1: float = 0.9,
     """One Adam step, in place on `params`' leaves and the state's moments;
     returns the state with the new count. `grads` is in the params layout.
     CUDA tensors launch the kernel once per leaf, CPU tensors run
-    `adam_update_plain`; every leaf must be float32, contiguous, of its
-    parameter's shape and on one device with the state."""
+    `adam_update_plain`; every leaf must be contiguous, of its parameter's
+    shape and on one device with the state, params and grads float32, each
+    leaf's moments float32 or bfloat16."""
     return _update(params, grads, state, b1, b2, kernel=True)
 
 

@@ -6,9 +6,17 @@ TRW benchmark suite, with the flags, defaults, run identifier and
         -r 0.01 -c 0.25 -m -s 1 --adam-impl pallas            # CUDA device 0
     python -m pgmvae_tpu_torch.run ... --device -1             # the CPU
 
-Flags of features the port does not run yet (a mesh, --resume,
---checkpoint, --cmll, --profile, bf16 compute, bf16 Adam moments) exit
-with code 2 and say which ROADMAP.md item holds them.
+    python -m pgmvae_tpu_torch.run ... --checkpoint m.ckpt --cmll
+    python -m pgmvae_tpu_torch.run ... --resume m.ckpt -e 1
+    python -m pgmvae_tpu_torch.run ... --adam-impl fused_bf16
+
+`--checkpoint` writes the JAX package's checkpoint format (and with
+--cpt-parents-mix `<path>.mix`), which `serving.PgmModel.from_checkpoint`
+of either package serves; `--resume` refuses a checkpoint whose model
+config differs; `--cmll` adds the Gibbs CMLL of the test split to the
+result line; `--adam-impl fused_bf16` keeps the Adam moments in bfloat16.
+Flags of features the port does not run yet (a mesh, --profile, bf16
+compute) exit with code 2 and say which ROADMAP.md item holds them.
 """
 
 from __future__ import annotations
@@ -103,7 +111,9 @@ def build_parser() -> argparse.ArgumentParser:
                    help='Adam update implementation: optax (bit-compatible '
                         'default), fused (single-pass HBM update, same math '
                         'but ~1 ULP/step XLA-fusion drift — recorded in the '
-                        'identifier as ad-fused), pallas (explicit kernel)')
+                        'identifier as ad-fused), pallas (explicit kernel), '
+                        'fused_bf16 (bfloat16 moments, the kernel\'s '
+                        'bfloat16 variant; recorded as ad-fused_bf16)')
     p.add_argument('--compute-dtype', choices=['f32', 'bf16'], default='f32',
                    help='forward/backward compute dtype. bf16 halves the '
                         'weight/activation/cotangent HBM streams (master '

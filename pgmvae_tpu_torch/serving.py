@@ -10,6 +10,8 @@ stage-2 CPT (`dist`):
 - `codes(y)`: each sample's discrete code per variable.
 
 Every call encodes through the nearest-code kernel on the model's device.
+`PgmModel.from_checkpoint` serves a checkpoint file of either package,
+a `<checkpoint>.mix` mixture included.
 """
 
 from __future__ import annotations
@@ -17,6 +19,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from pgmvae_tpu_torch import checkpoint as ckpt
 from pgmvae_tpu_torch import resolve_device
 from pgmvae_tpu_torch.gibbs import get_probability
 from pgmvae_tpu_torch.models import vqvae
@@ -41,6 +44,23 @@ class PgmModel:
             device=self.device))
         self._dist32 = torch.as_tensor(self.dist.astype(np.float32),
                                        device=self.device)
+
+    @classmethod
+    def from_checkpoint(cls, path: str, device=None) -> 'PgmModel':
+        """Serve a checkpoint written with a CPT (`dist`), on `device`
+        (None means CUDA). Joint-code tables take their parents from the
+        file's `extra['cpt_parents']`."""
+        cfg, state, dist, extra = ckpt.load(path)
+        if dist is None:
+            raise ValueError(f'{path} has no CPT (dist); run stage 2 and '
+                             f'save with dist= before serving')
+        params = ckpt.params_from_state(state['params'])
+        if cfg.quantizer == 'ema':
+            codebook = torch.from_numpy(np.array(state['ema']['codebook']))
+        else:                        # 'vq' trains it; 'naive' has none
+            codebook = params.get('codebook')
+        return cls(cfg, params, codebook, dist,
+                   parents=extra.get('cpt_parents'), device=device)
 
     def _tensor(self, y) -> torch.Tensor:
         return torch.as_tensor(np.asarray(y, np.float32), device=self.device)

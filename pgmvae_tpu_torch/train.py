@@ -7,7 +7,7 @@ mean and statistic, so its padded rows are exact no-ops. Each step is one
 forward and backward pass, then the Adam update in place through the CUDA
 kernel of `ops/fused_adam.py`, then the EMA codebook update. Metrics stay on
 the device and are read once per epoch when the caller logs them, else once
-per `fit`.
+per `fit`. adam_impl 'fused_bf16' keeps the Adam moments in bfloat16.
 
 Loss: mse over each network's leave-one-out reconstruction, plus
 cost*e_loss (plus q_loss for the 'vq' quantizer), plus l2_reg*l2_penalty.
@@ -41,8 +41,9 @@ PERPLEXITY_MAX_CODES = 1 << 16
 
 # adam_impl values: the JAX package's 'optax', 'fused' and 'pallas' compute
 # one function (tests/test_fused_adam.py), so all three take the kernel; the
-# identifier still records the choice
-ADAM_IMPLS = ('optax', 'fused', 'pallas')
+# identifier still records the choice. 'fused_bf16' keeps the moments in
+# bfloat16 and takes the kernel's bfloat16 variant.
+ADAM_IMPLS = ('optax', 'fused', 'pallas', 'fused_bf16')
 
 
 class TrainState(NamedTuple):
@@ -107,10 +108,6 @@ class Trainer:
         self.steps_per_epoch = math.ceil(self.n_train / self.batch_size)
         self.adam_impl = adam_impl or os.environ.get('PGMVAE_ADAM_IMPL',
                                                      'optax')
-        if self.adam_impl == 'fused_bf16':
-            raise NotImplementedError(
-                "adam_impl='fused_bf16' (bf16 Adam moments) is not ported "
-                "yet: ROADMAP.md A3, fused_bf16 moments")
         if self.adam_impl not in ADAM_IMPLS:
             raise ValueError(f'unknown adam_impl {self.adam_impl!r}; '
                              f'choose from {ADAM_IMPLS}')
@@ -132,8 +129,10 @@ class Trainer:
             ema = q.ema_init(codebook, self.cfg.zero_debias)
         elif self.cfg.quantizer == 'vq':
             params['codebook'] = codebook
-        opt_state = fused_adam.adam_init(params, self.learning_rate,
-                                         self.adam_eps)
+        opt_state = fused_adam.adam_init(
+            params, self.learning_rate, self.adam_eps,
+            moment_dtype=(torch.bfloat16 if self.adam_impl == 'fused_bf16'
+                          else torch.float32))
         step = torch.zeros((), dtype=torch.int32, device=self.device)
         return TrainState(params, ema, opt_state, step)
 

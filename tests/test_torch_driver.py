@@ -1,7 +1,8 @@
 """The port's driver and command line against the JAX package's: the same
 ExperimentConfig fields, checks and identifiers, a lossless
-parse_identifier, a `result.txt` line whose identifier is the JAX one, and
-select-on-valid and post-hoc joint-CPT records on synthetic nltcs-shaped
+parse_identifier, a `result.txt` line whose identifier is the JAX one,
+select-on-valid and post-hoc joint-CPT records, and checkpoints, --resume,
+--cmll and the `.mix` mixture checkpoint on synthetic nltcs-shaped
 splits."""
 
 import dataclasses
@@ -11,11 +12,12 @@ import numpy as np
 import pytest
 
 from pgmvae_tpu.driver import ExperimentConfig as JExp
+from pgmvae_tpu.driver import run_experiment as jrun_experiment
 from pgmvae_tpu.utils.logging import parse_identifier as jparse
 from pgmvae_tpu.utils.logging import run_identifier as jrun_identifier
 from pgmvae_tpu_torch import run as trun
 from pgmvae_tpu_torch.driver import ExperimentConfig as TExp
-from pgmvae_tpu_torch.driver import run_experiment
+from pgmvae_tpu_torch.driver import run_experiment, unported
 from pgmvae_tpu_torch.utils.logging import parse_identifier, run_identifier
 
 BASE = dict(name='nltcs', embedding=50, dim=10)
@@ -139,3 +141,129 @@ def test_posthoc_records_carry_the_jax_identifiers(tmp_path):
     assert mix['pll_valid'] >= max(
         [r['pll_valid'] for r in res['posthoc'][:-1]]
         + [res['pll_valid']]) - 1e-9
+
+
+SMALL = dict(name='nltcs', embedding=8, dim=4, batch=256, epoch=1, rate=0.01,
+             ema=True, seed=0, units=(8, 6))
+
+
+def _test_split(root):
+    from pgmvae_tpu_torch.data.loader import load_split
+    return load_split('nltcs', 'test', str(root))
+
+
+def test_checkpoint_and_cmll_records(tmp_path, monkeypatch):
+    import pgmvae_tpu_torch.gibbs as gibbs
+    from pgmvae_tpu import checkpoint as jckpt
+    from pgmvae_tpu_torch.serving import PgmModel
+    cmll_fn, seen = gibbs.conditional_marginal_log_likelihood, []
+
+    def short_cmll(*args, p1, num_smp, burn_in, **kw):
+        # the driver's settings, run for 30 sweeps instead of 3000
+        seen.append((p1, num_smp, burn_in))
+        return cmll_fn(*args, p1=p1, num_smp=30, burn_in=5, **kw)
+    monkeypatch.setattr(gibbs, 'conditional_marginal_log_likelihood',
+                        short_cmll)
+    _write_splits(tmp_path, seed=3)
+    path = str(tmp_path / 'm.ckpt')
+    exp = TExp(**SMALL, cmll=True, checkpoint=path, data_dir=str(tmp_path))
+    res = run_experiment(exp, device='cpu')
+    assert seen == [(1, 3000, 150)]
+    cmll = res['cmll_test']
+    assert np.isfinite(cmll) and cmll < 0 and cmll != 1
+    assert res['cmll_wall'] >= 0
+    # the file: the JAX package reads its config, CPT and extra
+    cfg, _, dist, extra = jckpt.load(path)
+    assert cfg.units == (8, 6) and cfg.num_codes == 8 and cfg.dim == 4
+    assert extra == {'identifier': exp.identifier,
+                     'pll': {k: res['pll_' + k]
+                             for k in ('train', 'valid', 'test')}}
+    assert dist.shape == (16, 8)
+    # and serves the cell's test PLL
+    scores = PgmModel.from_checkpoint(path, device='cpu').score(
+        _test_split(tmp_path))
+    np.testing.assert_allclose(scores.mean(), res['pll_test'], rtol=1e-5)
+
+
+def test_resume_refuses_a_mismatch_with_the_jax_message(tmp_path):
+    _write_splits(tmp_path, seed=4)
+    path = str(tmp_path / 'm.ckpt')
+    run_experiment(TExp(**SMALL, checkpoint=path, data_dir=str(tmp_path)),
+                   device='cpu')
+    bad = {**SMALL, 'decay': 0.5, 'units': (8, 5)}
+    with pytest.raises(ValueError) as port:
+        run_experiment(TExp(**bad, resume=path, data_dir=str(tmp_path)),
+                       device='cpu')
+    with pytest.raises(ValueError) as jax_side:
+        jrun_experiment(JExp(**bad, resume=path, data_dir=str(tmp_path)))
+    assert str(port.value) == str(jax_side.value)
+    assert 'decay: checkpoint=0.99 cli=0.5' in str(port.value)
+    assert 'units: checkpoint=(8, 6) cli=(8, 5)' in str(port.value)
+    # an execution-only knob may differ; the resumed cell trains on
+    res = run_experiment(TExp(**SMALL, precision='highest', resume=path,
+                              data_dir=str(tmp_path)), device='cpu')
+    assert res['pll_test'] < 0
+
+
+def test_mix_cmll_wiring_and_the_servable_mix(tmp_path, monkeypatch):
+    """--cmll + --cpt-parents-mix + --checkpoint: exactly two CMLL calls
+    (the cell's table, then the composed mixture's, as
+    tests/test_cpt_parents.py::test_mix_cmll_wiring holds the JAX driver
+    to), and `<checkpoint>.mix` serves the mix record's test PLL, in the
+    port and in the JAX package."""
+    import pgmvae_tpu_torch.gibbs as gibbs
+    from pgmvae_tpu.serving import PgmModel as JPgmModel
+    from pgmvae_tpu_torch.serving import PgmModel
+    calls = []
+
+    def fake_cmll(params, codebook, cfg, dist, x, p1, num_smp, burn_in,
+                  generator=None, verbose=False, parents=None):
+        calls.append((np.asarray(dist).shape,
+                      None if parents is None else np.asarray(parents).shape,
+                      p1, num_smp, burn_in))
+        return -1.234
+    monkeypatch.setattr(gibbs, 'conditional_marginal_log_likelihood',
+                        fake_cmll)
+    _write_splits(tmp_path, seed=5)
+    path = str(tmp_path / 'm.ckpt')
+    res = run_experiment(TExp(**SMALL, cmll=True, cpt_parents_eval=(1, 2),
+                              cpt_parents_mix=True, checkpoint=path,
+                              data_dir=str(tmp_path)), device='cpu')
+    assert len(calls) == 2 and res['cmll_test'] == -1.234
+    mix = [r for r in res['posthoc'] if r['identifier'].endswith('_cpm')][0]
+    assert mix['cmll_test'] == -1.234 and 'cmll_wall' in mix
+    assert all(r['cmll_test'] == 1 for r in res['posthoc']
+               if not r['identifier'].endswith('_cpm'))
+    dist_shape, par_shape, p1, num_smp, burn_in = calls[-1]
+    assert (p1, num_smp, burn_in) == (1, 3000, 150)
+    m_max = mix['cmll_m_max']
+    assert m_max == max(int(k) for k in mix['mix_m_histogram'])
+    if m_max == 0:
+        assert dist_shape == (16, 8) and par_shape is None
+    else:
+        assert dist_shape == (16, 8, 1 << m_max)
+        assert par_shape == (16, m_max)
+    assert calls[0][0] == (16, 8) and calls[0][1] is None
+
+    assert mix['checkpoint'] == path + '.mix'
+    y_test = _test_split(tmp_path)
+    scores = PgmModel.from_checkpoint(path + '.mix', device='cpu').score(
+        y_test)
+    np.testing.assert_allclose(scores.mean(), mix['pll_test'], rtol=1e-5)
+    np.testing.assert_allclose(
+        scores, JPgmModel.from_checkpoint(path + '.mix').score(y_test),
+        rtol=1e-5)
+    # the base checkpoint still serves the primary (M=0) model
+    base = PgmModel.from_checkpoint(path, device='cpu').score(y_test)
+    np.testing.assert_allclose(base.mean(), res['pll_test'], rtol=1e-5)
+
+
+@pytest.mark.parametrize('fields,left', [
+    (dict(resume='m.ckpt', checkpoint='m.ckpt', cmll=True,
+          adam_impl='fused_bf16'), []),
+    (dict(mesh_model=2), ['A11']), (dict(mesh_data=2), ['A11']),
+    (dict(compute_dtype='bf16'), ['A4']),
+    (dict(mesh_data=2, compute_dtype='bf16', cmll=True), ['A11', 'A4'])])
+def test_unported_names_only_a_mesh_and_bf16_compute(fields, left):
+    got = unported(TExp(name='nltcs', embedding=5, dim=3, **fields))
+    assert [m.split('ROADMAP.md ')[1].split(',')[0] for m in got] == left

@@ -1,7 +1,8 @@
 """Rules of the PyTorch/CUDA port that no parity test shows: it never
-imports the JAX side, it runs on CUDA unless told otherwise, its kernel
-wrappers take the plain versions only for CPU tensors, a missing nvcc is a
-clear error, and features not ported yet refuse to run."""
+imports the JAX side (nor msgpack or ml_dtypes, which the card's machine
+lacks), it runs on CUDA unless told otherwise, its kernel wrappers take the
+plain versions only for CPU tensors, a missing nvcc is a clear error, and
+features not ported yet refuse to run."""
 
 import os
 import pkgutil
@@ -23,7 +24,7 @@ from pgmvae_tpu_torch.stage2 import Stage2
 from pgmvae_tpu_torch.train import Trainer
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-BLOCKED = ('jax', 'flax', 'optax', 'pgmvae_tpu')
+BLOCKED = ('jax', 'flax', 'optax', 'msgpack', 'ml_dtypes', 'pgmvae_tpu')
 CFG = tv.VqVaeConfig(n_var=6, units=(5, 4), dim=3, num_codes=5)
 
 # A meta-path finder that refuses the JAX side by exact name or dotted
@@ -61,15 +62,16 @@ def test_port_imports_without_jax_side():
                          capture_output=True, text=True, env=env, cwd=ROOT,
                          timeout=300)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) == len(_port_modules()) >= 19
+    assert int(out.stdout.strip()) == len(_port_modules()) >= 21
     assert {'pgmvae_tpu_torch.' + m for m in (
         'ops._build', 'ops.fused_adam', 'train', 'driver', 'run',
-        'utils.logging')} <= set(_port_modules())
+        'utils.logging', 'checkpoint', 'utils.msgpack', 'gibbs')} <= set(
+            _port_modules())
 
 
 def test_no_import_line_names_the_jax_side():
-    pattern = re.compile(r'^\s*(from|import)\s+(jax|flax|optax|pgmvae_tpu)'
-                         r'(\.|\s|$)', re.M)
+    pattern = re.compile(r'^\s*(from|import)\s+(jax|flax|optax|msgpack|'
+                         r'ml_dtypes|pgmvae_tpu)(\.|\s|$)', re.M)
     files = [os.path.join(ROOT, 'chip_smoke.py')]
     for dirpath, _, names in os.walk(pgmvae_tpu_torch.__path__[0]):
         files += [os.path.join(dirpath, n) for n in names
@@ -184,13 +186,11 @@ def test_adam_on_cpu_tensors_launches_nothing():
     np.testing.assert_allclose(params['enc'][0][0].numpy(), 0.99, rtol=1e-5)
 
 
-@pytest.mark.parametrize('kind', ['fused_bf16', 'bf16'])
+@pytest.mark.parametrize('kind', ['bf16'])
 def test_trainer_refuses_what_is_not_ported(kind):
-    cfg = CFG._replace(compute_dtype='bf16') if kind == 'bf16' else CFG
-    adam_impl = 'fused_bf16' if kind == 'fused_bf16' else None
-    item = 'A3' if kind == 'fused_bf16' else 'A4'
-    with pytest.raises(NotImplementedError, match=f'ROADMAP.md {item}'):
-        Trainer(cfg, 0.01, 8, 40, adam_impl=adam_impl, device='cpu')
+    cfg = CFG._replace(compute_dtype=kind)
+    with pytest.raises(NotImplementedError, match='ROADMAP.md A4'):
+        Trainer(cfg, 0.01, 8, 40, device='cpu')
     with pytest.raises(ValueError, match='unknown adam_impl'):
         Trainer(CFG, 0.01, 8, 40, adam_impl='sgd', device='cpu')
     tr = Trainer(CFG, 0.01, 8, 40, device='cpu')
@@ -203,13 +203,9 @@ def test_trainer_refuses_what_is_not_ported(kind):
 
 
 UNPORTED = [
-    (['--resume', 'ckpt'], dict(resume='ckpt'), 'A7'),
-    (['--checkpoint', 'ckpt'], dict(checkpoint='ckpt'), 'A7'),
-    (['--cmll'], dict(cmll=True), 'A8'),
     (['--mesh-model', '2'], dict(mesh_model=2), 'A11'),
     (['--mesh-data', '2'], dict(mesh_data=2), 'A11'),
     (['--compute-dtype', 'bf16'], dict(compute_dtype='bf16'), 'A4'),
-    (['--adam-impl', 'fused_bf16'], dict(adam_impl='fused_bf16'), 'A3'),
 ]
 
 
@@ -224,4 +220,12 @@ def test_unported_features_raise_and_the_cli_exits_2(flags, fields, item,
                     '--result-file', str(tmp_path / 'r.txt')] + flags)
     assert rc == 2
     assert f'ROADMAP.md {item}' in capsys.readouterr().err
+    assert not (tmp_path / 'r.txt').exists()
+
+
+def test_cli_profile_exits_2(capsys, tmp_path):
+    rc = trun.main(['-n', 'nltcs', '-k', '5', '-d', '3', '--device', '-1',
+                    '--result-file', str(tmp_path / 'r.txt'), '--profile'])
+    assert rc == 2
+    assert 'ROADMAP.md A9' in capsys.readouterr().err
     assert not (tmp_path / 'r.txt').exists()

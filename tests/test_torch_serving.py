@@ -97,3 +97,48 @@ def test_get_probability_matches_jax(served):
         torch.from_numpy(fts),
         parents=None if par is None else torch.from_numpy(par))
     np.testing.assert_allclose(got.numpy(), ref, rtol=1e-5)
+
+
+# ------------------------------------------------ from_checkpoint --
+
+@pytest.mark.parametrize('quantizer,m', [('ema', 0), ('ema', 2), ('vq', 0),
+                                         ('naive', 0)])
+def test_from_checkpoint_of_a_jax_file(quantizer, m, tmp_path):
+    """A checkpoint the JAX package wrote (with `cpt_parents` in its extra
+    for joint-code tables) serves the JAX model's scores, codes and
+    conditionals."""
+    from pgmvae_tpu import checkpoint as jckpt
+    from pgmvae_tpu.train import Trainer as JTrainer
+    jcfg = jv.VqVaeConfig(**KW, quantizer=quantizer)
+    st = JTrainer(jcfg, 0.01, 8, 240).init_state(jax.random.PRNGKey(5))
+    y = _data(240, seed=5)
+    parents = js2.select_parents(y, m) if m else None
+    s2 = js2.Stage2(jcfg, chunk=64, parents=parents)
+    codebook = {'ema': st.ema.codebook if st.ema is not None else None,
+                'vq': st.params.get('codebook'), 'naive': None}[quantizer]
+    dist = s2.cpt(st.params, codebook, y)
+    path = str(tmp_path / 'm.ckpt')
+    extra = {'identifier': 'x'}
+    if parents is not None:
+        extra['cpt_parents'] = parents.tolist()
+    jckpt.save(path, jcfg, st, dist, extra=extra)
+
+    jm = JaxPgmModel.from_checkpoint(path)
+    tm = PgmModel.from_checkpoint(path, device='cpu')
+    assert tm.cfg == tv.VqVaeConfig(**KW, quantizer=quantizer)
+    np.testing.assert_allclose(tm.score(y), jm.score(y), rtol=1e-5)
+    np.testing.assert_array_equal(tm.codes(y[:50]), jm.codes(y[:50]))
+    np.testing.assert_allclose(tm.conditional_probability(y[:20], [0, 9, 4]),
+                               jm.conditional_probability(y[:20], [0, 9, 4]),
+                               rtol=1e-5)
+
+
+def test_from_checkpoint_without_dist_raises(tmp_path):
+    from pgmvae_tpu import checkpoint as jckpt
+    from pgmvae_tpu.train import Trainer as JTrainer
+    jcfg = jv.VqVaeConfig(**KW)
+    path = str(tmp_path / 'm.ckpt')
+    jckpt.save(path, jcfg, JTrainer(jcfg, 0.01, 8, 24).init_state(
+        jax.random.PRNGKey(0)))
+    with pytest.raises(ValueError, match='no CPT'):
+        PgmModel.from_checkpoint(path, device='cpu')

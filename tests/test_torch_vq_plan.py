@@ -15,12 +15,17 @@ from pgmvae_tpu_torch.ops import cuda_vq
 
 # (n, B, D, K): tests/test_pallas_vq.py's shapes, bbc's stage-2 chunk, test
 # split, train batch and large K, the kdd sweep's train batch and stage-2
-# chunk, nltcs's widest stage-2 chunk, the widest latent
+# chunk, nltcs's widest stage-2 chunk, the widest latent; then a Gibbs
+# step's: 11 blocks over bbc's test split, over 1,024 kdd test rows and over
+# all 34,955, 16 blocks over nltcs's test split (chip_smoke.GIBBS_SHAPES)
+GIBBS_SHAPES = [(11, 330, 20, 50), (11, 1024, 10, 4096),
+                (11, 34955, 10, 4096), (16, 3236, 10, 50)]
 PLAN_SHAPES = [(3, 9, 5, 7), (5, 32, 8, 130), (4, 17, 10, 50),
                (2, 64, 16, 1024), (1058, 32, 20, 50), (1058, 330, 20, 50),
                (1058, 250, 20, 50), (1058, 256, 20, 4096),
                (64, 32, 10, 4096), (64, 118, 10, 4096), (16, 4096, 10, 50),
-               (3, 5, 128, 1000), (1, 1, 1, 1), (1058, 256, 20, 65536)]
+               (3, 5, 128, 1000), (1, 1, 1, 1),
+               (1058, 256, 20, 65536)] + GIBBS_SHAPES
 KDD_BATCH = (64, 32, 10, 4096)
 BBC_CHUNK = (1058, 32, 20, 50)
 
@@ -94,12 +99,26 @@ def test_plan_splits_kdd_and_packs_bbc():
     assert bbc.grid[1] * bbc.vpb >= BBC_CHUNK[0]
 
 
+def test_plan_splits_the_small_gibbs_grids():
+    """Eleven variables fill few blocks: the 1,024-row kdd step and bbc's
+    test split split K into strips (n = 11 is below the grid the card
+    needs); the whole kdd test split fills the card without."""
+    for shape in ((11, 1024, 10, 4096), (11, 330, 20, 50)):
+        p = cuda_vq.plan(*shape)
+        assert p.strips > 1 and p.vpb == 1, (shape, p)
+    full = cuda_vq.plan(11, 34955, 10, 4096)
+    assert full.strips == 1 and full.grid[0] * full.grid[1] >= \
+        cuda_vq.MIN_BLOCKS
+
+
 # (data shape, the shape whose plan cuts the strips)
 MERGE_CASES = [((3, 9, 5, 7), (3, 9, 5, 7)),
                ((5, 32, 8, 130), (5, 32, 8, 130)),
                ((2, 64, 16, 1024), (2, 64, 16, 1024)),
                ((2, 16, 10, 4096), KDD_BATCH),
-               ((2, 24, 10, 4096), (64, 118, 10, 4096))]
+               ((2, 24, 10, 4096), (64, 118, 10, 4096)),
+               ((2, 40, 10, 4096), (11, 1024, 10, 4096)),
+               ((3, 33, 20, 50), (11, 330, 20, 50))]
 
 
 @pytest.mark.parametrize('shape,plan_shape', MERGE_CASES)
