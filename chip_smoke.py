@@ -5,24 +5,29 @@ Run from the root of a checkout, with no arguments:
 
     python3 chip_smoke.py
 
-It builds the port's two CUDA kernels (the nearest-code search and the Adam
-update with its bfloat16-moment variant, one nvcc each, started together)
-from the sources in the checkout, holds each kernel against its plain
-PyTorch version at the shapes of the main paths (timed by CUDA events over
-back-to-back calls, `ms`, and by the profiler's device time of the kernels
-alone, `device_ms`, or where the profiler sees none by events around calls
-queued behind a sleep on the device), and drives the system's paths, each with the kernels'
-launch counts set to 0 just before it and read just after: at the full
-width of the bbc model the serving slice (stage-2 CPT/PLL and PgmModel),
-stage-1 training (Trainer.fit, 14 steps) and a Gibbs CMLL of the trained
-model (2,100 steps, held against a chain through the plain version); at the
-width of the kdd sweep (K=4096) 200 train steps, a stage-2 CPT and the test
+It builds the port's two CUDA kernels (the nearest-code search with its
+bfloat16-input instance, and the Adam update with its bfloat16-moment
+variant; one nvcc each, started together) from the sources in the checkout,
+holds each kernel against its plain PyTorch version at the shapes of the
+main paths (timed by CUDA events over back-to-back calls, `ms`, and by the
+profiler's device time of the kernels alone, `device_ms`, or where the
+profiler sees none by events around calls queued behind a sleep on the
+device), and drives the system's paths, each with the kernels' launch
+counts set to 0 just before it and read just after: at the full width of
+the bbc model the serving slice (stage-2 CPT/PLL and PgmModel), stage-1
+training (Trainer.fit, 14 steps) and a Gibbs CMLL of the trained model
+(2,100 steps, held against a chain through the plain version); at the width
+of the kdd sweep (K=4096) 200 train steps, a stage-2 CPT and the test
 split's PLL, a checkpoint's round trip (save, load, serve, resume) and the
-driver's own CMLL (18,000 steps); then the command line end to end on
-nltcs-shaped data, with a checkpoint, CMLL, a resume and bfloat16 Adam
-moments. Each phase prints one JSON line; any failed check raises, so the
-script exits non-zero. The last three lines are the kernel summary, the
-card's name and power limit as nvidia-smi gives them, and
+driver's own CMLL (18,000 steps), the same 200 steps streamed from the
+host (bit-equal to in-core) and packed with three more seeds (S=4), and the
+sweep runner's packed command on those seeds and rows on disk; bf16
+compute at bbc width (14 steps); then the command line end to end on
+nltcs-shaped data, with a checkpoint, CMLL, a resume, bfloat16 Adam moments
+and bf16 compute, and the sweep runner (a packed 2x2 grid, its resume and
+an isolated cell). Each phase prints one JSON line; any failed check
+raises, so the script exits non-zero. The last three lines are the kernel
+summary, the card's name and power limit as nvidia-smi gives them, and
 `{"ok": true, "device": {...}}`.
 
 Without a CUDA device it exits non-zero and prints no result.
@@ -32,6 +37,7 @@ from __future__ import annotations
 
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -44,21 +50,26 @@ import torch
 
 SEED = 0
 FP32_FLOPS = 67e12      # H100 SXM, fp32 outside the tensor cores
+BF16_FLOPS = 989e12     # H100 SXM, bf16 tensor cores (dense, f32 sums)
 HBM_BYTES = 3.35e12     # H100 SXM device memory rate
 NEAR_TIE_REL = 1e-5
 # (n, B, D, K): the four shapes of tests/test_pallas_vq.py, the slices' own
 # (a stage-2 chunk, the bbc test split served at once, a bbc train batch),
-# one large K, the kdd sweep's train batch and stage-2 chunk, and a Gibbs
-# step's (11 blocks over bbc's test split, over 1,024 kdd test rows and over
-# all 34,955; the nltcs command line's 16 blocks over its test split)
+# one large K, the kdd sweep's train batch (alone and packed, S=4) and
+# stage-2 chunk, and a Gibbs step's (11 blocks over bbc's test split, over
+# 1,024 kdd test rows and over all 34,955; the nltcs command line's 16
+# blocks over its test split). The bfloat16 instance is timed at the same
+# shapes; its main-path shape is bbc's train batch (phase train_bf16).
 GIBBS_SHAPES = [(11, 330, 20, 50), (11, 1024, 10, 4096),
                 (11, 34955, 10, 4096), (16, 3236, 10, 50)]
 KERNEL_SHAPES = [(3, 9, 5, 7), (5, 32, 8, 130), (4, 17, 10, 50),
                  (2, 64, 16, 1024), (1058, 32, 20, 50), (1058, 330, 20, 50),
                  (1058, 250, 20, 50), (1058, 256, 20, 4096),
-                 (64, 32, 10, 4096), (64, 118, 10, 4096)] + GIBBS_SHAPES
+                 (64, 32, 10, 4096), (256, 32, 10, 4096),
+                 (64, 118, 10, 4096)] + GIBBS_SHAPES
 MAIN_SHAPE = (1058, 32, 20, 50)   # the stage-2 chunk: most main-path launches
 TIE_SPLIT = (64, 32, 10, 4096)    # ties across code tiles and strips
+BF16_MAIN_SHAPE = (1058, 250, 20, 50)
 PROFILE_CALLS = 20                # calls averaged by device_ms
 PROFILER_TRIES = 3                # profiler sessions before giving up
 DEVICE_TIMER = {'profiler': 0, 'queued_events': 0}   # device_ms calls
@@ -78,6 +89,8 @@ LR, EPS = 0.003, 1e-7
 CMLL_SMP, CMLL_BURN, CMLL_HOLD, CMLL_SEGMENT = 20, 2, 512, 64
 KDD_CMLL_ROWS = 1024
 RESUME_STEPS = 20
+PACKED_SEEDS = (5, 6, 7, 8)       # packed_kdd: the kdd seed and three more
+STREAM_CHUNK_STEPS = 64           # stream_kdd: 200 steps in 64, 64, 64, 8
 
 
 def emit(phase: str, **fields) -> None:
@@ -173,10 +186,15 @@ def device_ms(fn, calls: int = PROFILE_CALLS) -> float:
     return total_us / 1e3 / calls
 
 
-def bound(n: int, b: int, d: int, k: int):
-    """Least time (ms) for the argmin's work on an H100 SXM, and its bound."""
-    flops_ms = 2.0 * n * b * d * k / FP32_FLOPS * 1e3
-    bytes_ms = 4.0 * n * (b * d + d * k + b) / HBM_BYTES * 1e3
+def bound(n: int, b: int, d: int, k: int, bf16: bool = False):
+    """Least time (ms) for the argmin's work on an H100 SXM, and its bound:
+    z and W read once (4 bytes a value, 2 in bfloat16), the codes written
+    once; 2nBDK operations at the fp32 rate, or for bfloat16 operands at
+    the bf16 tensor-core rate (their products are exact in f32 sums)."""
+    size = 2.0 if bf16 else 4.0
+    flops_ms = 2.0 * n * b * d * k / (BF16_FLOPS if bf16 else FP32_FLOPS) \
+        * 1e3
+    bytes_ms = (size * n * (b * d + d * k) + 4.0 * n * b) / HBM_BYTES * 1e3
     return max(flops_ms, bytes_ms), ('operations' if flops_ms >= bytes_ms
                                      else 'bytes')
 
@@ -260,12 +278,14 @@ def phase_build():
                    (('vq_argmin', cuda_vq), ('adam', fused_adam))}
         seconds = {name: f.result() for name, f in futures.items()}
     vq = _ptxas(cuda_vq.library_path().with_suffix('.log'))
-    # by template arguments: vq_argmin_kernel<DPAD, RB, SUB> -> 'DPAD_RB_SUB'
+    # by template arguments: vq_argmin_kernel<T, DPAD, RB, SUB> ->
+    # 'DPAD_RB_SUB' (float) or 'bf16_DPAD_RB_SUB' (the bfloat16 words)
     dpad = {}
     for e, lines in vq.items():
-        if 'kernelILi' in e:
-            args = e.split('kernelILi')[1].split('ELi')[:3]
-            dpad['_'.join(args[:2] + [args[2].split('E')[0]])] = lines
+        m = re.search(r'vq_argmin_kernelI([ft])Li(\d+)ELi(\d+)ELi(\d+)E', e)
+        if m:
+            key = '_'.join(m.groups()[1:])
+            dpad[key if m.group(1) == 'f' else 'bf16_' + key] = lines
     # adam_kernel<M, VEC>: by moment type and vector or scalar path
     adam = {('bf16_' if 'bfloat16' in e else 'f32_')
             + ('vector' if 'Lb1E' in e else 'scalar'): lines
@@ -274,9 +294,9 @@ def phase_build():
     emit('build', seconds=seconds, wall_seconds=time.time() - t0,
          libraries=[cuda_vq.library_path().name,
                     fused_adam.library_path().name],
-         ptxas_vq={key: dpad.get(key) for key in ('16_4_1', '16_4_4',
-                                                   '24_8_1', '24_8_4',
-                                                   '128_4_1')},
+         ptxas_vq={key: dpad.get(key) for key in (
+             '16_4_1', '16_4_4', '24_8_1', '24_8_4', '128_4_1',
+             'bf16_16_4_4', 'bf16_24_8_1', 'bf16_24_8_4')},
          ptxas_adam=adam)
 
 
@@ -314,15 +334,20 @@ def _kernel_case(kind, n, b, d, k, gen):
     return z, w
 
 
-def phase_kernel():
+def phase_kernel(dtype=torch.float32):
+    """The nearest-code kernel's float32 instance (or its bfloat16 one)
+    against its plain version at the main paths' shapes and on ties: codes
+    equal up to float64-proven near-ties, repeated codes give the first
+    copy. Then times beside the bound and the library call."""
     from pgmvae_tpu_torch.ops import cuda_vq
+    bf16 = dtype == torch.bfloat16
     gen = torch.Generator(device='cuda').manual_seed(SEED)
     rows, max_err = {}, 0.0
     cases = ([('shape', s) for s in KERNEL_SHAPES]
              + [('tie', (1, 8, 4, 12)), ('tie_tiles', (2, 40, 8, 130)),
                 ('tie_split', TIE_SPLIT), ('tie_strips', TIE_SPLIT)])
     for kind, (n, b, d, k) in cases:
-        z, w = _kernel_case(kind, n, b, d, k, gen)
+        z, w = (t.to(dtype) for t in _kernel_case(kind, n, b, d, k, gen))
         got = cuda_vq.vq_codes_fused(z, w)
         ref = cuda_vq.vq_codes_plain(z, w)
         torch.cuda.synchronize()
@@ -342,7 +367,7 @@ def phase_kernel():
                    max_gap=gap)
         if kind == 'shape':
             w2 = torch.sum(w * w, dim=1, keepdim=True)
-            bms, by = bound(n, b, d, k)
+            bms, by = bound(n, b, d, k, bf16)
             fns = {'': lambda: cuda_vq.vq_codes_fused(z, w),
                    'plain_': lambda: cuda_vq.vq_codes_plain(z, w),
                    'library_': lambda: torch.baddbmm(
@@ -357,7 +382,7 @@ def phase_kernel():
                        vs_library=row['library_device_ms']
                        / row['device_ms'])
         rows[(kind, n, b, d, k)] = row
-        emit('kernel', **row)
+        emit('kernel_bf16' if bf16 else 'kernel', **row)
     return rows, max_err
 
 
@@ -605,7 +630,7 @@ def profile_run(phase: str, fn, top: int = 8, watch=()) -> None:
     the device's busy share of that call's unprofiled wall time; for each
     name in `watch`, the device time and count of the kernels whose name
     holds it. Where no profiler session sees device time, the line says so
-    and carries the wall time alone."""
+    and carries the wall time alone. Returns the line's fields."""
     fn()
     torch.cuda.synchronize()
     t0 = time.time()
@@ -619,7 +644,7 @@ def profile_run(phase: str, fn, top: int = 8, watch=()) -> None:
     averages = _profile(run)
     if averages is None:
         emit(phase, wall_ms=wall_ms, profiler_saw_device=False)
-        return
+        return {'wall_ms': wall_ms}
     # device-side events only: a host op's entry repeats its kernels' time
     rows = [(e.key, e.self_device_time_total / 1e3, e.count)
             for e in averages
@@ -635,10 +660,14 @@ def profile_run(phase: str, fn, top: int = 8, watch=()) -> None:
     ops.sort(key=lambda r: -r[1])
     watched = {w: [sum(r[1] for r in rows if w in r[0]),
                    sum(r[2] for r in rows if w in r[0])] for w in watch}
-    emit(phase, wall_ms=wall_ms, device_ms=device_ms,
-         busy_share=device_ms / wall_ms, watched=watched,
-         top=[[name[:80], ms, count] for name, ms, count in rows[:top]],
-         top_ops=[[name[:60], ms, count] for name, ms, count in ops[:top]])
+    fields = dict(wall_ms=wall_ms, device_ms=device_ms,
+                  busy_share=device_ms / wall_ms, watched=watched,
+                  top=[[name[:80], ms, count]
+                       for name, ms, count in rows[:top]],
+                  top_ops=[[name[:60], ms, count]
+                           for name, ms, count in ops[:top]])
+    emit(phase, **fields)
+    return fields
 
 
 def phase_small_reference():
@@ -783,7 +812,8 @@ def phase_train():
     # the trained model for the CMLL phase (the profile below steps on)
     trained = dict(cfg=cfg, params=vqvae.map_params(torch.clone,
                                                     state.params),
-                   codebook=cb.clone(), dist=dist, y_test=splits['test'])
+                   codebook=cb.clone(), dist=dist, y_test=splits['test'],
+                   final_loss=hist[-1].loss)
     emit('train', model=dict(n_var=cfg.n_var, units=list(cfg.units),
                              dim=cfg.dim, num_codes=cfg.num_codes,
                              quantizer=cfg.quantizer, decay=cfg.decay,
@@ -798,8 +828,9 @@ def phase_train():
          peak_memory_gb=peak_gb, adam_kernel_vs_plain_step_max_abs=adam_abs,
          all_kernels_vs_plain_step_max_rel=rel, step_code_flips=flips,
          step_flip_gap=gap, pll_trained=pll, stage2_seconds=secs)
-    profile_run('profile_train_step',
-                lambda: tr.train_step(state, yb, w), top=10, watch=VQ_NAMES)
+    trained['step'] = profile_run('profile_train_step',
+                                  lambda: tr.train_step(state, yb, w),
+                                  top=10, watch=VQ_NAMES)
     return launches, adam_abs, gap, trained
 
 
@@ -836,8 +867,7 @@ def phase_train_kdd():
     y = splits['train'][:KDD_ROWS]
     y_test = splits['test']
     tr = Trainer(cfg, KDD_LR, KDD_BATCH, y.shape[0], adam_impl='pallas')
-    state = tr.init_state(torch.Generator(device='cuda').manual_seed(
-        KDD_SEED))
+    state = tr.init_state(KDD_SEED)     # drawn on the CPU, as the driver's
     n_leaves = len(vqvae.param_leaves(state.params))
     s2 = Stage2(cfg)
     torch.cuda.synchronize()
@@ -872,7 +902,7 @@ def phase_train_kdd():
     # the trained state and its CPT for the checkpoint and CMLL phases (the
     # profile below steps on in place)
     trained = dict(tr=tr, state=copy_state(state), dist=dist, splits=splits,
-                   pll_test=pll_test, y=y)
+                   pll_test=pll_test, y=y, fit_seconds=fit_seconds)
     yb = torch.from_numpy(y[:KDD_BATCH]).cuda()
     w = torch.ones(KDD_BATCH, device='cuda')
     adam_abs, rel, flips, gap = _kernel_vs_plain_step(tr, state, yb, w)
@@ -908,6 +938,205 @@ def phase_train_kdd():
                 lambda: tr.train_step(state, yb, w), top=10, watch=VQ_NAMES)
     return ({'train': launches['vq_argmin'], 'stage2': s2_launches,
              'adam': launches['adam']}, max(gap, s2_gap), adam_abs, trained)
+
+
+def phase_train_bf16(f32: dict):
+    """bf16 compute at bbc width: the `train` phase's 14 steps (2 epochs,
+    from its seed) with compute_dtype='bf16', counted: every step's
+    nearest-code search goes to the kernel's bfloat16 instance and none to
+    the float32 one. Masters, moments and EMA state stay float32, the loss
+    falls and ends within 10% of the float32 run's (the JAX package's sanity
+    band, tests/test_compute_dtype.py). Then a profile of one warm step."""
+    from pgmvae_tpu_torch.models import vqvae
+    from pgmvae_tpu_torch.ops import cuda_vq, fused_adam
+    from pgmvae_tpu_torch.train import Trainer
+
+    cfg = _bbc_train_config()._replace(compute_dtype='bf16')
+    y = _bbc_like_splits(cfg.n_var)['train']
+    tr = Trainer(cfg, LR, 250, y.shape[0], adam_impl='pallas')
+    state = tr.init_state(torch.Generator(device='cuda').manual_seed(SEED))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ends = []
+
+    def log_fn(epoch, m):
+        ends.append(time.time())
+
+    # ---- the main path, counted
+    cuda_vq.LAUNCHES = cuda_vq.LAUNCHES_BF16 = fused_adam.LAUNCHES = 0
+    t0 = time.time()
+    state, hist = tr.fit(state, y, 2, seed=SEED, log_fn=log_fn)
+    torch.cuda.synchronize()
+    fit_seconds = time.time() - t0
+    launches = {'vq_argmin': cuda_vq.LAUNCHES,
+                'vq_argmin_bf16': cuda_vq.LAUNCHES_BF16,
+                'adam': fused_adam.LAUNCHES}
+    # ---- end of the counted run
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    assert launches == {'vq_argmin': 0, 'vq_argmin_bf16': 14,
+                        'adam': 280}, launches
+    masters = (vqvae.param_leaves(state.params)
+               + vqvae.param_leaves(state.opt_state.mu)
+               + vqvae.param_leaves(state.opt_state.nu) + list(state.ema[:3]))
+    assert all(t.dtype == torch.float32 for t in masters)
+    assert all(np.isfinite(list(m)).all() for m in hist), hist
+    assert hist[1].loss < hist[0].loss, hist
+    rel = abs(hist[-1].loss - f32['final_loss']) / abs(f32['final_loss'])
+    assert rel < 0.1, (hist[-1].loss, f32['final_loss'])
+    warm_s = ends[1] - ends[0]
+    yb = torch.from_numpy(y[:250]).cuda()
+    w = torch.ones(250, device='cuda')
+    step = profile_run('profile_train_bf16_step',
+                       lambda: tr.train_step(state, yb, w), top=10,
+                       watch=VQ_NAMES)
+    emit('train_bf16', compute_dtype='bf16', steps=14, launches=launches,
+         fit_seconds=fit_seconds, warm_epoch_seconds=warm_s,
+         warm_steps_per_s=tr.steps_per_epoch / warm_s,
+         epoch_metrics=[m._asdict() for m in hist],
+         final_loss_f32=f32['final_loss'], final_loss_rel_gap=rel,
+         peak_memory_gb=peak_gb, step_device_ms=step.get('device_ms'),
+         f32_step_device_ms=f32['step'].get('device_ms'))
+    return launches
+
+
+def phase_stream_kdd(kdd: dict):
+    """The kdd phase's 200 steps again from the same init, streamed from
+    the host (stream_bytes=0, chunks of STREAM_CHUNK_STEPS steps, the last
+    ragged), counted: params, EMA state and moments must be bit-equal to the
+    in-core `train_kdd` result. Then in-core and streamed fits in turns for
+    steps/s."""
+    from pgmvae_tpu_torch.ops import cuda_vq, fused_adam
+    from pgmvae_tpu_torch.train import Trainer
+
+    core, ref, y = kdd['tr'], kdd['state'], kdd['y']
+    row = KDD_BATCH * core.cfg.n_var * 4
+    tr = Trainer(core.cfg, KDD_LR, KDD_BATCH, y.shape[0], stream_bytes=0,
+                 stream_chunk_bytes=STREAM_CHUNK_STEPS * row,
+                 adam_impl='pallas')
+
+    def init(trainer):
+        return trainer.init_state(KDD_SEED)
+    state = init(tr)
+    torch.cuda.synchronize()
+    # ---- the main path, counted
+    cuda_vq.LAUNCHES = fused_adam.LAUNCHES = 0
+    t0 = time.time()
+    state, _ = tr.fit(state, y, 1, seed=KDD_SEED)
+    torch.cuda.synchronize()
+    seconds = time.time() - t0
+    launches = {'vq_argmin': cuda_vq.LAUNCHES, 'adam': fused_adam.LAUNCHES}
+    # ---- end of the counted run
+    n_leaves = 4 * (len(core.cfg.units) + 1)
+    assert launches == {'vq_argmin': 200, 'adam': 200 * n_leaves}, launches
+    pairs = list(zip(_state_leaves(state), _state_leaves(ref)))
+    assert all(a.dtype == b.dtype and torch.equal(a, b) for a, b in pairs)
+    turns = {'in_core': [], 'streamed': []}
+    for name in ('in_core', 'streamed', 'streamed', 'in_core'):
+        trainer = core if name == 'in_core' else tr
+        st = init(trainer)
+        torch.cuda.synchronize()
+        t0 = time.time()
+        trainer.fit(st, y, 1, seed=KDD_SEED)
+        torch.cuda.synchronize()
+        turns[name].append(200 / (time.time() - t0))
+    emit('stream_kdd', chunk_steps=STREAM_CHUNK_STEPS,
+         chunk_bytes=STREAM_CHUNK_STEPS * row,
+         chunks=[min(STREAM_CHUNK_STEPS, 200 - c)
+                 for c in range(0, 200, STREAM_CHUNK_STEPS)],
+         launches=launches, bit_equal_leaves=len(pairs), seconds=seconds,
+         steps_per_s=200 / seconds, steps_per_s_in_turns=turns)
+    return launches, turns
+
+
+def phase_packed_kdd(kdd: dict, turns: dict):
+    """Seeds PACKED_SEEDS (the kdd seed first) packed, S=4, over the kdd
+    phase's rows: one packed step against an unpacked step of each seed
+    from the same init (every leaf within 1e-6 of its largest magnitude,
+    unless a code flips, and then only on a float64-proven near-tie); then
+    200 packed steps, counted (one nearest-code launch and one Adam launch
+    a leaf per step for all four seeds), and the kdd seed's test PLL within
+    0.1 nat of `train_kdd`'s. Then a profile of one warm packed step."""
+    from pgmvae_tpu_torch.models import vqvae
+    from pgmvae_tpu_torch.ops import cuda_vq, fused_adam
+    from pgmvae_tpu_torch.stage2 import Stage2
+    from pgmvae_tpu_torch.train import copy_state
+
+    tr, y, y_test = kdd['tr'], kdd['y'], kdd['splits']['test']
+    seeds = list(PACKED_SEEDS)
+    n_seeds, n = len(seeds), tr.cfg.n_var
+
+    def init():
+        return tr.init_states_packed(seeds)
+    states = init()
+    yb = torch.from_numpy(y[:n_seeds * KDD_BATCH]).cuda().view(
+        n_seeds, KDD_BATCH, -1)
+    w = torch.ones(KDD_BATCH, device='cuda')
+    counts = (cuda_vq.LAUNCHES, fused_adam.LAUNCHES)
+    with torch.no_grad():              # the first step's codes, packed
+        z_packed = vqvae.encode(tr._step_layout(states, n_seeds).params, yb,
+                                seeds=n_seeds)
+    packed1, _ = tr.train_step_packed(copy_state(states), yb, w)
+    flips, flip_gap, step_gaps = [], 0.0, []
+    for s in range(n_seeds):           # each seed against its unpacked step
+        one = tr.unpack_seed(states, s)
+        cb = tr.codebook(one)
+        with torch.no_grad():
+            f, g = near_ties(z_packed[s * n:(s + 1) * n], cb,
+                             cuda_vq.vq_codes_fused(
+                                 z_packed[s * n:(s + 1) * n], cb),
+                             cuda_vq.vq_codes_fused(
+                                 vqvae.encode(one.params, yb[s]), cb))
+        unpacked1, _ = tr.train_step(one, yb[s], w)
+        gap = max(float((a.double() - b.double()).abs().max())
+                  / max(float(b.double().abs().max()), 1e-30)
+                  for a, b in zip(_state_leaves(tr.unpack_seed(packed1, s)),
+                                  _state_leaves(unpacked1)))
+        if f == 0:
+            assert gap <= 1e-6, ('packed vs unpacked step', seeds[s], gap)
+        flips.append(f)
+        flip_gap = max(flip_gap, g)
+        step_gaps.append(gap)
+        del unpacked1
+    cuda_vq.LAUNCHES, fused_adam.LAUNCHES = counts     # comparison only
+    del packed1, z_packed
+
+    states = init()
+    torch.cuda.synchronize()
+    # ---- the main path, counted
+    cuda_vq.LAUNCHES = cuda_vq.LAUNCHES_BF16 = fused_adam.LAUNCHES = 0
+    t0 = time.time()
+    states, ms = tr.fit_packed(states, y, 1, seeds)     # reads the metrics
+    seconds = time.time() - t0
+    launches = {'vq_argmin': cuda_vq.LAUNCHES, 'adam': fused_adam.LAUNCHES}
+    # ---- end of the counted run
+    n_leaves = 4 * (len(tr.cfg.units) + 1)
+    assert launches == {'vq_argmin': 200, 'adam': 200 * n_leaves}, launches
+    assert np.isfinite(ms.loss).all(), ms
+    st = tr.unpack_seed(states, 0)
+    cb = tr.codebook(st)
+    s2 = Stage2(tr.cfg)
+    pll = s2.pseudo_log_likelihood(st.params, cb, y_test,
+                                   s2.cpt(st.params, cb, y))
+    shift = pll - kdd['pll_test']
+    assert np.isfinite(pll) and abs(shift) <= 0.1, (pll, kdd['pll_test'])
+    unpacked_sps = [y.shape[0] * s / 200 for s in turns['in_core']]
+    packed_sps = n_seeds * y.shape[0] / seconds
+    step = profile_run('profile_packed_kdd_step',
+                       lambda: tr.train_step_packed(states, yb, w), top=10,
+                       watch=VQ_NAMES)
+    emit('packed_kdd', seeds=seeds, steps=200, launches=launches,
+         seconds=seconds, step_code_flips_by_seed=flips,
+         step_flip_gap=flip_gap, step_max_rel_gap_by_seed=step_gaps,
+         pll_test_seed5=pll,
+         pll_test_train_kdd=kdd['pll_test'], pll_shift=shift,
+         final_loss_by_seed=ms.loss[:, -1].tolist(),
+         samples_per_s_packed=packed_sps,
+         samples_per_s_unpacked_in_turns=unpacked_sps,
+         samples_per_s_train_kdd=y.shape[0] / kdd['fit_seconds'],
+         speedup_vs_in_turns=packed_sps / max(unpacked_sps),
+         busy_share=step.get('busy_share'))
+    return launches, flip_gap, pll
 
 
 def _state_leaves(st) -> list:
@@ -1177,11 +1406,27 @@ CLI_FLAGS = ['-n', 'nltcs', '-k', '50', '-d', '10', '-b', '128', '-r',
              '0.01', '-c', '0.25', '-m', '-s', '1']
 
 
-def _cli(tmp: str, flags: list):
-    """One run of the command line in `tmp` (its logs and result.txt land
-    there), counted: (exit code, its result lines, launches, seconds)."""
+# the sweep runner's packed 2x2 grid (K x seed) and its isolated cell
+PIPELINE_FLAGS = ['-n', 'nltcs', '-k', '8,16', '-d', '10', '-b', '128',
+                  '-e', '3', '-r', '0.01', '-c', '0.25', '-m', '-s', '1,2',
+                  '--pack-seeds', '2', '--adam-impl', 'pallas']
+ISOLATE_FLAGS = ['-n', 'nltcs', '-k', '8', '-d', '10', '-b', '128', '-e',
+                 '3', '-r', '0.01', '-c', '0.25', '-m', '-s', '3',
+                 '--isolate', '--cell-timeout', '300', '--adam-impl',
+                 'pallas']
+# the kdd sweep's packed command (ROADMAP.md), cut to one epoch
+SWEEP_KDD_FLAGS = ['-n', 'kdd', '-k', '4096', '-d', '10', '-b', '32', '-e',
+                   '1', '-r', '2e-4', '-c', '0.35', '-m', '-s', '5,6,7,8',
+                   '--pack-seeds', '4', '--adam-impl', 'pallas']
+
+
+def _cli(tmp: str, flags: list, module=None, base=CLI_FLAGS):
+    """One run of a command line (`run`, or `module`'s main) in `tmp` (its
+    logs, joblog and result.txt land there), counted: (exit code, its
+    result lines, launches, seconds)."""
     from pgmvae_tpu_torch import run
     from pgmvae_tpu_torch.ops import cuda_vq, fused_adam
+    module = module or run
     result = os.path.join(tmp, 'result.txt')
     seen = 0
     if os.path.exists(result):
@@ -1190,14 +1435,17 @@ def _cli(tmp: str, flags: list):
     cwd = os.getcwd()
     os.chdir(tmp)
     # ---- the main path, counted
-    cuda_vq.LAUNCHES = fused_adam.LAUNCHES = fused_adam.LAUNCHES_BF16 = 0
+    cuda_vq.LAUNCHES = cuda_vq.LAUNCHES_BF16 = 0
+    fused_adam.LAUNCHES = fused_adam.LAUNCHES_BF16 = 0
     try:
         t0 = time.time()
-        rc = run.main(CLI_FLAGS + flags + ['--data-dir', tmp])
+        rc = module.main(base + flags + ['--data-dir', tmp])
         seconds = time.time() - t0
     finally:
         os.chdir(cwd)
-    launches = {'vq_argmin': cuda_vq.LAUNCHES, 'adam': fused_adam.LAUNCHES,
+    launches = {'vq_argmin': cuda_vq.LAUNCHES,
+                'vq_argmin_bf16': cuda_vq.LAUNCHES_BF16,
+                'adam': fused_adam.LAUNCHES,
                 'adam_bf16': fused_adam.LAUNCHES_BF16}
     # ---- end of the counted run
     lines = []
@@ -1211,8 +1459,11 @@ def phase_cli():
     """The command line end to end on the card, on nltcs-shaped data, each
     run counted: the reference run's flags with the Adam kernel for 3
     epochs; the same with --checkpoint and --cmll; --resume from that file
-    for 1 epoch; --adam-impl fused_bf16 (the kernel's bfloat16 variant).
-    Then PgmModel.from_checkpoint serves the file."""
+    for 1 epoch; --adam-impl fused_bf16 (the kernel's bfloat16 variant);
+    --compute-dtype bf16 (the nearest-code kernel's bfloat16 instance).
+    Then PgmModel.from_checkpoint serves the file, and the sweep runner
+    runs a packed 2x2 grid (pk-2 lines), the same command again (no cell
+    runs) and one --isolate cell (in its own process on the card)."""
     from pgmvae_tpu_torch.data.loader import load_split
     from pgmvae_tpu_torch.ops import cuda_vq
     from pgmvae_tpu_torch.registry import REGISTRY
@@ -1227,7 +1478,9 @@ def phase_cli():
                 ('checkpoint_cmll', 3, ['--adam-impl', 'pallas',
                                         '--checkpoint', path, '--cmll']),
                 ('resume', 1, ['--adam-impl', 'pallas', '--resume', path]),
-                ('fused_bf16', 3, ['--adam-impl', 'fused_bf16'])):
+                ('fused_bf16', 3, ['--adam-impl', 'fused_bf16']),
+                ('compute_bf16', 3, ['--adam-impl', 'pallas',
+                                     '--compute-dtype', 'bf16'])):
             rc, lines, launches, seconds = _cli(tmp, ['-e', str(epochs)]
                                                 + flags)
             assert rc == 0 and len(lines) == 1, (name, rc, lines)
@@ -1242,11 +1495,13 @@ def phase_cli():
         scores = PgmModel.from_checkpoint(path).score(y_test)
         serve_launches = cuda_vq.LAUNCHES
         # ---- end of the counted run
+        sweep = _sweep(tmp)
     for name, r in runs.items():
         epochs = 1 if name == 'resume' else 3
         expect = run_identifier(
             'nltcs', 50, 10, 128, epochs, 0.01, 0.25, True, 0.99, 1,
-            adam_impl='fused_bf16' if name == 'fused_bf16' else 'pallas')
+            adam_impl='fused_bf16' if name == 'fused_bf16' else 'pallas',
+            compute_dtype='bf16' if name == 'compute_bf16' else 'f32')
         assert r['identifier'] == expect, (name, r['identifier'], expect)
         plls = [r['result'][k] for k in ('pll-train', 'pll-valid',
                                          'pll-test')]
@@ -1258,14 +1513,32 @@ def phase_cli():
             assert cmll == 1, (name, cmll)
     assert runs['pallas']['identifier'].endswith('_ad-pallas')
     assert runs['fused_bf16']['identifier'].endswith('_ad-fused_bf16')
+    assert runs['compute_bf16']['identifier'].endswith('_cd-bf16')
     # launches: the CMLL's 3000 steps (p1 = 1), one epoch fewer for the
-    # resume; the bfloat16 moments take the variant and only it
+    # resume; the bfloat16 moments take the variant and only it; bf16
+    # compute trains through the bfloat16 instance, stage 2 stays float32
     steps = -(-16181 // 128)
     n_leaves = 4 * (len(REGISTRY['nltcs'].encoder_units(10)) + 1)
     vq = {name: r['launches']['vq_argmin'] for name, r in runs.items()}
     assert vq['checkpoint_cmll'] - vq['pallas'] == 3000, vq
     assert vq['pallas'] - vq['resume'] == 2 * steps, vq
     assert vq['fused_bf16'] == vq['pallas'], vq
+    assert vq['compute_bf16'] == vq['pallas'] - 3 * steps, vq
+    assert {name: r['launches']['vq_argmin_bf16']
+            for name, r in runs.items()} == {
+        name: 3 * steps if name == 'compute_bf16' else 0 for name in runs}
+    # the packed grid: 2 groups of 2 seeds, one launch a step (and a leaf)
+    # for both seeds; stage 2 per seed as in an unpacked cell
+    stage2 = vq['pallas'] - 3 * steps
+    assert sweep['grid']['launches'] == {
+        'vq_argmin': 2 * 3 * steps + 4 * stage2, 'vq_argmin_bf16': 0,
+        'adam': 2 * 3 * steps * n_leaves, 'adam_bf16': 0}, sweep
+    # the isolated cell ran on the card in its own process, through both
+    # kernels: one launch a step (and a leaf), and its stage 2
+    iso = sweep['isolate']['cell_process']
+    assert iso == {'device': 'cuda:0', 'launches': {
+        'vq_argmin': 3 * steps + stage2, 'vq_argmin_bf16': 0,
+        'adam': 3 * steps * n_leaves, 'adam_bf16': 0}}, iso
     for name, r in runs.items():
         n = (1 if name == 'resume' else 3) * steps * n_leaves
         want = ({'adam': 0, 'adam_bf16': n} if name == 'fused_bf16'
@@ -1277,11 +1550,107 @@ def phase_cli():
                                runs['checkpoint_cmll']['result']['pll-test'],
                                rtol=1e-5)
     emit('cli', runs=runs, serve_launches=serve_launches,
-         serve_score_mean=float(scores.mean()))
+         serve_score_mean=float(scores.mean()), sweep=sweep)
     total = {k: sum(r['launches'][k] for r in runs.values())
-             for k in ('vq_argmin', 'adam', 'adam_bf16')}
+             + sweep['grid']['launches'][k] + iso['launches'][k]
+             for k in ('vq_argmin', 'vq_argmin_bf16', 'adam', 'adam_bf16')}
     total['vq_argmin'] += serve_launches
     return total
+
+
+def _sweep(tmp: str) -> dict:
+    """The sweep runner in `tmp`, each run counted: the packed grid, which
+    writes four pk-2 lines; the same command again, which runs no cell; one
+    --isolate cell, whose launches are its own process's (this process
+    counts none; the cell's joblog record carries the device and launches
+    of its process)."""
+    from pgmvae_tpu_torch import run_pipeline
+    from pgmvae_tpu_torch.utils.logging import run_identifier
+    joblog = os.path.join(tmp, 'logs', 'sweep-joblog.jsonl')
+    out = {}
+    for name, flags in (('grid', PIPELINE_FLAGS), ('resume', PIPELINE_FLAGS),
+                        ('isolate', ISOLATE_FLAGS)):
+        rc, lines, launches, seconds = _cli(tmp, [], run_pipeline, flags)
+        with open(joblog) as f:
+            records = [json.loads(line) for line in f]
+        out[name] = dict(rc=rc, identifiers=[l.split(' ', 1)[0]
+                                             for l in lines],
+                         launches=launches, seconds=seconds,
+                         joblog_lines=len(records),
+                         cell_process=records[-1].get('cell_process'))
+        assert rc == 0 and all(r['ok'] for r in records), (name, records)
+    grid = [run_identifier('nltcs', k, 10, 128, 3, 0.01, 0.25, True, 0.99,
+                           s, adam_impl='pallas', packed_seeds=2)
+            for k in (8, 16) for s in (1, 2)]
+    assert out['grid']['identifiers'] == grid, out
+    assert out['resume']['identifiers'] == [] and set(
+        out['resume']['launches'].values()) == {0}, out
+    assert out['resume']['joblog_lines'] == 4, out
+    assert out['isolate']['identifiers'] == [run_identifier(
+        'nltcs', 8, 10, 128, 3, 0.01, 0.25, True, 0.99, 3,
+        adam_impl='pallas')] and set(
+            out['isolate']['launches'].values()) == {0}, out
+    return out
+
+
+def phase_sweep_kdd(kdd: dict, packed_pll: float):
+    """The sweep runner's main path at the kdd sweep's width:
+    `run_pipeline -n kdd -k 4096 ... -s 5,6,7,8 --pack-seeds 4`, on
+    kdd-shaped splits written to disk (the kdd phase's KDD_ROWS train rows,
+    the whole valid and test splits), counted: 200 packed steps (one
+    nearest-code launch a step and one Adam launch a leaf a step for all
+    four seeds), then per seed a stage-2 CPT and the three splits' PLLs; four
+    pk-4 joblog and result lines; seed 5's test PLL equal to `packed_kdd`'s
+    (the same init, data and packed program) within 1e-5 relative, and
+    within 0.1 nat of `train_kdd`'s."""
+    from pgmvae_tpu_torch import run_pipeline
+    from pgmvae_tpu_torch.stage2 import Stage2
+    from pgmvae_tpu_torch.utils.logging import run_identifier
+    tr, splits = kdd['tr'], kdd['splits']
+    rows = {'train': kdd['y'], 'valid': splits['valid'],
+            'test': splits['test']}
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.time()
+        for split, y in rows.items():
+            np.savetxt(os.path.join(tmp, f'kdd.{split}.data'),
+                       y.astype(np.uint8), fmt='%d', delimiter=',')
+        write_s = time.time() - t0
+        rc, lines, launches, seconds = _cli(tmp, [], run_pipeline,
+                                            SWEEP_KDD_FLAGS)
+        with open(os.path.join(tmp, 'logs', 'sweep-joblog.jsonl')) as f:
+            records = [json.loads(line) for line in f]
+    idents = [run_identifier('kdd', 4096, 10, KDD_BATCH, 1, KDD_LR, KDD_COST,
+                             True, 0.99, s, adam_impl='pallas',
+                             packed_seeds=4) for s in PACKED_SEEDS]
+    assert rc == 0 and [l.split(' ', 1)[0] for l in lines] == idents, (
+        rc, lines)
+    assert [r['identifier'] for r in records] == idents and all(
+        r['ok'] and r['platform'] == 'gpu' for r in records), records
+    chunk = Stage2(tr.cfg).chunk
+    # per seed: the CPT over the train rows, then each split's PLL
+    stage2 = sum(-(-y.shape[0] // chunk)
+                 for y in (rows['train'], *rows.values()))
+    n_leaves = 4 * (len(tr.cfg.units) + 1)
+    assert launches == {'vq_argmin': 200 + 4 * stage2, 'vq_argmin_bf16': 0,
+                        'adam': 200 * n_leaves, 'adam_bf16': 0}, launches
+    plls = [r['pll_test'] for r in records]
+    assert all(np.isfinite(v) and v < 0 for v in plls), plls
+    assert abs(plls[0] - packed_pll) <= 1e-5 * abs(packed_pll), (
+        plls[0], packed_pll)
+    assert abs(plls[0] - kdd['pll_test']) <= 0.1, (plls[0], kdd['pll_test'])
+    emit('sweep_kdd', command=SWEEP_KDD_FLAGS,
+         splits={s: int(v.shape[0]) for s, v in rows.items()},
+         reduced=[f'one epoch over the first {KDD_ROWS} train rows (the '
+                  f'sweep: 200 epochs over 180092)',
+                  'synthetic independent columns, not kdd data'],
+         identifiers=idents, launches=launches,
+         stage2_launches_per_seed=stage2,
+         write_splits_seconds=write_s, seconds=seconds,
+         pll_test_by_seed=plls, pll_test_packed_kdd=packed_pll,
+         pll_test_train_kdd=kdd['pll_test'],
+         samples_per_sec_packed=records[0]['samples_per_sec_packed'],
+         train_wall=records[0]['train_wall'])
+    return launches
 
 
 def main() -> int:
@@ -1292,29 +1661,44 @@ def main() -> int:
     smi = phase_device()
     phase_build()
     rows, kernel_err = phase_kernel()
+    rows_bf16, kernel_bf16_err = phase_kernel(torch.bfloat16)
     adam_row = phase_kernel_adam()
     adam_bf16_row = phase_kernel_adam(torch.bfloat16)
     launches, slice_err = phase_slice()
     small_err = phase_small_reference()
     train_launches, train_err, train_gap, trained = phase_train()
     cmll_launches, cmll_gap = phase_cmll(trained)
+    bf16_launches = phase_train_bf16(trained)
     del trained
     kdd_launches, kdd_gap, kdd_adam_err, kdd = phase_train_kdd()
     ckpt_launches = phase_checkpoint(kdd)
     cmll_kdd_launches = phase_cmll_kdd(kdd)
+    stream_launches, turns = phase_stream_kdd(kdd)
+    packed_launches, packed_gap, packed_pll = phase_packed_kdd(kdd, turns)
+    sweep_kdd_launches = phase_sweep_kdd(kdd, packed_pll)
     del kdd
     cli_launches = phase_cli()
     main_row = rows[('shape',) + MAIN_SHAPE]
+    bf16_row = rows_bf16[('shape',) + BF16_MAIN_SHAPE]
     emit('done', seconds=time.time() - t_start, device_ms_by=DEVICE_TIMER)
     vq_paths = {'serving': launches, 'train': train_launches['vq_argmin'],
                 'train_kdd': kdd_launches['train'],
                 'stage2_kdd': kdd_launches['stage2'], 'cmll': cmll_launches,
                 'checkpoint': ckpt_launches['vq_argmin'],
                 'cmll_kdd': cmll_kdd_launches,
+                'stream_kdd': stream_launches['vq_argmin'],
+                'packed_kdd': packed_launches['vq_argmin'],
+                'sweep_kdd': sweep_kdd_launches['vq_argmin'],
                 'cli': cli_launches['vq_argmin']}
+    vq_bf16_paths = {'train_bf16': bf16_launches['vq_argmin_bf16'],
+                     'cli': cli_launches['vq_argmin_bf16']}
     adam_paths = {'serving': 0, 'train': train_launches['adam'],
+                  'train_bf16': bf16_launches['adam'],
                   'train_kdd': kdd_launches['adam'], 'stage2_kdd': 0,
                   'checkpoint': ckpt_launches['adam'],
+                  'stream_kdd': stream_launches['adam'],
+                  'packed_kdd': packed_launches['adam'],
+                  'sweep_kdd': sweep_kdd_launches['adam'],
                   'cli': cli_launches['adam']}
     timed = ('ms', 'device_ms', 'plain_ms', 'plain_device_ms',
              'bound_ms', 'bound_by', 'library_ms', 'library_device_ms')
@@ -1324,10 +1708,19 @@ def main() -> int:
         'replaces': 'pgmvae_tpu/ops/pallas_vq.py:38',
         'launches': sum(vq_paths.values()), 'launches_by_path': vq_paths,
         'max_abs_err': max(kernel_err, slice_err, small_err, train_gap,
-                           kdd_gap, cmll_gap),
+                           kdd_gap, cmll_gap, packed_gap),
         **{key: main_row[key] for key in timed},
         'device_ms_by': DEVICE_TIMER,
         'shape': list(MAIN_SHAPE)}, {
+        'name': 'vq_argmin_bf16', 'route': 'cuda',
+        'source': 'pgmvae_tpu_torch/ops/csrc/vq_argmin.cu',
+        'replaces': 'pgmvae_tpu/ops/pallas_vq.py:38',
+        'launches': sum(vq_bf16_paths.values()),
+        'launches_by_path': vq_bf16_paths,
+        'max_abs_err': kernel_bf16_err,
+        **{key: bf16_row[key] for key in timed},
+        'device_ms_by': DEVICE_TIMER,
+        'shape': list(BF16_MAIN_SHAPE)}, {
         'name': 'adam', 'route': 'cuda',
         'source': 'pgmvae_tpu_torch/ops/csrc/adam.cu',
         'replaces': 'pgmvae_tpu/ops/fused_adam.py:79',

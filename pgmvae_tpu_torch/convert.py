@@ -10,6 +10,9 @@ free of jax: its train state is read by attribute, as the named tuples
 `InjectHyperparamsState(count, hyperparams, inner_state=(ScaleByAdamState(
 count, mu, nu), EmptyState()))`. bfloat16 leaves (the moments of adam_impl
 'fused_bf16') cross as their 16-bit words: numpy has no bfloat16 of its own.
+Packed states (`jax.vmap` of the JAX init, `Trainer.init_states_packed`)
+convert leaf for leaf: every leaf carries the leading seed axis on both
+sides, the Adam eps too on the JAX side (the port keeps one float).
 """
 
 from __future__ import annotations
@@ -89,7 +92,7 @@ def train_state_from_jax(state_np, cfg: VqVaeConfig, device=None
         count=leaf(np.asarray(adam.count, np.int32)),
         mu=map_params(leaf, adam.mu), nu=map_params(leaf, adam.nu),
         learning_rate=leaf(np.asarray(hp['learning_rate'], np.float32)),
-        eps=float(np.float32(hp['eps'])))
+        eps=float(np.asarray(hp['eps'], np.float32).reshape(-1)[0]))
     return TrainState(map_params(leaf, state_np.params), ema, opt_state,
                       leaf(np.asarray(state_np.step, np.int32)))
 
@@ -113,7 +116,9 @@ def train_state_to_numpy(state: TrainState, like):
     adam, rest = like.opt_state.inner_state
     hp = dict(like.opt_state.hyperparams)
     hp['learning_rate'] = leaf(opt.learning_rate)
-    hp['eps'] = np.float32(opt.eps)
+    eps = np.float32(opt.eps)
+    hp['eps'] = eps if np.ndim(hp['eps']) == 0 else np.full(
+        np.shape(hp['eps']), eps)
     count = leaf(opt.count)
     opt_np = like.opt_state._replace(
         count=count, hyperparams=hp,

@@ -1,6 +1,8 @@
 """Experiment driver: one (dataset x hyperparameters) cell, end to end (the
 port of `pgmvae_tpu/driver.py`, single device).
 
+`run_packed_experiments` runs cells that differ only in seed as one packed
+program (`Trainer.fit_packed`), then stage 2 per seed.
 `run_experiment` trains stage 1 (from a checkpoint with `resume`),
 optionally keeping the snapshot with the best valid PLL, then computes the
 stage-2 CPT and the PLL of the three splits, the Gibbs CMLL of the test
@@ -161,9 +163,6 @@ def unported(exp: ExperimentConfig) -> list:
         out.append(f'a device mesh (mesh_data={exp.mesh_data}, '
                    f'mesh_model={exp.mesh_model}): ROADMAP.md A11, '
                    f'multi-GPU')
-    if exp.compute_dtype != 'f32':
-        out.append(f'compute_dtype={exp.compute_dtype!r}: ROADMAP.md A4, '
-                   f'bf16 compute')
     return out
 
 
@@ -270,29 +269,13 @@ def _posthoc_cpt_records(exp, cfg, params, codebook, y_train, y_valid,
     return records
 
 
-def run_experiment(exp: ExperimentConfig, device=None) -> dict:
-    """Stage-1 train + stage-2 CPT/PLL on `device` (None means CUDA)."""
-    from pgmvae_tpu_torch import checkpoint as ckpt
-    from pgmvae_tpu_torch import resolve_device
-    from pgmvae_tpu_torch.data.loader import load_split
+def _model_config(exp: ExperimentConfig):
+    """The VqVaeConfig of a cell and its dataset's registry entry."""
     from pgmvae_tpu_torch.models.vqvae import VqVaeConfig
     from pgmvae_tpu_torch.registry import REGISTRY
-    from pgmvae_tpu_torch.stage2 import Stage2, select_parents
-    from pgmvae_tpu_torch.train import Trainer, copy_state
-    from pgmvae_tpu_torch.utils.logging import MetricLogger
-
-    if exp.packed_seeds > 1:
-        raise ValueError(
-            f'{exp.identifier}: pk-{exp.packed_seeds} identifiers record a '
-            f'packed-program trajectory of the JAX package, which the port '
-            f'does not run')
-    missing = unported(exp)
-    if missing:
-        raise NotImplementedError('not ported yet: ' + '; '.join(missing))
     if exp.name not in REGISTRY:
         raise KeyError(f"unknown dataset '{exp.name}'; available: "
                        f"{', '.join(sorted(REGISTRY))}")
-    device = resolve_device(device)
     info = REGISTRY[exp.name]
     quantizer = exp.quantizer or ('ema' if exp.ema else 'vq')
     _check_naive_dim(quantizer, exp.dim)
@@ -306,6 +289,185 @@ def run_experiment(exp: ExperimentConfig, device=None) -> dict:
                       activation=exp.activation, l2_reg=exp.l2_reg,
                       first_layer=exp.first_layer,
                       compute_dtype=exp.compute_dtype)
+    return cfg, info
+
+
+def _valid_pll(trainer, s2, state, y_train, y_valid) -> float:
+    """One select-on-valid check: the valid PLL of `state` under the CPT
+    counted on y_train."""
+    cb = trainer.codebook(state)
+    dist = s2.cpt(state.params, cb, y_train)
+    return s2.pseudo_log_likelihood(state.params, cb, y_valid, dist)
+
+
+def _evaluate(exp, cfg, info, trainer, s2, state, splits, parents, device,
+              train_wall, best_epoch=None) -> dict:
+    """The result of one trained cell: the stage-2 CPT and the PLL of the
+    three `splits` (train, valid, test), the CMLL with exp.cmll, the
+    checkpoint with exp.checkpoint and the post-hoc records with
+    exp.cpt_parents_eval, as the plain dict the JAX package returns."""
+    y_train, y_valid, y_test = splits
+    codebook = trainer.codebook(state)
+    t1 = time.time()
+    dist = s2.cpt(state.params, codebook, y_train)
+    pll = {split: s2.pseudo_log_likelihood(state.params, codebook, y, dist)
+           for split, y in zip(('train', 'valid', 'test'), splits)}
+    eval_wall = time.time() - t1
+
+    cmll_test = 1  # the reference hardcodes 1 when CMLL is off (run.py:77)
+    cmll_wall = None
+    if exp.cmll:
+        t2 = time.time()
+        cmll_test = _cmll(exp, cfg, state.params, codebook, dist, y_test,
+                          parents, device, verbose=exp.verbose)
+        cmll_wall = round(time.time() - t2, 3)
+
+    if exp.checkpoint:
+        from pgmvae_tpu_torch import checkpoint as ckpt
+        extra = {'identifier': exp.identifier, 'pll': pll}
+        if parents is not None:
+            extra['cpt_parents'] = parents.tolist()
+        ckpt.save(exp.checkpoint, cfg, state, dist, extra=extra)
+
+    # the primary record's identity is independent of the post-hoc eval
+    # list (training and the primary stage 2 never see it)
+    primary_id = dataclasses.replace(exp, cpt_parents_eval=(),
+                                     cpt_parents_mix=False).identifier
+    platform = 'gpu' if device.type == 'cuda' else 'cpu'
+    result = {
+        'identifier': primary_id,
+        'pll_train': pll['train'], 'pll_valid': pll['valid'],
+        'pll_test': pll['test'], 'cmll_test': cmll_test,
+        'train_wall': round(train_wall, 3), 'eval_wall': round(eval_wall, 3),
+        'samples_per_sec': round(exp.epoch * len(y_train)
+                                 / max(train_wall, 1e-9), 1),
+        'paper_pll': -info.paper_pll,
+        'platform': platform,
+    }
+    if best_epoch is not None:
+        result['best_epoch'] = best_epoch
+    if cmll_wall is not None:
+        result['cmll_wall'] = cmll_wall
+    if exp.cpt_parents_eval:
+        result['posthoc'] = _posthoc_cpt_records(
+            exp, cfg, state.params, codebook, y_train, y_valid, y_test,
+            primary_id, platform, device, state=state)
+    return result
+
+
+def run_packed_experiments(exps, device=None) -> list:
+    """Run S cells that differ only in seed as one packed program on
+    `device` (None means CUDA; run_pipeline --pack-seeds): the seeds train
+    together (`Trainer.fit_packed`, each seed its own trajectory), then stage
+    2, the CMLL and the post-hoc records run per seed. Returns one result
+    dict per cell, in input order, with identifiers pk-S."""
+    from pgmvae_tpu_torch import resolve_device
+    from pgmvae_tpu_torch.data.loader import load_split
+    from pgmvae_tpu_torch.stage2 import Stage2, select_parents
+    from pgmvae_tpu_torch.train import Trainer
+
+    exps = list(exps)
+    if not exps:
+        return []
+    # the packed width is part of the cell's identity
+    # (ExperimentConfig.packed_seeds): normalize it to the actual width
+    exps = [dataclasses.replace(e, packed_seeds=len(exps)) for e in exps]
+    base = exps[0]
+    for e in exps[1:]:
+        diff = [f.name for f in dataclasses.fields(base)
+                if f.name != 'seed'
+                and getattr(e, f.name) != getattr(base, f.name)]
+        if diff:
+            raise ValueError(f'packed cells must differ only in seed; '
+                             f'{e.identifier} differs in {diff}')
+    if base.mesh_data * base.mesh_model > 1:
+        raise ValueError('--pack-seeds does not compose with a device mesh')
+    if base.resume or base.checkpoint:
+        raise ValueError('--pack-seeds does not support resume/checkpoint '
+                         'cells; run those unpacked')
+    if len(exps) == 1:
+        return [run_experiment(base, device=device)]
+
+    device = resolve_device(device)
+    cfg, info = _model_config(base)
+    seeds = [e.seed for e in exps]
+    y_train = load_split(base.name, 'train', base.data_dir)
+    y_valid = load_split(base.name, 'valid', base.data_dir)
+    y_test = load_split(base.name, 'test', base.data_dir)
+    trainer = Trainer(cfg, base.rate, base.batch, len(y_train),
+                      adam_impl=base.adam_impl, device=device)
+    parents = (select_parents(y_train, base.cpt_parents)
+               if base.cpt_parents > 0 else None)
+    s2 = Stage2(cfg, parents=parents, device=device)
+    states = trainer.init_states_packed(seeds)
+
+    n_seeds = len(exps)
+    best = [(-float('inf'), None, base.epoch)] * n_seeds  # (pll, state, ep)
+    t0 = time.time()
+    if base.select_on_valid > 0:
+        done = 0
+        while done < base.epoch:
+            blk = min(base.select_on_valid, base.epoch - done)
+            states, _ = trainer.fit_packed(states, y_train, blk, seeds,
+                                           start_epoch=done)
+            done += blk
+            for s in range(n_seeds):
+                snap = trainer.unpack_seed(states, s)
+                pv = _valid_pll(trainer, s2, snap, y_train, y_valid)
+                if base.verbose:
+                    print(f'select-on-valid[{seeds[s]}]: epoch {done} '
+                          f'pll-valid {pv:.5f}')
+                if pv > best[s][0]:
+                    best[s] = (pv, snap, done)
+        seed_states = [b[1] if b[1] is not None
+                       else trainer.unpack_seed(states, s)
+                       for s, b in enumerate(best)]
+    else:
+        states, _ = trainer.fit_packed(states, y_train, base.epoch, seeds)
+        seed_states = [trainer.unpack_seed(states, s)
+                       for s in range(n_seeds)]
+    del states
+    if device.type == 'cuda':
+        torch.cuda.synchronize(device)
+    train_wall = time.time() - t0
+
+    results = []
+    for s, exp in enumerate(exps):
+        # samples_per_sec keeps its unpacked meaning (this cell's samples
+        # over the shared train wall); the S-seed aggregate has its own key
+        best_epoch = best[s][2] if base.select_on_valid > 0 else None
+        res = _evaluate(exp, cfg, info, trainer, s2, seed_states[s],
+                        (y_train, y_valid, y_test), parents, device,
+                        train_wall, best_epoch)
+        res['samples_per_sec_packed'] = round(
+            n_seeds * exp.epoch * len(y_train) / max(train_wall, 1e-9), 1)
+        res['packed_seeds'] = n_seeds
+        results.append(res)
+    return results
+
+
+def run_experiment(exp: ExperimentConfig, device=None) -> dict:
+    """Stage-1 train + stage-2 CPT/PLL on `device` (None means CUDA)."""
+    from pgmvae_tpu_torch import checkpoint as ckpt
+    from pgmvae_tpu_torch import resolve_device
+    from pgmvae_tpu_torch.data.loader import load_split
+    from pgmvae_tpu_torch.models.vqvae import VqVaeConfig
+    from pgmvae_tpu_torch.stage2 import Stage2, select_parents
+    from pgmvae_tpu_torch.train import Trainer, copy_state
+    from pgmvae_tpu_torch.utils.logging import MetricLogger
+
+    if exp.packed_seeds > 1:
+        raise ValueError(
+            f'{exp.identifier}: pk-{exp.packed_seeds} identifiers record a '
+            f'packed-program trajectory; regenerate with '
+            f'run_packed_experiments / run_pipeline --pack-seeds '
+            f'{exp.packed_seeds} (unpacked training follows a numerically '
+            f'different trajectory)')
+    missing = unported(exp)
+    if missing:
+        raise NotImplementedError('not ported yet: ' + '; '.join(missing))
+    cfg, info = _model_config(exp)
+    device = resolve_device(device)
     logger = MetricLogger(exp.log_dir) if exp.log_dir else None
 
     y_train = load_split(exp.name, 'train', exp.data_dir)
@@ -333,13 +495,14 @@ def run_experiment(exp: ExperimentConfig, device=None) -> dict:
                if exp.cpt_parents > 0 else None)
     s2 = Stage2(cfg, parents=parents, device=device)
     log_fn = logger.log_epoch if logger else None
-    best_epoch = exp.epoch
+    y_valid = load_split(exp.name, 'valid', exp.data_dir)
+    y_test = load_split(exp.name, 'test', exp.data_dir)
+    best_epoch = None
     t0 = time.time()
     if exp.select_on_valid > 0:
         # block training with a valid-PLL check after each block: epoch
         # generators depend on (seed, epoch) alone, so the trajectory is the
         # one plain `fit` takes; only which point of it is kept differs
-        y_valid = load_split(exp.name, 'valid', exp.data_dir)
         best_pll, best_state, done = -float('inf'), None, 0
         while done < exp.epoch:
             blk = min(exp.select_on_valid, exp.epoch - done)
@@ -347,9 +510,7 @@ def run_experiment(exp: ExperimentConfig, device=None) -> dict:
                                    verbose=exp.verbose, log_fn=log_fn,
                                    start_epoch=done)
             done += blk
-            cb = trainer.codebook(state)
-            d_sel = s2.cpt(state.params, cb, y_train)
-            pv = s2.pseudo_log_likelihood(state.params, cb, y_valid, d_sel)
+            pv = _valid_pll(trainer, s2, state, y_train, y_valid)
             if exp.verbose:
                 print(f'select-on-valid: epoch {done} pll-valid {pv:.5f}')
             if pv > best_pll:
@@ -369,53 +530,9 @@ def run_experiment(exp: ExperimentConfig, device=None) -> dict:
         torch.cuda.synchronize(device)
     train_wall = time.time() - t0
 
-    codebook = trainer.codebook(state)
-    y_valid = load_split(exp.name, 'valid', exp.data_dir)
-    y_test = load_split(exp.name, 'test', exp.data_dir)
-    t1 = time.time()
-    dist = s2.cpt(state.params, codebook, y_train)
-    pll = {split: s2.pseudo_log_likelihood(state.params, codebook, y, dist)
-           for split, y in (('train', y_train), ('valid', y_valid),
-                            ('test', y_test))}
-    eval_wall = time.time() - t1
-
-    cmll_test = 1  # the reference hardcodes 1 when CMLL is off (run.py:77)
-    cmll_wall = None
-    if exp.cmll:
-        t2 = time.time()
-        cmll_test = _cmll(exp, cfg, state.params, codebook, dist, y_test,
-                          parents, device, verbose=exp.verbose)
-        cmll_wall = round(time.time() - t2, 3)
-
-    if exp.checkpoint:
-        extra = {'identifier': exp.identifier, 'pll': pll}
-        if parents is not None:
-            extra['cpt_parents'] = parents.tolist()
-        ckpt.save(exp.checkpoint, cfg, state, dist, extra=extra)
-
-    # the primary record's identity is independent of the post-hoc eval
-    # list (training and the primary stage 2 never see it)
-    primary_id = dataclasses.replace(exp, cpt_parents_eval=(),
-                                     cpt_parents_mix=False).identifier
-    platform = 'gpu' if device.type == 'cuda' else 'cpu'
-    result = {
-        'identifier': primary_id,
-        'pll_train': pll['train'], 'pll_valid': pll['valid'],
-        'pll_test': pll['test'], 'cmll_test': cmll_test,
-        'train_wall': round(train_wall, 3), 'eval_wall': round(eval_wall, 3),
-        'samples_per_sec': round(exp.epoch * len(y_train)
-                                 / max(train_wall, 1e-9), 1),
-        'paper_pll': -info.paper_pll,
-        'platform': platform,
-    }
-    if exp.select_on_valid > 0:
-        result['best_epoch'] = best_epoch
-    if cmll_wall is not None:
-        result['cmll_wall'] = cmll_wall
-    if exp.cpt_parents_eval:
-        result['posthoc'] = _posthoc_cpt_records(
-            exp, cfg, state.params, codebook, y_train, y_valid, y_test,
-            primary_id, platform, device, state=state)
+    result = _evaluate(exp, cfg, info, trainer, s2, state,
+                       (y_train, y_valid, y_test), parents, device,
+                       train_wall, best_epoch)
     if logger:
         logger.log_final(**result)
         logger.close()

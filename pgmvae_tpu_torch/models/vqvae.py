@@ -13,6 +13,11 @@ Leave-one-out uses the JAX package's padded masked design: every network
 sees the full sample y [B, n_var] with its own variable's input multiplied
 by zero, so the first/last stacked kernels are full [n, n, u] and their
 diagonal rows/columns are inert.
+
+Packed seeds (`seeds=S`): S models stacked on axis 0, every leaf
+[S * n, ...], each with its own batch, y [S, B, n_var]; a layer is still one
+`torch.baddbmm`, now over S * n networks. bf16 compute passes bfloat16
+params and samples: the layers run in bfloat16 and the mask takes y's dtype.
 """
 
 from __future__ import annotations
@@ -159,12 +164,20 @@ def _dense_stack(layers, x, activation):
 FIRST_LAYER_RANK1_BYTES = 4 << 30
 
 
+def _diag(w0):
+    """W[..., v, v, :] of a first-layer kernel [..., n, n, o] -> [..., n, o]."""
+    return torch.diagonal(w0, dim1=-3, dim2=-2).transpose(-1, -2)
+
+
 def _rank1_linear(w0, y):
     """sum_i y_i W[v,i,o] - y_v W[v,v,o]: the masked first layer's linear
-    map without the [n, B, n] masked input."""
-    base = torch.matmul(y, w0)                                       # [n,B,o]
-    diag = torch.diagonal(w0, dim1=0, dim2=1).T                      # [n,o]
-    return base - y.T[:, :, None] * diag[:, None, :]
+    map without the [n, B, n] masked input. w0 [n, n, o] and y [B, n], or
+    with a leading seed axis, w0 [S, n, n, o] and y [S, B, n]."""
+    if w0.dim() == 3:
+        base = torch.matmul(y, w0)                                   # [n,B,o]
+    else:   # one sample batch per seed: 'sbi,snio->snbo'
+        base = torch.matmul(y.unsqueeze(-3), w0)                     # [S,n,B,o]
+    return base - y.transpose(-1, -2)[..., None] * _diag(w0)[..., None, :]
 
 
 class _Rank1Linear(torch.autograd.Function):
@@ -182,13 +195,12 @@ class _Rank1Linear(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         w0, y = ctx.saved_tensors
-        gw = torch.einsum('bi,nbo->nio', y, g).contiguous()
-        gw.diagonal(dim1=0, dim2=1).zero_()
+        gw = torch.einsum('...bi,...nbo->...nio', y, g).contiguous()
+        gw.diagonal(dim1=-3, dim2=-2).zero_()
         gy = None
         if ctx.needs_input_grad[1]:
-            diag = torch.diagonal(w0, dim1=0, dim2=1).T              # [n,o]
-            gy = (torch.einsum('nbo,nio->bi', g, w0)
-                  - torch.einsum('nbo,no->bn', g, diag))
+            gy = (torch.einsum('...nbo,...nio->...bi', g, w0)
+                  - torch.einsum('...nbo,...no->...bn', g, _diag(w0)))
         return gw, gy
 
 
@@ -202,25 +214,36 @@ def _first_layer_rank1(w0, b0, y, act):
 def encode(params, y: torch.Tensor,
            var_ids: Optional[torch.Tensor] = None,
            activation: str = 'selu',
-           first_layer: str = 'masked') -> torch.Tensor:
+           first_layer: str = 'masked',
+           seeds: Optional[int] = None) -> torch.Tensor:
     """Samples y [B, n_var] (or [F, B, n_var], one state per selected
     network) -> latents z [F, B, D]. Network f sees y with its own
     variable's input masked to zero. `var_ids` selects a subset of networks;
-    params must already be gathered to match (see gather_variables)."""
-    w0 = params['enc'][0][0]
+    params must already be gathered to match (see gather_variables). With
+    `seeds`, y is [S, B, n_var] and params hold S stacks of n_var networks:
+    z is [S * n_var, B, D]."""
+    w0, b0 = params['enc'][0]
     n_var = w0.shape[1]
     act = activation_fn(activation)
     # rank1 needs the shared-sample layout (the per-network-state [F,B,n]
     # case and explicit var_ids subsets keep the masked path)
-    if var_ids is None and y.dim() == 2 and (
+    if var_ids is None and (y.dim() == 2 or seeds is not None) and (
             first_layer == 'rank1'
             or (first_layer == 'auto'
-                and 4 * n_var * y.shape[0] * n_var
+                and 4 * n_var * y.shape[-2] * n_var
                 > FIRST_LAYER_RANK1_BYTES)):
-        x = _first_layer_rank1(w0, params['enc'][0][1], y, act)
+        if seeds is None:
+            x = _first_layer_rank1(w0, b0, y, act)
+        else:
+            x = _first_layer_rank1(w0.view(seeds, n_var, *w0.shape[1:]),
+                                   b0.view(seeds, n_var, *b0.shape[1:]), y,
+                                   act).flatten(0, 1)
         return _dense_stack(params['enc'][1:], x, act)
     mask = loo_mask(n_var, var_ids, y.dtype, device=y.device)
-    x = (y[None, :, :] if y.dim() == 2 else y) * mask
+    if seeds is not None:
+        x = (y[:, None] * mask).flatten(0, 1)                  # [S*n,B,n]
+    else:
+        x = (y[None, :, :] if y.dim() == 2 else y) * mask
     return _dense_stack(params['enc'], x, act)
 
 
@@ -234,9 +257,13 @@ def encode_codes(params, codebook, y: torch.Tensor, cfg: VqVaeConfig,
         return q.vq_codes(z, codebook, impl=cfg.vq_impl)
 
 
-def l2_penalty(params) -> torch.Tensor:
+def l2_penalty(params, seeds: Optional[int] = None) -> torch.Tensor:
     """Sum of squared dense-kernel entries (biases and codebook excluded),
-    the inert diagonals included."""
+    the inert diagonals included; with `seeds`, one sum per seed, [S]."""
+    if seeds is not None:
+        return sum(torch.sum((w * w).view(seeds, -1), 1)
+                   for stack in (params['enc'], params['dec'])
+                   for w, _ in stack)
     return sum(torch.sum(w * w)
                for stack in (params['enc'], params['dec'])
                for w, _ in stack)
@@ -258,24 +285,27 @@ def _decode(params, x: torch.Tensor, activation: str = 'selu'):
 
 def apply_model(params, codebook, y: torch.Tensor, cfg: VqVaeConfig,
                 weights: Optional[torch.Tensor] = None,
-                var_ids: Optional[torch.Tensor] = None) -> ForwardOut:
+                var_ids: Optional[torch.Tensor] = None,
+                seeds: Optional[int] = None) -> ForwardOut:
     """Full forward pass: y [B, n_var] -> recon [F, B, n_var] (each
     network's own column is inert; mask it out of any loss with
     `loo_mask`). `weights` [B] (0/1 for ragged final batches) weight every
-    mean of the quantizer's losses."""
-    z = encode(params, y, var_ids, cfg.activation, cfg.first_layer)
+    mean of the quantizer's losses. With `seeds` (packed, y [S, B, n_var]),
+    recon is [S * n_var, B, n_var] and the losses are per seed, [S]."""
+    z = encode(params, y, var_ids, cfg.activation, cfg.first_layer, seeds)
     # with explicit var_ids the rows are selection positions, not variable
     # ids: the padding row-mask only applies to the full-stack layout
     na = (cfg.active_vars
           if var_ids is None and cfg.active_vars < cfg.n_var else None)
     if cfg.quantizer == 'naive':
-        out = q.naive_forward(z, weights, n_active=na)
+        out = q.naive_forward(z, weights, n_active=na, seeds=seeds)
         latent, indices = out.output, q.naive_codes(z.detach())
         e_loss = out.e_loss
-        q_loss = torch.zeros((), dtype=z.dtype, device=z.device)
+        q_loss = torch.zeros_like(e_loss)
     else:
         latent, indices, e_loss, q_loss = q.vq_forward(
-            z, codebook, weights, impl=cfg.vq_impl, n_active=na)
+            z, codebook, weights, impl=cfg.vq_impl, n_active=na,
+            seeds=seeds)
     recon = _decode(params, latent, cfg.activation)
     return ForwardOut(recon, z, indices, e_loss, q_loss)
 

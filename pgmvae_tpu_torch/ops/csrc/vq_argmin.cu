@@ -4,7 +4,8 @@
 // (pgmvae_tpu/ops/pallas_vq.py:38, launched by `vq_codes_fused`).
 //
 // What it computes. For z [n, B, D] and per-variable codebooks W [n, D, K],
-// both float32 and contiguous, it writes int32 out[n, B] with
+// both float32 or both bfloat16 and contiguous, it writes int32 out[n, B]
+// with
 //   out[v, b] = argmin_k (|W[v,:,k]|^2 - 2 z[v,b,:].W[v,:,k]).
 // |z|^2 is left out: it does not move the argmin. Ties go to the lowest
 // index, as with jnp.argmin. The [n, B, K] score tensor is never built. Each
@@ -57,6 +58,17 @@
 // - Small K packs variables. Where K fits two sub-tiles and a block would
 //   be under 128 threads, VPB variables share a block (bbc's stage-2 chunk:
 //   two).
+// - bfloat16 inputs (`vq_argmin_bf16`, the Pallas kernel's f32-accumulated
+//   dot on bf16 operands under bf16 compute). Each value is widened to
+//   float32 on its way into shared memory: the widening is exact and a
+//   product of two widened values is exact in float32, so the shared-memory
+//   tiles, the scoring, the tie order, the strips and the merge are those of
+//   the float32 instance, and `cuda_vq.plan`'s shared-memory arithmetic holds
+//   as it is. Only the global reads halve: a thread reads its 4 codes as one
+//   8-byte load (K a multiple of 4, W 8-byte aligned; else 4 scalar loads)
+//   and stores them widened. These are plain loads, not cp.async (which
+//   copies bytes and cannot widen), so a bf16 code tile is loaded when its
+//   ring slot is filled and its latency is not hidden behind the scoring.
 // What still bounds it (H100, PERF.md): instruction slots and latency, not
 // FMAs or bytes. A good share of a thread's instructions are not the scores'
 // FMAs (|W_k|^2, the compare-and-select per score, loads, loop), and the
@@ -108,8 +120,17 @@ __device__ __forceinline__ bool better(float v, int i, float bv, int bi) {
 struct Shape {
   int n, B, D, K;
   int wy, wk, vpb, strip_k;
-  bool vec;  // 16-byte copies of W
+  bool vec;  // vector reads of W: 4 codes at once
 };
+
+// a bfloat16 value as its 16-bit word
+using bf16 = uint16_t;
+
+__device__ __forceinline__ float widen(float x) { return x; }
+// exact: a bfloat16 is the high half of the float32 of the same value
+__device__ __forceinline__ float widen(bf16 x) {
+  return __uint_as_float(static_cast<unsigned>(x) << 16);
+}
 
 // Shared memory of a block, in floats: the z tile [vpb][D][tb + 4], the
 // ring [STAGES][vpb][D][tk] and the merge buffer [vpb][wk][tb] of (value,
@@ -119,11 +140,14 @@ __host__ __device__ __forceinline__ int smem_floats(int D, int tb, int tk,
   return vpb * (D * (tb + 4) + STAGES * D * tk + 2 * wk * tb);
 }
 
-// Starts the copies of code tile [k0, k0 + tk) of rows [row0, row0 + rows)
-// of W viewed as [n*D][K] into dst [rows][tk]. Thread t copies 4 codes,
-// column chunk t % (tk/4), of every (threads / (tk/4))-th row; rows past
-// n*D and codes past K are zero-filled.
-__device__ __forceinline__ void load_tile(float* dst, const float* w,
+// Fills code tile [k0, k0 + tk) of rows [row0, row0 + rows) of W viewed as
+// [n*D][K] into dst [rows][tk] (float32). Thread t takes 4 codes, column
+// chunk t % (tk/4), of every (threads / (tk/4))-th row; rows past n*D and
+// codes past K are zero-filled. float32 W: cp.async copies, in flight until
+// the caller waits for their group. bfloat16 W: loads widened and stored
+// before it returns.
+template <typename T>
+__device__ __forceinline__ void load_tile(float* dst, const T* w,
                                           const Shape& s, int row0, int rows,
                                           int k0, int tk, int threads) {
   const int cpr = tk / 4;
@@ -133,25 +157,44 @@ __device__ __forceinline__ void load_tile(float* dst, const float* w,
   const int nrows = s.n * s.D;
   for (int r = threadIdx.x / cpr; r < rows; r += step) {
     const int gr = row0 + r;
-    const float* src = w + (size_t)gr * s.K + k;
+    const T* src = w + (size_t)gr * s.K + k;
     float* d = dst + r * tk + c;
-    if (s.vec) {
-      const bool valid = gr < nrows && k < s.K;
-      cp_async16(d, valid ? src : w, valid);
-    } else {
+    if constexpr (sizeof(T) == 4) {
+      if (s.vec) {
+        const bool valid = gr < nrows && k < s.K;
+        cp_async16(d, valid ? src : w, valid);
+      } else {
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const bool valid = gr < nrows && k + j < s.K;
-        cp_async4(d + j, valid ? src + j : w, valid);
+        for (int j = 0; j < 4; ++j) {
+          const bool valid = gr < nrows && k + j < s.K;
+          cp_async4(d + j, valid ? src + j : w, valid);
+        }
       }
+    } else {
+      float4 f = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
+      if (s.vec) {
+        if (gr < nrows && k < s.K) {
+          const uint2 raw = __ldg(reinterpret_cast<const uint2*>(src));
+          f = make_float4(__uint_as_float(raw.x << 16),
+                          __uint_as_float(raw.x & 0xffff0000u),
+                          __uint_as_float(raw.y << 16),
+                          __uint_as_float(raw.y & 0xffff0000u));
+        }
+      } else if (gr < nrows) {
+        f.x = k < s.K ? widen(src[0]) : 0.0f;
+        f.y = k + 1 < s.K ? widen(src[1]) : 0.0f;
+        f.z = k + 2 < s.K ? widen(src[2]) : 0.0f;
+        f.w = k + 3 < s.K ? widen(src[3]) : 0.0f;
+      }
+      *reinterpret_cast<float4*>(d) = f;
     }
   }
 }
 
 // grid (sample tiles, variable groups, strips); block 32*wy*wk*vpb threads
-template <int DPAD, int RB, int SUB>
+template <typename T, int DPAD, int RB, int SUB>
 __global__ void __launch_bounds__(MAX_THREADS, BLOCKS_PER_SM)
-vq_argmin_kernel(const float* __restrict__ z, const float* __restrict__ w,
+vq_argmin_kernel(const T* __restrict__ z, const T* __restrict__ w,
                  int32_t* __restrict__ out, float* __restrict__ part_v,
                  int32_t* __restrict__ part_i, Shape s) {
   extern __shared__ float4 smem4[];
@@ -195,12 +238,12 @@ vq_argmin_kernel(const float* __restrict__ z, const float* __restrict__ w,
   const float inv_d = 1.0f / s.D;
   for (int vv = 0; vv < s.vpb; ++vv) {
     const int v = v0 + vv;
-    const float* zv = z + ((size_t)v * s.B + b0) * s.D;
+    const T* zv = z + ((size_t)v * s.B + b0) * s.D;
     for (int i = threadIdx.x; i < tb * s.D; i += threads) {
       const int bb = (int)((i + 0.5f) * inv_d);
       const int d = i - bb * s.D;
       zs[(vv * s.D + d) * tbp + bb] =
-          (v < s.n && b0 + bb < s.B) ? zv[i] : 0.0f;
+          (v < s.n && b0 + bb < s.B) ? widen(zv[i]) : 0.0f;
     }
   }
 
@@ -373,8 +416,8 @@ __global__ void vq_merge_kernel(const float* __restrict__ part_v,
   out[i] = best_k == NO_CODE ? 0 : best_k;
 }
 
-template <int DPAD, int RB, int SUB>
-cudaError_t launch(const float* z, const float* w, int32_t* out,
+template <typename T, int DPAD, int RB, int SUB>
+cudaError_t launch(const T* z, const T* w, int32_t* out,
                    float* part_v, int32_t* part_i, const Shape& s,
                    int strips, cudaStream_t stream) {
   const int tb = s.wy * ROWS * RB;
@@ -383,7 +426,7 @@ cudaError_t launch(const float* z, const float* w, int32_t* out,
   const size_t smem = sizeof(float) * smem_floats(s.D, tb,
                                                   s.wk * TX * RK * SUB,
                                                   s.wk, s.vpb);
-  vq_argmin_kernel<DPAD, RB, SUB>
+  vq_argmin_kernel<T, DPAD, RB, SUB>
       <<<grid, threads, smem, stream>>>(z, w, out, part_v, part_i, s);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || strips == 1) return err;
@@ -396,12 +439,12 @@ cudaError_t launch(const float* z, const float* w, int32_t* out,
 // D rounded up to 8, 16, 24, 32, 48, 64, 96 or 128 (the unrolled d loop
 // stops at D); RB = 8 and SUB = 4 only up to D = 32, past which their
 // registers would spill
-template <int RB, int SUB>
-cudaError_t dispatch(const float* z, const float* w, int32_t* out,
+template <typename T, int RB, int SUB>
+cudaError_t dispatch(const T* z, const T* w, int32_t* out,
                      float* part_v, int32_t* part_i, const Shape& s,
                      int strips, cudaStream_t st) {
 #define VQ_LAUNCH(P) \
-  launch<P, RB, SUB>(z, w, out, part_v, part_i, s, strips, st)
+  launch<T, P, RB, SUB>(z, w, out, part_v, part_i, s, strips, st)
   if (s.D <= 8) return VQ_LAUNCH(8);
   if (s.D <= 16) return VQ_LAUNCH(16);
   if (s.D <= 24) return VQ_LAUNCH(24);
@@ -418,19 +461,10 @@ cudaError_t dispatch(const float* z, const float* w, int32_t* out,
 
 bool pow2(int x) { return x > 0 && (x & (x - 1)) == 0; }
 
-}  // namespace
-
-// Launches the search for z [n, B, D] and W [n, D, K] with the launch plan
-// (rb, wy, wk, sub, vpb, strip_k, strips) of `cuda_vq.plan` on `stream` of the
-// current CUDA device. With strips > 1, part_v and part_i hold
-// strips * n * B floats and ints of scratch, and a second launch merges
-// them. Returns the launch's cudaError_t (0 on success); a plan the kernel
-// does not take returns cudaErrorInvalidValue and launches nothing. It does
-// not synchronise.
-extern "C" int vq_argmin(const float* z, const float* w, int32_t* out,
-                         float* part_v, int32_t* part_i, int n, int B, int D,
-                         int K, int rb, int wy, int wk, int sub, int vpb,
-                         int strip_k, int strips, void* stream) {
+template <typename T>
+int run(const T* z, const T* w, int32_t* out, float* part_v, int32_t* part_i,
+        int n, int B, int D, int K, int rb, int wy, int wk, int sub, int vpb,
+        int strip_k, int strips, void* stream) {
   const int threads = 32 * wy * wk * vpb;
   const int tk = wk * TX * RK * sub;
   const int tb = wy * ROWS * rb;
@@ -444,18 +478,49 @@ extern "C" int vq_argmin(const float* z, const float* w, int32_t* out,
       || 4L * smem_floats(D, tb, tk, wk, vpb) > SMEM_BYTES) {
     return (int)cudaErrorInvalidValue;
   }
+  // vector reads of 4 codes: 16 bytes of float32, 8 of bfloat16
   const Shape s{n, B, D, K, wy, wk, vpb, strip_k,
-                K % 4 == 0 && reinterpret_cast<uintptr_t>(w) % 16 == 0};
+                K % 4 == 0
+                    && reinterpret_cast<uintptr_t>(w) % (4 * sizeof(T)) == 0};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t err;
   if (rb == 4) {
-    err = sub == 1 ? dispatch<4, 1>(z, w, out, part_v, part_i, s, strips, st)
-                   : dispatch<4, 4>(z, w, out, part_v, part_i, s, strips, st);
+    err = sub == 1
+              ? dispatch<T, 4, 1>(z, w, out, part_v, part_i, s, strips, st)
+              : dispatch<T, 4, 4>(z, w, out, part_v, part_i, s, strips, st);
   } else {
-    err = sub == 1 ? dispatch<8, 1>(z, w, out, part_v, part_i, s, strips, st)
-                   : dispatch<8, 4>(z, w, out, part_v, part_i, s, strips, st);
+    err = sub == 1
+              ? dispatch<T, 8, 1>(z, w, out, part_v, part_i, s, strips, st)
+              : dispatch<T, 8, 4>(z, w, out, part_v, part_i, s, strips, st);
   }
   return (int)err;
+}
+
+}  // namespace
+
+// Launches the search for z [n, B, D] and W [n, D, K] with the launch plan
+// (rb, wy, wk, sub, vpb, strip_k, strips) of `cuda_vq.plan` on `stream` of the
+// current CUDA device. With strips > 1, part_v and part_i hold
+// strips * n * B floats and ints of scratch, and a second launch merges
+// them. Returns the launch's cudaError_t (0 on success); a plan the kernel
+// does not take returns cudaErrorInvalidValue and launches nothing. It does
+// not synchronise. `vq_argmin` takes float32 z and W, `vq_argmin_bf16`
+// bfloat16 ones (as their 16-bit words); the plan is the same for both.
+extern "C" int vq_argmin(const float* z, const float* w, int32_t* out,
+                         float* part_v, int32_t* part_i, int n, int B, int D,
+                         int K, int rb, int wy, int wk, int sub, int vpb,
+                         int strip_k, int strips, void* stream) {
+  return run(z, w, out, part_v, part_i, n, B, D, K, rb, wy, wk, sub, vpb,
+             strip_k, strips, stream);
+}
+
+extern "C" int vq_argmin_bf16(const bf16* z, const bf16* w, int32_t* out,
+                              float* part_v, int32_t* part_i, int n, int B,
+                              int D, int K, int rb, int wy, int wk, int sub,
+                              int vpb, int strip_k, int strips,
+                              void* stream) {
+  return run(z, w, out, part_v, part_i, n, B, D, K, rb, wy, wk, sub, vpb,
+             strip_k, strips, stream);
 }
 
 extern "C" const char* vq_argmin_error_string(int err) {

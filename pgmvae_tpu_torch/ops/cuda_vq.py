@@ -5,16 +5,20 @@
 [n, B] without building the [n, B, K] score tensor. On a CUDA tensor it
 launches the kernel in `csrc/vq_argmin.cu` (design and bound are noted
 there) or raises; on a CPU tensor it returns `vq_codes_plain`, the same
-arithmetic in plain PyTorch.
+arithmetic in plain PyTorch. z and the codebook are both float32 or both
+bfloat16 (bf16 compute): the bfloat16 instance widens each value to float32
+exactly and then scores as the float32 one does.
 
 The kernel is compiled with nvcc for sm_90a into a shared library with a
 plain C entry point, at first use, by `ops/_build.py`, and bound with
 ctypes.
 
 `plan(n, B, D, K)` chooses the launch (tile sizes, variables a block, code
-strips), and the C entry point checks it. `LAUNCHES` counts calls that
-launched the kernel (one or, when K is split into strips, two launches),
-so a run can show that its path went through it.
+strips), and the C entry point checks it; the plan holds for both input
+types, as the shared-memory tiles are float32 either way. `LAUNCHES` and
+`LAUNCHES_BF16` count calls that launched the float32 and the bfloat16
+instance (one launch or, when K is split into strips, two), so a run can
+show that its path went through them.
 """
 
 from __future__ import annotations
@@ -29,6 +33,8 @@ import torch
 from pgmvae_tpu_torch.ops import _build
 
 LAUNCHES = 0
+LAUNCHES_BF16 = 0
+DTYPES = (torch.float32, torch.bfloat16)
 MAX_D = 128     # widest latent the kernel takes (csrc/vq_argmin.cu)
 
 _SRC = Path(__file__).resolve().parent / 'csrc' / 'vq_argmin.cu'
@@ -51,6 +57,8 @@ def build() -> ctypes.CDLL:
     lib.vq_argmin.argtypes = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 11
                               + [ctypes.c_void_p])
     lib.vq_argmin.restype = ctypes.c_int
+    lib.vq_argmin_bf16.argtypes = lib.vq_argmin.argtypes
+    lib.vq_argmin_bf16.restype = ctypes.c_int
     lib.vq_argmin_error_string.argtypes = [ctypes.c_int]
     lib.vq_argmin_error_string.restype = ctypes.c_char_p
     _lib = lib
@@ -171,8 +179,9 @@ def _check(z: torch.Tensor, codebook: torch.Tensor) -> None:
     if z.shape[0] != codebook.shape[0] or z.shape[2] != codebook.shape[1]:
         raise ValueError(f'z {tuple(z.shape)} does not match codebook '
                          f'{tuple(codebook.shape)}')
-    if z.dtype != torch.float32 or codebook.dtype != torch.float32:
-        raise ValueError(f'vq codes take float32; got {z.dtype} and '
+    if z.dtype != codebook.dtype or z.dtype not in DTYPES:
+        raise ValueError(f'vq codes take float32 or bfloat16, the same for '
+                         f'z and codebook; got {z.dtype} and '
                          f'{codebook.dtype}')
     if z.device != codebook.device:
         raise ValueError(f'z on {z.device} but codebook on {codebook.device}')
@@ -182,7 +191,9 @@ def _check(z: torch.Tensor, codebook: torch.Tensor) -> None:
 
 def vq_codes_plain(z: torch.Tensor, codebook: torch.Tensor) -> torch.Tensor:
     """The kernel's arithmetic in plain PyTorch: argmin over the [n, B, K]
-    scores |W_k|^2 - 2 z.W_k (first index on ties), int32 [n, B]."""
+    scores |W_k|^2 - 2 z.W_k (first index on ties), int32 [n, B]. bfloat16
+    operands are widened to float32 first."""
+    z, codebook = z.float(), codebook.float()
     w2 = torch.sum(codebook * codebook, dim=1, keepdim=True)         # [n,1,K]
     scores = w2 - 2.0 * torch.bmm(z, codebook)                       # [n,B,K]
     return torch.argmin(scores, dim=2).to(torch.int32)
@@ -190,9 +201,10 @@ def vq_codes_plain(z: torch.Tensor, codebook: torch.Tensor) -> torch.Tensor:
 
 def vq_codes_fused(z: torch.Tensor, codebook: torch.Tensor) -> torch.Tensor:
     """Nearest-codebook indices [n, B] int32. z [n, B, D] and codebook
-    [n, D, K] float32 on one device: CUDA launches the kernel, CPU runs
-    `vq_codes_plain`; any other device raises."""
-    global LAUNCHES
+    [n, D, K], both float32 or both bfloat16, on one device: CUDA launches
+    the kernel's instance for that type, CPU runs `vq_codes_plain`; any
+    other device raises."""
+    global LAUNCHES, LAUNCHES_BF16
     _check(z, codebook)
     if z.device.type == 'cpu':
         return vq_codes_plain(z, codebook)
@@ -209,6 +221,8 @@ def vq_codes_fused(z: torch.Tensor, codebook: torch.Tensor) -> torch.Tensor:
         return out
     p = plan(n, b, d, k)
     lib = build()
+    bf16 = z.dtype == torch.bfloat16
+    fn = lib.vq_argmin_bf16 if bf16 else lib.vq_argmin
     with torch.cuda.device(z.device):
         part_v = part_i = None
         if p.strips > 1:
@@ -216,7 +230,7 @@ def vq_codes_fused(z: torch.Tensor, codebook: torch.Tensor) -> torch.Tensor:
                                  device=z.device)
             part_i = torch.empty((p.strips, n, b), dtype=torch.int32,
                                  device=z.device)
-        err = lib.vq_argmin(
+        err = fn(
             z.data_ptr(), codebook.data_ptr(), out.data_ptr(),
             None if part_v is None else part_v.data_ptr(),
             None if part_i is None else part_i.data_ptr(), n, b, d, k, p.rb,
@@ -225,6 +239,9 @@ def vq_codes_fused(z: torch.Tensor, codebook: torch.Tensor) -> torch.Tensor:
     if err != 0:
         msg = lib.vq_argmin_error_string(err).decode()
         raise RuntimeError(f'vq_argmin launch failed: CUDA error {err} '
-                           f'({msg}) at shape {(n, b, d, k)}')
-    LAUNCHES += 1
+                           f'({msg}) at shape {(n, b, d, k)}, {z.dtype}')
+    if bf16:
+        LAUNCHES_BF16 += 1
+    else:
+        LAUNCHES += 1
     return out

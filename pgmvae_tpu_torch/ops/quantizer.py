@@ -5,7 +5,13 @@ quantizer.
 
 Array conventions: z [n_var, B, D], codebook [n_var, D, K], indices
 [n_var, B] int32, counts [n_var, K], dw [n_var, D, K]. Every function
-returns new tensors; none writes into its inputs.
+returns new tensors; none writes into its inputs. Packed seeds stack S
+models' networks on axis 0 (n = S * n_var); the losses then take `seeds=S`
+and return one mean per seed, [S].
+
+Under bf16 compute z and the codebook are bfloat16: the losses' squares
+stay bfloat16 and the float32 sample weights promote their sums to float32,
+and the EMA statistics are taken from z widened to float32.
 """
 
 from __future__ import annotations
@@ -71,20 +77,27 @@ def naive_codes(z: torch.Tensor) -> torch.Tensor:
 
 
 def _masked_mean(x: torch.Tensor, weights: Optional[torch.Tensor],
-                 n_active: Optional[int] = None) -> torch.Tensor:
+                 n_active: Optional[int] = None,
+                 seeds: Optional[int] = None) -> torch.Tensor:
     """Mean over all elements of x [n, B, D], with optional per-sample
     weights on axis 1 (0 on the padded rows of a ragged batch). With a
     padded variable axis, `n_active` excludes networks >= n_active from both
-    the sum and the denominator."""
-    n = x.shape[0]
+    the sum and the denominator. With `seeds`, x holds S stacks of n/S
+    networks and the result is each stack's mean, [S]."""
+    if seeds is not None:
+        x = x.view(seeds, -1, *x.shape[1:])
+    n = x.shape[-3]
     if n_active is not None and n_active < n:
         row = torch.arange(n, device=x.device).view(n, 1, 1)
         x = x * (row < n_active).to(x.dtype)
         n = n_active
+
+    def total(t):
+        return torch.sum(t) if seeds is None else torch.sum(t, (1, 2, 3))
     if weights is None:
-        return torch.sum(x) / (n * x.shape[1] * x.shape[2])
-    return torch.sum(x * weights[None, :, None]) / (
-        n * x.shape[2] * torch.sum(weights))
+        return total(x) / (n * x.shape[-2] * x.shape[-1])
+    return total(x * weights[None, :, None]) / (
+        n * x.shape[-1] * torch.sum(weights))
 
 
 class VqOut(NamedTuple):
@@ -96,7 +109,8 @@ class VqOut(NamedTuple):
 
 def vq_forward(z: torch.Tensor, codebook: torch.Tensor,
                weights: Optional[torch.Tensor] = None, impl: str = 'xla',
-               n_active: Optional[int] = None) -> VqOut:
+               n_active: Optional[int] = None,
+               seeds: Optional[int] = None) -> VqOut:
     """Quantize with straight-through gradients and both latent losses:
 
     e_loss = mean((sg(q) - z)^2)   commitment
@@ -104,11 +118,14 @@ def vq_forward(z: torch.Tensor, codebook: torch.Tensor,
     output = z + sg(q - z)         straight-through estimator
 
     The codes come from `vq_codes` (the CUDA kernel on the card); the
-    codebook's gradient flows through the gather of `vq_quantize`."""
+    codebook's gradient flows through the gather of `vq_quantize`. With
+    `seeds` the losses are per seed, [S]."""
     indices = vq_codes(z, codebook, impl=impl)
     quantized = vq_quantize(codebook, indices)
-    e_loss = _masked_mean((quantized.detach() - z) ** 2, weights, n_active)
-    q_loss = _masked_mean((quantized - z.detach()) ** 2, weights, n_active)
+    e_loss = _masked_mean((quantized.detach() - z) ** 2, weights, n_active,
+                          seeds)
+    q_loss = _masked_mean((quantized - z.detach()) ** 2, weights, n_active,
+                          seeds)
     output = z + (quantized - z).detach()
     return VqOut(output, indices, e_loss, q_loss)
 
@@ -187,22 +204,28 @@ def restart_dead_codes(state: EmaState, z: torch.Tensor,
     batch, drawn for each (variable, code) uniformly over the rows with
     weight > 0, and its statistics restart at (count=1, dw=latent).
 
-    The draw uses `generator` (on z's device) and no host round trip; the
-    update itself is `_apply_restart`, so tests can feed it the indices
-    the JAX package drew."""
+    The draw (`restart_rows`) uses `generator` (on z's device) and no host
+    round trip; the update itself is `_apply_restart`, so tests can feed it
+    the indices the JAX package drew."""
     n, b, _ = z.shape
-    k = state.codebook.shape[2]
-    u = torch.rand((n, k), generator=generator, device=z.device)
-    if weights is None:
-        ridx = torch.clamp((u * b).long(), max=b - 1)
-    else:
-        # the j-th valid row, j uniform on [0, #valid): searchsorted over
-        # the running count of valid rows
-        valid = torch.cumsum((weights > 0).to(torch.int64), 0)      # [B]
-        j = torch.minimum((u * valid[-1]).long(), valid[-1] - 1)
-        ridx = torch.searchsorted(valid, j.reshape(-1), right=True)
-        ridx = ridx.reshape(n, k)
+    ridx = restart_rows(n, b, state.codebook.shape[2], generator, weights,
+                        z.device)
     return _apply_restart(state, z, ridx, threshold, decay, zero_debias)
+
+
+def restart_rows(n: int, b: int, k: int, generator: torch.Generator,
+                 weights: Optional[torch.Tensor] = None,
+                 device=None) -> torch.Tensor:
+    """The batch row [n, K] drawn for each (variable, code) of a restart:
+    uniform over the b rows, or over the rows with weight > 0."""
+    u = torch.rand((n, k), generator=generator, device=device)
+    if weights is None:
+        return torch.clamp((u * b).long(), max=b - 1)
+    # the j-th valid row, j uniform on [0, #valid): searchsorted over the
+    # running count of valid rows
+    valid = torch.cumsum((weights > 0).to(torch.int64), 0)          # [B]
+    j = torch.minimum((u * valid[-1]).long(), valid[-1] - 1)
+    return torch.searchsorted(valid, j.reshape(-1), right=True).reshape(n, k)
 
 
 def _apply_restart(state: EmaState, z: torch.Tensor, ridx: torch.Tensor,
@@ -234,9 +257,10 @@ class NaiveOut(NamedTuple):
 
 
 def naive_forward(z: torch.Tensor, weights: Optional[torch.Tensor] = None,
-                  n_active: Optional[int] = None) -> NaiveOut:
+                  n_active: Optional[int] = None,
+                  seeds: Optional[int] = None) -> NaiveOut:
     """loss = mean(-(z-0.5)^2), which pushes latents to 0/1; the output is a
     hard 0/1 step through the reference's clamp trick."""
-    e_loss = _masked_mean(-((z - 0.5) ** 2), weights, n_active)
+    e_loss = _masked_mean(-((z - 0.5) ** 2), weights, n_active, seeds)
     output = torch.clamp(torch.clamp(z - 0.499999, min=0.0) * 1e7, max=1.0)
     return NaiveOut(output, e_loss)

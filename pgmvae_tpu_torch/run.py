@@ -9,14 +9,18 @@ TRW benchmark suite, with the flags, defaults, run identifier and
     python -m pgmvae_tpu_torch.run ... --checkpoint m.ckpt --cmll
     python -m pgmvae_tpu_torch.run ... --resume m.ckpt -e 1
     python -m pgmvae_tpu_torch.run ... --adam-impl fused_bf16
+    python -m pgmvae_tpu_torch.run ... --compute-dtype bf16
 
 `--checkpoint` writes the JAX package's checkpoint format (and with
 --cpt-parents-mix `<path>.mix`), which `serving.PgmModel.from_checkpoint`
 of either package serves; `--resume` refuses a checkpoint whose model
 config differs; `--cmll` adds the Gibbs CMLL of the test split to the
-result line; `--adam-impl fused_bf16` keeps the Adam moments in bfloat16.
-Flags of features the port does not run yet (a mesh, --profile, bf16
-compute) exit with code 2 and say which ROADMAP.md item holds them.
+result line; `--adam-impl fused_bf16` keeps the Adam moments in bfloat16;
+`--compute-dtype bf16` trains in bfloat16 with float32 masters (identifier
+flag cd-bf16). Grids of cells, packed seeds and isolated cells are
+`pgmvae_tpu_torch.run_pipeline`'s. Flags of features the port does not run
+yet (a mesh, --profile) exit with code 2 and say which ROADMAP.md item holds
+them.
 """
 
 from __future__ import annotations

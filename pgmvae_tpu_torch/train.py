@@ -13,6 +13,28 @@ Loss: mse over each network's leave-one-out reconstruction, plus
 cost*e_loss (plus q_loss for the 'vq' quantizer), plus l2_reg*l2_penalty.
 Adam uses eps=1e-7 (the Keras default).
 
+compute_dtype 'bf16': the forward and backward passes run in bfloat16. The
+float32 params are cast inside the autograd graph, so their gradients come
+back float32 through the cast; the samples and the EMA codebook are cast
+too. Master params, Adam moments, EMA statistics, loss sums and metrics stay
+float32. Stage 2, serving and the Gibbs chain never read compute_dtype.
+
+Streaming epochs: a dataset past `stream_bytes` stays on the host. Its
+epochs draw the in-core permutation (on the device, copied to the host once
+an epoch) and gather each chunk of batches on the host into one of two
+pinned buffers, whose copy to the device overlaps the previous chunk's
+steps. The steps, weights and restart draws are the in-core ones, so a
+streamed `fit` is bit-equal to an in-core one on the same device.
+
+Packed seeds: `init_states_packed(seeds)` stacks S states leaf by leaf
+(every tensor [S, ...], the JAX package's vmapped layout) and `fit_packed`
+trains them together. A packed step views each [S, n, ...] leaf as
+[S * n, ...]: one `baddbmm` per layer, one nearest-code launch and one Adam
+launch per leaf cover all S seeds. Each seed keeps its own epoch generators,
+hence its own permutations and restart draws, and its own losses: the
+means divide by the per-seed n, so every seed's gradient is its unpacked
+gradient.
+
 Randomness: epoch e draws its permutation and its dead-code restart rows
 from a generator seeded from (seed, e) alone, so fit(a) followed by
 fit(b, start_epoch=a) is bit-identical to fit(a + b).
@@ -25,7 +47,7 @@ from __future__ import annotations
 
 import math
 import os
-from typing import NamedTuple, Optional, Union
+from typing import NamedTuple, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -44,6 +66,7 @@ PERPLEXITY_MAX_CODES = 1 << 16
 # identifier still records the choice. 'fused_bf16' keeps the moments in
 # bfloat16 and takes the kernel's bfloat16 variant.
 ADAM_IMPLS = ('optax', 'fused', 'pallas', 'fused_bf16')
+COMPUTE_DTYPES = {'f32': None, 'bf16': torch.bfloat16}
 
 
 class TrainState(NamedTuple):
@@ -63,23 +86,41 @@ class EpochMetrics(NamedTuple):
 def _masked_recon_mean(x, w, mask, n_active=None):
     """Mean over a [n, B, n] tensor with per-sample weights w [B] and the
     leave-one-out mask [n, 1, n]: denominator n*(n-1)*sum(w), the mean over
-    the reference's gathered [n, B, n-1] views."""
-    n = n_active if n_active is not None else x.shape[0]
-    return torch.sum(x * mask * w[None, :, None]) / (
-        n * (n - 1) * torch.clamp(torch.sum(w), min=1.0))
+    the reference's gathered [n, B, n-1] views. A packed [S, n, B, n] tensor
+    gives one mean per seed, [S]."""
+    n = n_active if n_active is not None else x.shape[-3]
+    x = x * mask * w[None, :, None]
+    total = torch.sum(x) if x.dim() == 3 else torch.sum(x, (1, 2, 3))
+    return total / (n * (n - 1) * torch.clamp(torch.sum(w), min=1.0))
+
+
+def _recon_error(recon, y, seeds=None):
+    """recon - y for every network: [n, B, n_var], or packed [S, n, B,
+    n_var] from recon [S * n, B, n_var] and y [S, B, n_var]."""
+    if seeds is None:
+        return recon - y[None]
+    return recon.view(seeds, -1, *recon.shape[1:]) - y[:, None]
+
+
+def _map_state(fn, *states):
+    """`fn` over the tensors of one or more states of one structure (named
+    tuples, params dicts, lists of layers); any other leaf (None, the Adam
+    eps) is taken from the first."""
+    first = states[0]
+    if isinstance(first, torch.Tensor):
+        return fn(*states)
+    if isinstance(first, dict):
+        return {k: _map_state(fn, *(s[k] for s in states)) for k in first}
+    if isinstance(first, tuple) and hasattr(first, '_fields'):
+        return type(first)(*(_map_state(fn, *f) for f in zip(*states)))
+    if isinstance(first, (list, tuple)):
+        return type(first)(_map_state(fn, *f) for f in zip(*states))
+    return first
 
 
 def copy_state(state: TrainState) -> TrainState:
     """A deep copy of every tensor of `state`."""
-    def copy(x):
-        if isinstance(x, torch.Tensor):
-            return x.clone()
-        if isinstance(x, dict):
-            return vqvae.map_params(torch.clone, x)
-        if isinstance(x, tuple) and hasattr(x, '_fields'):
-            return type(x)(*(copy(f) for f in x))
-        return x
-    return copy(state)
+    return _map_state(torch.clone, state)
 
 
 def epoch_seed(seed: int, epoch: int) -> int:
@@ -92,12 +133,10 @@ def epoch_seed(seed: int, epoch: int) -> int:
 class Trainer:
     """Trains one model configuration on `device` (None means CUDA)."""
 
-    # datasets larger than this are streamed from the host in the JAX
-    # package; the port places every dataset on the device
-    stream_bytes = 4 << 30
-
     def __init__(self, cfg: vqvae.VqVaeConfig, learning_rate: float,
                  batch_size: int, n_train: int, adam_eps: float = 1e-7,
+                 stream_bytes: int = 4 << 30,
+                 stream_chunk_bytes: int = 64 << 20,
                  adam_impl: Optional[str] = None, device=None):
         self.device = resolve_device(device)
         self.cfg = cfg
@@ -106,15 +145,18 @@ class Trainer:
         self.batch_size = int(batch_size)
         self.n_train = int(n_train)
         self.steps_per_epoch = math.ceil(self.n_train / self.batch_size)
+        # datasets larger than `stream_bytes` stay on the host and are fed
+        # ~stream_chunk_bytes of batches at a time (`fit`)
+        self.stream_bytes = int(stream_bytes)
+        self.stream_chunk_bytes = int(stream_chunk_bytes)
         self.adam_impl = adam_impl or os.environ.get('PGMVAE_ADAM_IMPL',
                                                      'optax')
         if self.adam_impl not in ADAM_IMPLS:
             raise ValueError(f'unknown adam_impl {self.adam_impl!r}; '
                              f'choose from {ADAM_IMPLS}')
-        if cfg.compute_dtype != 'f32':
-            raise NotImplementedError(
-                f"compute_dtype={cfg.compute_dtype!r} is not ported yet: "
-                f"ROADMAP.md A4, bf16 compute")
+        if cfg.compute_dtype not in COMPUTE_DTYPES:
+            raise ValueError(f'unknown compute_dtype {cfg.compute_dtype!r}; '
+                             f'choose from {tuple(COMPUTE_DTYPES)}')
 
     # ------------------------------------------------------------ state --
     def init_state(self, generator: Union[int, torch.Generator]
@@ -144,29 +186,38 @@ class Trainer:
         return None
 
     # ------------------------------------------------------------- step --
-    def _loss(self, params, state: TrainState, y, w, mask):
+    def _loss(self, params, state: TrainState, y, w, mask, seeds=None):
         cfg = self.cfg
+        cdt = COMPUTE_DTYPES[cfg.compute_dtype]
+        p, yc = params, y
         codebook = (params['codebook'] if cfg.quantizer == 'vq'
                     else self.codebook(state))
-        out = vqvae.apply_model(params, codebook, y, cfg, weights=w)
-        mse = _masked_recon_mean((out.recon - y[None]) ** 2, w, mask,
-                                 cfg.active_vars)
+        if cdt is not None:
+            # inside the graph: the cast's backward returns float32 grads
+            p = vqvae.map_params(lambda leaf: leaf.to(cdt), params)
+            yc = y.to(cdt)
+            if cfg.quantizer == 'vq':
+                codebook = p['codebook']
+            elif codebook is not None:
+                codebook = codebook.to(cdt)
+        out = vqvae.apply_model(p, codebook, yc, cfg, weights=w, seeds=seeds)
+        # the float32 mask and weights make the sums float32
+        mse = _masked_recon_mean(_recon_error(out.recon, yc, seeds) ** 2, w,
+                                 mask, cfg.active_vars)
         if cfg.quantizer == 'vq':
             aux = out.q_loss + cfg.cost * out.e_loss
         else:  # 'ema' and 'naive': commitment term only
             aux = cfg.cost * out.e_loss
         total = mse + aux
         if cfg.l2_reg > 0:
-            total = total + cfg.l2_reg * vqvae.l2_penalty(params)
+            total = total + cfg.l2_reg * vqvae.l2_penalty(params, seeds)
         return total, out, mse
 
-    def train_step(self, state: TrainState, y: torch.Tensor,
-                   w: torch.Tensor,
-                   generator: Optional[torch.Generator] = None):
-        """One step on batch y [B, n_var] with sample weights w [B]; returns
-        (state, metrics as device scalars [loss, mse, mae, perplexity]).
-        Params and moments are updated in place. Dead-code restarts draw
-        from `generator` when the config asks for them and it is given."""
+    def _step(self, state: TrainState, y: torch.Tensor, w: torch.Tensor,
+              generators=None, seeds: Optional[int] = None):
+        """One step of an unpacked state, or with `seeds` of a packed state
+        in its step layout (`_step_layout`); returns (state, metrics [4] or
+        [S, 4]). `generators` (one a seed) draw the dead-code restarts."""
         cfg = self.cfg
         mask = vqvae.loo_mask(cfg.n_var, None, y.dtype,
                               n_active=cfg.active_vars, device=y.device)
@@ -175,107 +226,252 @@ class Trainer:
         with torch.enable_grad():
             loss, out, mse = self._loss(
                 vqvae.params_from_leaves(state.params, live), state, y, w,
-                mask)
-            grads = torch.autograd.grad(loss, live)
+                mask, seeds)
+            # packed: the sum of the seeds' losses, each seed's gradient
+            grads = torch.autograd.grad(
+                loss if seeds is None else torch.sum(loss), live)
         grads = vqvae.params_from_leaves(
             state.params, [g.contiguous() for g in grads])
         opt_state = fused_adam.adam_update(state.params, grads,
                                            state.opt_state)
 
         with torch.no_grad():
-            z = out.z.detach()
+            # EMA statistics in float32 whatever the compute dtype
+            z = out.z.detach().float()
+            rows = z.shape[0]
             ema, counts = state.ema, None
             if cfg.quantizer == 'ema':
                 counts, dw = q.code_stats(z, out.indices, cfg.num_codes,
                                           weights=w)
                 ema = q.ema_update(ema, counts, dw, cfg.decay, cfg.epsilon,
                                    cfg.zero_debias)
-                if cfg.dead_code_threshold > 0 and generator is not None:
-                    ema = q.restart_dead_codes(
-                        ema, z, generator, cfg.dead_code_threshold,
-                        cfg.decay, cfg.zero_debias, weights=w)
+                if cfg.dead_code_threshold > 0 and generators is not None:
+                    ridx = torch.cat([
+                        q.restart_rows(cfg.n_var, z.shape[1], cfg.num_codes,
+                                       g, w, z.device) for g in generators])
+                    ema = q._apply_restart(ema, z, ridx,
+                                           cfg.dead_code_threshold,
+                                           cfg.decay, cfg.zero_debias)
             elif cfg.effective_codes <= PERPLEXITY_MAX_CODES:
-                counts = torch.zeros((cfg.n_var, cfg.effective_codes),
+                counts = torch.zeros((rows, cfg.effective_codes),
                                      dtype=y.dtype, device=y.device)
                 counts.scatter_add_(1, out.indices.long(),
-                                    w[None, :].expand(cfg.n_var, -1))
-            recon = out.recon.detach()
-            mae = _masked_recon_mean(torch.abs(recon - y[None]), w, mask,
-                                     cfg.active_vars)
+                                    w[None, :].expand(rows, -1))
+            mae = _masked_recon_mean(
+                torch.abs(_recon_error(out.recon.detach(), y, seeds)), w,
+                mask, cfg.active_vars)
             if counts is None:
-                perplexity = torch.zeros((), dtype=y.dtype, device=y.device)
+                perplexity = torch.zeros(() if seeds is None else (seeds,),
+                                         dtype=y.dtype, device=y.device)
             else:
-                counts = counts[:cfg.active_vars]  # padding networks out
+                if seeds is not None:               # per seed
+                    counts = counts.view(seeds, -1, counts.shape[-1])
+                counts = counts[..., :cfg.active_vars, :]  # padding out
                 p = counts / torch.clamp(
-                    torch.sum(counts, dim=1, keepdim=True), min=1.0)
-                perplexity = torch.mean(torch.exp(-torch.sum(
-                    p * torch.log(torch.clamp(p, min=1e-12)), dim=1)))
+                    torch.sum(counts, dim=-1, keepdim=True), min=1.0)
+                ppl = torch.exp(-torch.sum(
+                    p * torch.log(torch.clamp(p, min=1e-12)), dim=-1))
+                perplexity = (torch.mean(ppl) if seeds is None
+                              else torch.mean(ppl, -1))
             metrics = torch.stack([loss.detach(), mse.detach(), mae,
-                                   perplexity])
+                                   perplexity], dim=-1)
         return TrainState(state.params, ema, opt_state,
                           state.step + 1), metrics
+
+    def train_step(self, state: TrainState, y: torch.Tensor,
+                   w: torch.Tensor,
+                   generator: Optional[torch.Generator] = None):
+        """One step on batch y [B, n_var] with sample weights w [B]; returns
+        (state, metrics as device scalars [loss, mse, mae, perplexity]).
+        Params and moments are updated in place. Dead-code restarts draw
+        from `generator` when the config asks for them and it is given."""
+        return self._step(state, y, w,
+                          None if generator is None else [generator])
+
+    @staticmethod
+    def _step_layout(states: TrainState, seeds: int) -> TrainState:
+        """A packed state as `_step` takes it: each [S, n, ...] leaf viewed
+        as [S * n, ...], and the step counters (equal across seeds) and the
+        learning rate as their first entry."""
+        def flat(leaf):
+            return leaf.flatten(0, 1)
+        opt, ema = states.opt_state, states.ema
+        if ema is not None:
+            ema = q.EmaState(flat(ema.codebook), flat(ema.counts),
+                             flat(ema.dw), ema.step[0])
+        return TrainState(
+            vqvae.map_params(flat, states.params), ema,
+            opt._replace(count=opt.count[0], mu=vqvae.map_params(flat, opt.mu),
+                         nu=vqvae.map_params(flat, opt.nu),
+                         learning_rate=opt.learning_rate[0]),
+            states.step[0])
+
+    def train_step_packed(self, states: TrainState, y: torch.Tensor,
+                          w: torch.Tensor,
+                          generators: Optional[Sequence[torch.Generator]]
+                          = None):
+        """One step of S packed seeds on batches y [S, B, n_var] with the
+        sample weights w [B] they share; returns (states, metrics [S, 4]).
+        Params and moments are updated in place, through views."""
+        seeds = y.shape[0]
+        new, metrics = self._step(self._step_layout(states, seeds), y, w,
+                                  generators, seeds)
+        ema = states.ema
+        if ema is not None:
+            def unflat(t):
+                return t.view(seeds, -1, *t.shape[1:])
+            ema = q.EmaState(unflat(new.ema.codebook),
+                             unflat(new.ema.counts), unflat(new.ema.dw),
+                             ema.step + 1)
+        opt = states.opt_state._replace(count=states.opt_state.count + 1)
+        return TrainState(states.params, ema, opt, states.step + 1), metrics
 
     # ------------------------------------------------------------ epoch --
     def epoch_generator(self, seed: int, epoch: int) -> torch.Generator:
         return torch.Generator(device=self.device).manual_seed(
             epoch_seed(seed, epoch))
 
-    def run_epoch(self, state: TrainState, data: torch.Tensor,
-                  generator: torch.Generator):
-        """One epoch over the device-resident data [N, n_var]; returns
-        (state, sample-weighted epoch metrics [4] on the device)."""
+    def _padded_perm(self, generator: torch.Generator) -> torch.Tensor:
+        """The epoch's permutation with sentinels (-1) to whole batches,
+        [steps, bs], on the device."""
         n, bs, steps = self.n_train, self.batch_size, self.steps_per_epoch
         perm = torch.randperm(n, generator=generator, device=self.device)
         pad = torch.full((steps * bs - n,), -1, dtype=perm.dtype,
                          device=self.device)
-        perm = torch.cat([perm, pad]).view(steps, bs)
-        restart = generator if self.cfg.dead_code_threshold > 0 else None
-        total = torch.zeros(4, dtype=data.dtype, device=self.device)
-        wtot = torch.zeros((), dtype=data.dtype, device=self.device)
-        for idx in perm:
-            w = (idx >= 0).to(data.dtype)
-            yb = data.index_select(0, torch.clamp(idx, min=0))
-            state, m = self.train_step(state, yb, w, restart)
+        return torch.cat([perm, pad]).view(steps, bs)
+
+    @staticmethod
+    def _run_steps(state, step_fn, batches, weights, restart):
+        """step_fn over (batch, weights row) pairs; returns (state, the
+        sample-weighted mean of the steps' metrics, on the device)."""
+        total = wtot = 0
+        for yb, w in zip(batches, weights):
+            state, m = step_fn(state, yb, w, restart)
             wsum = torch.sum(w)
-            total += m * wsum
-            wtot += wsum
+            total = total + m * wsum
+            wtot = wtot + wsum
         return state, total / wtot
 
+    def run_epoch(self, state: TrainState, data: torch.Tensor,
+                  generator: torch.Generator):
+        """One epoch over the device-resident data [N, n_var]; returns
+        (state, sample-weighted epoch metrics [4] on the device)."""
+        perm = self._padded_perm(generator)
+        restart = generator if self.cfg.dead_code_threshold > 0 else None
+        batches = (data.index_select(0, torch.clamp(idx, min=0))
+                   for idx in perm)
+        return self._run_steps(state, self.train_step, batches,
+                               (perm >= 0).to(data.dtype), restart)
+
+    def _host_batches(self, data: np.ndarray, perm: np.ndarray):
+        """The batches of `perm` [steps, bs] (sentinels take row 0, as
+        in-core) gathered on the host from `data`, yielded on the device.
+        `chunk` steps at a time are gathered into one of two pinned buffers
+        and copied on a side stream: the next chunk's gather and copy go
+        ahead of this chunk's steps, the steps wait for their copy by an
+        event, and a buffer is refilled only once its last copy is done."""
+        steps, bs = perm.shape
+        chunk = max(1, min(steps, self.stream_chunk_bytes
+                           // (bs * data.shape[1] * data.itemsize)))
+        cuda = self.device.type == 'cuda'
+        bufs = [torch.empty((chunk, bs, data.shape[1]),
+                            dtype=getattr(torch, self.cfg.dtype),
+                            pin_memory=cuda) for _ in range(2)]
+        copied = [None, None]            # the event of each buffer's copy
+        stream = torch.cuda.Stream(self.device) if cuda else None
+
+        def stage(c):
+            slot = c % 2
+            if copied[slot] is not None:
+                copied[slot].synchronize()
+            idx = perm[c * chunk:(c + 1) * chunk]
+            host = bufs[slot][:idx.shape[0]]
+            np.take(data, idx, axis=0, out=host.numpy(), mode='clip')
+            if not cuda:
+                return host, None
+            with torch.cuda.stream(stream):
+                dev = host.to(self.device, non_blocking=True)
+                copied[slot] = torch.cuda.Event()
+                copied[slot].record(stream)
+            return dev, copied[slot]
+
+        chunks = -(-steps // chunk)
+        ahead = stage(0)
+        for c in range(chunks):
+            dev, event = ahead
+            if c + 1 < chunks:
+                ahead = stage(c + 1)
+            if event is not None:
+                compute = torch.cuda.current_stream(self.device)
+                compute.wait_event(event)
+                dev.record_stream(compute)
+            yield from dev
+
+    def _run_epoch_streamed(self, state: TrainState, data: np.ndarray,
+                            generator: torch.Generator):
+        """`run_epoch` over host data: the same permutation, weights, steps
+        and restart draws, the batches fed by `_host_batches`."""
+        perm = self._padded_perm(generator)
+        restart = generator if self.cfg.dead_code_threshold > 0 else None
+        batches = self._host_batches(data, perm.cpu().numpy())
+        return self._run_steps(state, self.train_step, batches,
+                               (perm >= 0).to(getattr(torch, self.cfg.dtype)),
+                               restart)
+
+    def run_epoch_packed(self, states: TrainState, data: torch.Tensor,
+                         generators: Sequence[torch.Generator]):
+        """One epoch of S packed seeds over the device-resident data, seed s
+        drawing from generators[s]; returns (states, metrics [S, 4])."""
+        seeds = len(generators)
+        perms = torch.stack([self._padded_perm(g) for g in generators], 1)
+        restart = generators if self.cfg.dead_code_threshold > 0 else None
+        batches = (data.index_select(0, torch.clamp(idx.reshape(-1), min=0))
+                   .view(seeds, self.batch_size, -1) for idx in perms)
+        # the sentinels end every permutation: one w for all seeds
+        return self._run_steps(states, self.train_step_packed, batches,
+                               (perms[:, 0] >= 0).to(data.dtype), restart)
+
     # -------------------------------------------------------------- fit --
+    def _padded_data(self, data_host) -> np.ndarray:
+        data_host = np.asarray(data_host)
+        if data_host.shape[1] < self.cfg.n_var:    # padded variable axis:
+            data_host = np.pad(                    # append zero columns
+                data_host,
+                ((0, 0), (0, self.cfg.n_var - data_host.shape[1])))
+        return data_host
+
     def fit(self, state: TrainState, data_host: np.ndarray, epochs: int,
             seed: int, verbose: bool = False, log_fn=None,
             start_epoch: int = 0):
         """Train for `epochs` epochs (indices start_epoch ..); returns
         (state, list of EpochMetrics of floats). Epoch e uses the generator
         `epoch_generator(seed, e)`. The data is read from the device once
-        per epoch when `verbose` or `log_fn` asks for it, else once."""
+        per epoch when `verbose` or `log_fn` asks for it, else once. Data
+        past `stream_bytes` is streamed from the host."""
         if epochs <= 0:
             return state, []
-        data_host = np.asarray(data_host)
-        if data_host.shape[1] < self.cfg.n_var:    # padded variable axis:
-            data_host = np.pad(                    # append zero columns
-                data_host,
-                ((0, 0), (0, self.cfg.n_var - data_host.shape[1])))
-        if data_host.nbytes > self.stream_bytes:
-            raise NotImplementedError(
-                f'a dataset of {data_host.nbytes} bytes needs streaming '
-                f'epochs (past stream_bytes={self.stream_bytes}), which '
-                f'are not ported yet: ROADMAP.md A5, streaming epochs')
-        data = torch.as_tensor(data_host, dtype=getattr(torch,
-                                                        self.cfg.dtype),
-                               device=self.device)
+        data_host = self._padded_data(data_host)
+        streamed = data_host.nbytes > self.stream_bytes
+        if streamed:
+            data = np.ascontiguousarray(data_host, dtype=self.cfg.dtype)
+            run = self._run_epoch_streamed
+        else:
+            data = torch.as_tensor(data_host,
+                                   dtype=getattr(torch, self.cfg.dtype),
+                                   device=self.device)
+            run = self.run_epoch
         logged = verbose or log_fn is not None
         history, pending = [], []
         for epoch in range(start_epoch, start_epoch + epochs):
-            state, m = self.run_epoch(state, data,
-                                      self.epoch_generator(seed, epoch))
+            state, m = run(state, data, self.epoch_generator(seed, epoch))
             if not logged:
                 pending.append(m)
                 continue
             m_host = EpochMetrics(*m.tolist())
             history.append(m_host)
             if verbose:
-                print(f'epoch {epoch + 1}/{start_epoch + epochs} '
+                print(f'epoch {epoch + 1}/{start_epoch + epochs}'
+                      f'{" (streamed)" if streamed else ""} '
                       f'loss={m_host.loss:.6f} mse={m_host.mse:.6f} '
                       f'mae={m_host.mae:.6f} ppl={m_host.perplexity:.1f}')
             if log_fn is not None:
@@ -285,13 +481,37 @@ class Trainer:
                        for row in torch.stack(pending).tolist()]
         return state, history
 
-    # ------------------------------------------------ not ported yet --
-    def fit_packed(self, *args, **kwargs):
-        raise NotImplementedError(
-            "packed-seed training is not ported yet: ROADMAP.md A6, "
-            "packed seeds")
+    # --------------------------------------------------- packed seeds --
+    def init_states_packed(self, seeds: Sequence[Union[int,
+                                                       torch.Generator]]
+                           ) -> TrainState:
+        """S states, one per int seed or generator of `seeds` (as
+        `init_state`), stacked leaf by leaf: every tensor gains a leading
+        seed axis."""
+        return _map_state(lambda *leaves: torch.stack(leaves),
+                          *(self.init_state(s) for s in seeds))
 
-    def init_states_packed(self, *args, **kwargs):
-        raise NotImplementedError(
-            "packed-seed training is not ported yet: ROADMAP.md A6, "
-            "packed seeds")
+    def fit_packed(self, states: TrainState, data_host: np.ndarray,
+                   epochs: int, seeds: Sequence[int], start_epoch: int = 0):
+        """Train S packed seeds for `epochs` epochs, seed s with the epoch
+        generators of seeds[s] (as `fit`, so start_epoch composes); returns
+        (states, EpochMetrics of [S, epochs] numpy arrays), read once. The
+        data is placed on the device: packed runs do not stream."""
+        if epochs <= 0:
+            return states, None
+        data = torch.as_tensor(self._padded_data(data_host),
+                               dtype=getattr(torch, self.cfg.dtype),
+                               device=self.device)
+        ms = []
+        for epoch in range(start_epoch, start_epoch + epochs):
+            states, m = self.run_epoch_packed(
+                states, data, [self.epoch_generator(s, epoch) for s in seeds])
+            ms.append(m)
+        ms = torch.stack(ms, 1).cpu().numpy()            # [S, epochs, 4]
+        return states, EpochMetrics(*np.moveaxis(ms, -1, 0))
+
+    @staticmethod
+    def unpack_seed(states: TrainState, s: int) -> TrainState:
+        """Seed s's state out of a packed one, in new tensors (later packed
+        steps leave it alone)."""
+        return _map_state(lambda leaf: leaf[s].clone(), states)

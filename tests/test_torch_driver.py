@@ -262,8 +262,8 @@ def test_mix_cmll_wiring_and_the_servable_mix(tmp_path, monkeypatch):
     (dict(resume='m.ckpt', checkpoint='m.ckpt', cmll=True,
           adam_impl='fused_bf16'), []),
     (dict(mesh_model=2), ['A11']), (dict(mesh_data=2), ['A11']),
-    (dict(compute_dtype='bf16'), ['A4']),
-    (dict(mesh_data=2, compute_dtype='bf16', cmll=True), ['A11', 'A4'])])
+    (dict(compute_dtype='bf16', packed_seeds=3), []),    # ported since
+    (dict(mesh_data=2, compute_dtype='bf16', cmll=True), ['A11'])])
 def test_unported_names_only_a_mesh_and_bf16_compute(fields, left):
     got = unported(TExp(name='nltcs', embedding=5, dim=3, **fields))
     assert [m.split('ROADMAP.md ')[1].split(',')[0] for m in got] == left

@@ -2,7 +2,7 @@
 imports the JAX side (nor msgpack or ml_dtypes, which the card's machine
 lacks), it runs on CUDA unless told otherwise, its kernel wrappers take the
 plain versions only for CPU tensors, a missing nvcc is a clear error, and
-features not ported yet refuse to run."""
+features not ported yet (a mesh, --profile) refuse to run."""
 
 import os
 import pkgutil
@@ -65,8 +65,8 @@ def test_port_imports_without_jax_side():
     assert int(out.stdout.strip()) == len(_port_modules()) >= 21
     assert {'pgmvae_tpu_torch.' + m for m in (
         'ops._build', 'ops.fused_adam', 'train', 'driver', 'run',
-        'utils.logging', 'checkpoint', 'utils.msgpack', 'gibbs')} <= set(
-            _port_modules())
+        'utils.logging', 'checkpoint', 'utils.msgpack', 'gibbs',
+        'run_pipeline', '_cell_runner')} <= set(_port_modules())
 
 
 def test_no_import_line_names_the_jax_side():
@@ -124,6 +124,12 @@ def test_wrapper_rejects_what_the_kernel_does_not_take(z_shape, w_shape,
     with pytest.raises(ValueError, match=match):
         cuda_vq.vq_codes_fused(torch.zeros(z_shape, dtype=dtype),
                                torch.zeros(w_shape, dtype=dtype))
+
+
+def test_wrapper_refuses_mixed_input_types():
+    with pytest.raises(ValueError, match='the same for z and codebook'):
+        cuda_vq.vq_codes_fused(torch.zeros((2, 3, 4)),
+                               torch.zeros((2, 4, 5), dtype=torch.bfloat16))
 
 
 def test_wrapper_refuses_devices_it_has_no_kernel_for():
@@ -188,24 +194,29 @@ def test_adam_on_cpu_tensors_launches_nothing():
 
 @pytest.mark.parametrize('kind', ['bf16'])
 def test_trainer_refuses_what_is_not_ported(kind):
-    cfg = CFG._replace(compute_dtype=kind)
-    with pytest.raises(NotImplementedError, match='ROADMAP.md A4'):
-        Trainer(cfg, 0.01, 8, 40, device='cpu')
+    """The trainer refuses an unknown adam_impl or compute_dtype; bf16
+    compute, packed seeds and streamed data, refused before they were
+    ported, now construct and run a step."""
     with pytest.raises(ValueError, match='unknown adam_impl'):
         Trainer(CFG, 0.01, 8, 40, adam_impl='sgd', device='cpu')
-    tr = Trainer(CFG, 0.01, 8, 40, device='cpu')
-    with pytest.raises(NotImplementedError, match='packed'):
-        tr.fit_packed(None, None, 1, None)
-    y = np.zeros((40, 6), np.float32)
-    tr.stream_bytes = y.nbytes - 1
-    with pytest.raises(NotImplementedError, match='streaming'):
-        tr.fit(tr.init_state(0), y, 1, seed=0)
+    with pytest.raises(ValueError, match='unknown compute_dtype'):
+        Trainer(CFG._replace(compute_dtype='fp8'), 0.01, 8, 40,
+                device='cpu')
+    y = np.random.default_rng(0).integers(0, 2, (8, 6)).astype(np.float32)
+    tr = Trainer(CFG._replace(compute_dtype=kind), 0.01, 8, 8, device='cpu')
+    state, hist = tr.fit(tr.init_state(0), y, 1, seed=0)
+    assert int(state.step) == 1 and np.isfinite(hist[0].loss)
+    states, ms = tr.fit_packed(tr.init_states_packed([0, 1]), y, 1, [0, 1])
+    assert states.step.tolist() == [1, 1] and np.isfinite(ms.loss).all()
+    streamed = Trainer(CFG, 0.01, 8, 8, stream_bytes=y.nbytes - 1,
+                       device='cpu')
+    state, hist = streamed.fit(streamed.init_state(0), y, 1, seed=0)
+    assert int(state.step) == 1 and np.isfinite(hist[0].loss)
 
 
 UNPORTED = [
     (['--mesh-model', '2'], dict(mesh_model=2), 'A11'),
     (['--mesh-data', '2'], dict(mesh_data=2), 'A11'),
-    (['--compute-dtype', 'bf16'], dict(compute_dtype='bf16'), 'A4'),
 ]
 
 
