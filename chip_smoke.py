@@ -13,19 +13,24 @@ main paths (timed by CUDA events over back-to-back calls, `ms`, and by the
 profiler's device time of the kernels alone, `device_ms`, or where the
 profiler sees none by events around calls queued behind a sleep on the
 device), and drives the system's paths, each with the kernels' launch
-counts set to 0 just before it and read just after: at the full width of
-the bbc model the serving slice (stage-2 CPT/PLL and PgmModel), stage-1
-training (Trainer.fit, 14 steps) and a Gibbs CMLL of the trained model
-(2,100 steps, held against a chain through the plain version); at the width
-of the kdd sweep (K=4096) 200 train steps, a stage-2 CPT and the test
-split's PLL, a checkpoint's round trip (save, load, serve, resume) and the
-driver's own CMLL (18,000 steps), the same 200 steps streamed from the
-host (bit-equal to in-core) and packed with three more seeds (S=4), and the
-sweep runner's packed command on those seeds and rows on disk; bf16
-compute at bbc width (14 steps); then the command line end to end on
-nltcs-shaped data, with a checkpoint, CMLL, a resume, bfloat16 Adam moments
-and bf16 compute, and the sweep runner (a packed 2x2 grid, its resume and
-an isolated cell). Each phase prints one JSON line; any failed check
+counts set to 0 just before it and read just after. Train epochs, streamed
+chunks and Gibbs segments run as replayed CUDA graphs (a replay counts the
+launches it holds), and each graph path is held bit for bit against the
+eager step loop run from the same state as the reference only. At the full
+width of the bbc model: the serving slice (stage-2 CPT/PLL and PgmModel),
+stage-1 training (Trainer.fit, 14 steps) and a Gibbs CMLL of the trained
+model (2,100 steps, held against a chain through the plain version); at
+the width of the kdd sweep (K=4096) 200 train steps, a stage-2 CPT and the
+test split's PLL, a checkpoint's round trip (save, load, serve, resume)
+and `driver.py`'s own CMLL (18,000 steps), the same 200 steps streamed
+from the host (bit-equal to in-core) and packed with three more seeds
+(S=4), the sweep runner's packed command on those seeds and rows on disk,
+`run_epochs`/`run_epochs_packed` over 3 epochs (bit-equal to
+`fit`/`fit_packed`) and one full kdd epoch (5,628 steps); bf16 compute at
+bbc width (14 steps); then the command line end to end on nltcs-shaped
+data, with a checkpoint, CMLL, a resume, bfloat16 Adam moments, bf16
+compute and --profile, and the sweep runner (a packed 2x2 grid, its resume
+and an isolated cell). Each phase prints one JSON line; any failed check
 raises, so the script exits non-zero. The last three lines are the kernel
 summary, the card's name and power limit as nvidia-smi gives them, and
 `{"ok": true, "device": {...}}`.
@@ -35,6 +40,7 @@ Without a CUDA device it exits non-zero and prints no result.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import re
@@ -91,6 +97,7 @@ KDD_CMLL_ROWS = 1024
 RESUME_STEPS = 20
 PACKED_SEEDS = (5, 6, 7, 8)       # packed_kdd: the kdd seed and three more
 STREAM_CHUNK_STEPS = 64           # stream_kdd: 200 steps in 64, 64, 64, 8
+RUN_EPOCHS = 3                    # run_epochs: kdd epochs a call
 
 
 def emit(phase: str, **fields) -> None:
@@ -762,11 +769,17 @@ def _kernel_vs_plain_step(tr, state, yb, w):
     return adam_abs, rel, flips, gap
 
 
+def _bbc_init(trainer):
+    return trainer.init_state(torch.Generator(device='cuda').manual_seed(SEED))
+
+
 def phase_train():
     """Stage-1 training at bbc width through both kernels: Trainer.fit for 2
-    epochs (14 steps, the last one ragged) with adam_impl='pallas', counted;
-    a kernel step against a plain step; stage-2 PLLs of the trained model;
-    a profile of one warm step."""
+    epochs (14 steps, the last one ragged, restarts at 0.25) with
+    adam_impl='pallas', its epochs replayed as a CUDA graph, counted; held
+    bit-equal to the eager loop from the same init; a kernel step against a
+    plain step; stage-2 PLLs of the trained model; profiles of one warm
+    eager step and of one replayed epoch."""
     from pgmvae_tpu_torch.models import vqvae
     from pgmvae_tpu_torch.ops import cuda_vq, fused_adam
     from pgmvae_tpu_torch.stage2 import Stage2
@@ -776,10 +789,9 @@ def phase_train():
     splits = _bbc_like_splits(cfg.n_var)
     y = splits['train']
     tr = Trainer(cfg, LR, 250, y.shape[0], adam_impl='pallas')
-    state = tr.init_state(torch.Generator(device='cuda').manual_seed(SEED))
+    state = _bbc_init(tr)
     n_leaves = len(vqvae.param_leaves(state.params))
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
+    mark = _memory_mark()
     ends = []
 
     def log_fn(epoch, m):            # called after the epoch's host read
@@ -793,7 +805,7 @@ def phase_train():
     fit_seconds = time.time() - t0
     launches = {'vq_argmin': cuda_vq.LAUNCHES, 'adam': fused_adam.LAUNCHES}
     # ---- end of the counted run
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    memory = _memory_since(mark)
 
     steps = 2 * tr.steps_per_epoch
     assert tr.steps_per_epoch == 7 and steps == 14, tr.steps_per_epoch
@@ -801,7 +813,16 @@ def phase_train():
         and n_leaves == 20, launches
     assert all(np.isfinite(list(m)).all() for m in hist), hist
     assert hist[1].loss < hist[0].loss, hist
+    graph = tr.graph_stats['epoch']
+    assert graph['replays'] == steps - 1, graph
     warm_s = ends[1] - ends[0]
+    eager_ends = []
+    hold = _hold_eager(
+        tr, _bbc_init,
+        lambda t, st: t.fit(st, y, 2, seed=SEED,
+                            log_fn=lambda e, m: eager_ends.append(
+                                time.time()))[0], state, 'bbc f32')
+    eager_warm_s = eager_ends[1] - eager_ends[0]
     yb = torch.from_numpy(y[:250]).cuda()
     w = torch.ones(250, device='cuda')
     adam_abs, rel, flips, gap = _kernel_vs_plain_step(tr, state, yb, w)
@@ -809,7 +830,7 @@ def phase_train():
     cb = tr.codebook(state)
     dist, pll, secs = _stage2_plls(Stage2(cfg), state.params, cb, splits)
     assert all(np.isfinite(v) and v < 0 for v in pll.values()), pll
-    # the trained model for the CMLL phase (the profile below steps on)
+    # the trained model for the CMLL phase (the profiles below step on)
     trained = dict(cfg=cfg, params=vqvae.map_params(torch.clone,
                                                     state.params),
                    codebook=cb.clone(), dist=dist, y_test=splits['test'],
@@ -825,52 +846,167 @@ def phase_train():
          warm_epoch_seconds=warm_s,
          warm_steps_per_s=tr.steps_per_epoch / warm_s,
          warm_samples_per_s=y.shape[0] / warm_s,
-         peak_memory_gb=peak_gb, adam_kernel_vs_plain_step_max_abs=adam_abs,
+         eager_warm_steps_per_s=tr.steps_per_epoch / eager_warm_s,
+         capture_ms=graph['capture_ms'], graph_replays=graph['replays'],
+         memory_graphs=memory, **hold,
+         peak_memory_gb=memory['peak_allocated_gb'],
+         adam_kernel_vs_plain_step_max_abs=adam_abs,
          all_kernels_vs_plain_step_max_rel=rel, step_code_flips=flips,
          step_flip_gap=gap, pll_trained=pll, stage2_seconds=secs)
     trained['step'] = profile_run('profile_train_step',
                                   lambda: tr.train_step(state, yb, w),
                                   top=10, watch=VQ_NAMES)
+    _profile_epoch_graph('profile_train_epoch_graph', tr, state, y)
     return launches, adam_abs, gap, trained
+
+
+def _profile_epoch_graph(phase: str, tr, state, y, seeds=None) -> dict:
+    """A profile of one replayed epoch (its graph captured by a warm call
+    first): the device's busy share under graphs. `seeds` profiles a packed
+    epoch. The graphs are released after it."""
+    data = torch.as_tensor(y, device='cuda')
+
+    def epoch():
+        if seeds is None:
+            tr.run_epoch(state, data, tr.epoch_generator(SEED, 0))
+        else:
+            tr.run_epoch_packed(state, data, [tr.epoch_generator(s, 0)
+                                              for s in seeds])
+    fields = profile_run(phase, epoch, top=10, watch=VQ_NAMES)
+    tr.release_graphs()
+    return fields
 
 
 def _kdd_like_splits():
     """Synthetic binary data at kdd's shape (64 columns, 180092/19907/34955
-    rows): independent sparse columns, made with numpy from SEED."""
+    rows), made with numpy from SEED: sparse columns driven by 16 shared
+    latent factors with 2% noise, one loading for all three splits
+    (scripts/synth_kdd.py's rows, whose loading is drawn per split), so
+    that training has structure to learn and stage 2 sees it."""
     from pgmvae_tpu_torch.registry import REGISTRY
     info = REGISTRY['kdd']
     rng = np.random.default_rng(SEED)
-    rate = rng.beta(0.5, 8.0, size=info.n_var)
-    return {split: (rng.random((rows, info.n_var)) < rate).astype(np.float32)
-            for split, rows in (('train', info.n_train),
-                                ('valid', info.n_valid),
-                                ('test', info.n_test))}
+    loading = rng.random((16, info.n_var)) < 0.12       # factor -> vars
+
+    def rows(n):
+        z = rng.random((n, 16)) < 0.2                   # active factors
+        y = (z.astype(np.uint8) @ loading.astype(np.uint8)) > 0
+        noise = rng.random((n, info.n_var)) < 0.02
+        return (y ^ noise).astype(np.float32)
+    return {split: rows(n) for split, n in (('train', info.n_train),
+                                            ('valid', info.n_valid),
+                                            ('test', info.n_test))}
+
+
+@contextlib.contextmanager
+def _uncounted():
+    """Kernel launches in the block are comparisons, not the main path:
+    the counters are put back after it."""
+    from pgmvae_tpu_torch import graphs
+    before = graphs.launch_counts()
+    try:
+        yield
+    finally:
+        graphs.add_launches([b - a for a, b in
+                             zip(graphs.launch_counts(), before)])
+
+
+def _eager_twin(tr):
+    """A Trainer like `tr` that runs the eager step loop (no graphs): the
+    reference each graph path is held against."""
+    from pgmvae_tpu_torch.train import Trainer
+    return Trainer(tr.cfg, tr.learning_rate, tr.batch_size, tr.n_train,
+                   adam_eps=tr.adam_eps, stream_bytes=tr.stream_bytes,
+                   stream_chunk_bytes=tr.stream_chunk_bytes,
+                   adam_impl=tr.adam_impl, graphs=False)
+
+
+def _assert_bit_equal(a, b, what: str) -> int:
+    """Every tensor of two port TrainStates equal bit for bit (same dtype);
+    returns the number of leaves, else fails with the largest gap."""
+    pairs = list(zip(_state_leaves(a), _state_leaves(b), strict=True))
+    bad = [(i, float((x.double() - y.double()).abs().max()))
+           for i, (x, y) in enumerate(pairs)
+           if x.dtype != y.dtype or not torch.equal(x, y)]
+    assert not bad, (what, 'leaves differ (index, max abs gap)', bad[:8])
+    return len(pairs)
+
+
+def _memory_mark():
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    return torch.cuda.memory_allocated(), torch.cuda.memory_reserved()
+
+
+def _memory_since(mark) -> dict:
+    """Peak allocated and reserved device memory over a run (GB), and
+    their growth over what was held when `_memory_mark` was taken."""
+    torch.cuda.synchronize()
+    alloc, reserved = (torch.cuda.max_memory_allocated(),
+                       torch.cuda.max_memory_reserved())
+    return {'peak_allocated_gb': alloc / 1e9,
+            'peak_reserved_gb': reserved / 1e9,
+            'allocated_growth_gb': (alloc - mark[0]) / 1e9,
+            'reserved_growth_gb': (reserved - mark[1]) / 1e9}
+
+
+def _hold_eager(tr, init, fit, graph_state, what: str) -> dict:
+    """The eager loop from the same init as a graph run (`fit(trainer,
+    state)`), uncounted: every leaf must be bit-equal to `graph_state`.
+    Returns the leaves compared, the eager run's seconds and memory."""
+    eager = _eager_twin(tr)
+    state = init(eager)
+    mark = _memory_mark()
+    with _uncounted():
+        t0 = time.time()
+        state = fit(eager, state)
+        torch.cuda.synchronize()
+        seconds = time.time() - t0
+    memory = _memory_since(mark)
+    leaves = _assert_bit_equal(graph_state, state, what)
+    return {'bit_equal_leaves': leaves, 'eager_seconds': seconds,
+            'eager_memory': memory}
+
+
+def _kdd_config():
+    from pgmvae_tpu_torch.models import vqvae
+    from pgmvae_tpu_torch.registry import REGISTRY
+    info = REGISTRY['kdd']
+    return vqvae.VqVaeConfig(n_var=info.n_var, units=info.units, dim=10,
+                             num_codes=4096, cost=KDD_COST, quantizer='ema')
+
+
+def _kdd_init(trainer):
+    return trainer.init_state(KDD_SEED)    # drawn on the CPU, as driver.py
 
 
 def phase_train_kdd():
     """The kdd sweep's cell at its full width (n_var 64, units 50_40_30_20,
     D=10, K=4096, EMA, batch 32) through both kernels, cut to one epoch of
-    200 steps over the first KDD_ROWS rows, a stage-2 CPT on those rows and
-    the PLL of the whole test split; each part counted. Then a kernel step
-    against a plain step, the test PLL against a run through the plain
-    version, and a profile of one warm step."""
+    200 steps (replayed as a graph) over the first KDD_ROWS rows, a stage-2
+    CPT on those rows and the PLL of the whole test split; each part
+    counted. The epoch is held bit-equal to the eager loop, and the test
+    PLL must rise above the initial model's. Then a kernel step against a
+    plain step, the test PLL against a run through the plain version, and
+    profiles of one warm eager step and of one replayed epoch."""
     from pgmvae_tpu_torch.models import vqvae
     from pgmvae_tpu_torch.ops import cuda_vq, fused_adam
-    from pgmvae_tpu_torch.registry import REGISTRY
     from pgmvae_tpu_torch.stage2 import Stage2
     from pgmvae_tpu_torch.train import Trainer, copy_state
 
-    info = REGISTRY['kdd']
-    cfg = vqvae.VqVaeConfig(n_var=info.n_var, units=info.units, dim=10,
-                            num_codes=4096, cost=KDD_COST, quantizer='ema')
+    cfg = _kdd_config()
     splits = _kdd_like_splits()
     y = splits['train'][:KDD_ROWS]
     y_test = splits['test']
     tr = Trainer(cfg, KDD_LR, KDD_BATCH, y.shape[0], adam_impl='pallas')
-    state = tr.init_state(KDD_SEED)     # drawn on the CPU, as the driver's
+    state = _kdd_init(tr)
     n_leaves = len(vqvae.param_leaves(state.params))
     s2 = Stage2(cfg)
-    torch.cuda.synchronize()
+    with _uncounted():                 # the initial model's test PLL
+        pll_init = s2.pseudo_log_likelihood(
+            state.params, tr.codebook(state), y_test,
+            s2.cpt(state.params, tr.codebook(state), y))
+    mark = _memory_mark()
 
     # ---- the training path, counted
     cuda_vq.LAUNCHES = fused_adam.LAUNCHES = 0
@@ -888,6 +1024,7 @@ def phase_train_kdd():
     stage2_seconds = time.time() - t0
     s2_launches = cuda_vq.LAUNCHES
     # ---- end of the counted runs
+    memory = _memory_since(mark)
 
     steps = tr.steps_per_epoch
     chunks = -(-y.shape[0] // s2.chunk) + -(-y_test.shape[0] // s2.chunk)
@@ -898,6 +1035,12 @@ def phase_train_kdd():
     assert s2_launches == chunks, (s2_launches, chunks)
     assert all(np.isfinite(list(m)).all() for m in hist), hist
     assert np.isfinite(pll_test) and pll_test < 0, pll_test
+    # shared-factor data: the trained state shows in stage 2
+    assert pll_test > pll_init, (pll_init, pll_test)
+    graph = tr.graph_stats['epoch']
+    hold = _hold_eager(tr, _kdd_init,
+                       lambda t, st: t.fit(st, y, 1, seed=KDD_SEED)[0],
+                       state, 'kdd')
 
     # the trained state and its CPT for the checkpoint and CMLL phases (the
     # profile below steps on in place)
@@ -924,11 +1067,14 @@ def phase_train_kdd():
                   f'rows (the sweep: 200 epochs over 180092)',
                   f'stage 2: CPT on those {KDD_ROWS} rows and the PLL of '
                   f'the test split only',
-                  'synthetic independent columns, not kdd data'],
+                  'synthetic shared-factor columns, not kdd data'],
          steps=steps, launches=launches, stage2_launches=s2_launches,
          stage2_chunk=s2.chunk, fit_seconds=fit_seconds,
          steps_per_s=steps / fit_seconds, stage2_seconds=stage2_seconds,
+         eager_steps_per_s=steps / hold['eager_seconds'],
+         capture_ms=graph['capture_ms'], memory_graphs=memory, **hold,
          epoch_metrics=[m._asdict() for m in hist], pll_test=pll_test,
+         pll_test_initial=pll_init, pll_move=pll_test - pll_init,
          pll_test_plain_kernel_off=pll_plain,
          adam_kernel_vs_plain_step_max_abs=adam_abs,
          all_kernels_vs_plain_step_max_rel=rel, step_code_flips=flips,
@@ -936,17 +1082,20 @@ def phase_train_kdd():
          stage2_flip_gap=s2_gap)
     profile_run('profile_train_kdd_step',
                 lambda: tr.train_step(state, yb, w), top=10, watch=VQ_NAMES)
+    _profile_epoch_graph('profile_train_kdd_epoch_graph', tr, state, y)
     return ({'train': launches['vq_argmin'], 'stage2': s2_launches,
              'adam': launches['adam']}, max(gap, s2_gap), adam_abs, trained)
 
 
 def phase_train_bf16(f32: dict):
     """bf16 compute at bbc width: the `train` phase's 14 steps (2 epochs,
-    from its seed) with compute_dtype='bf16', counted: every step's
-    nearest-code search goes to the kernel's bfloat16 instance and none to
-    the float32 one. Masters, moments and EMA state stay float32, the loss
-    falls and ends within 10% of the float32 run's (the JAX package's sanity
-    band, tests/test_compute_dtype.py). Then a profile of one warm step."""
+    from its seed, replayed as a graph) with compute_dtype='bf16', counted:
+    every step's nearest-code search goes to the kernel's bfloat16 instance
+    and none to the float32 one. Held bit-equal to the eager loop. Masters,
+    moments and EMA state stay float32, the loss falls and ends within 10%
+    of the float32 run's (the JAX package's sanity band,
+    tests/test_compute_dtype.py). Then profiles of one warm eager step and
+    of one replayed epoch."""
     from pgmvae_tpu_torch.models import vqvae
     from pgmvae_tpu_torch.ops import cuda_vq, fused_adam
     from pgmvae_tpu_torch.train import Trainer
@@ -954,9 +1103,8 @@ def phase_train_bf16(f32: dict):
     cfg = _bbc_train_config()._replace(compute_dtype='bf16')
     y = _bbc_like_splits(cfg.n_var)['train']
     tr = Trainer(cfg, LR, 250, y.shape[0], adam_impl='pallas')
-    state = tr.init_state(torch.Generator(device='cuda').manual_seed(SEED))
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
+    state = _bbc_init(tr)
+    mark = _memory_mark()
     ends = []
 
     def log_fn(epoch, m):
@@ -972,7 +1120,7 @@ def phase_train_bf16(f32: dict):
                 'vq_argmin_bf16': cuda_vq.LAUNCHES_BF16,
                 'adam': fused_adam.LAUNCHES}
     # ---- end of the counted run
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    memory = _memory_since(mark)
 
     assert launches == {'vq_argmin': 0, 'vq_argmin_bf16': 14,
                         'adam': 280}, launches
@@ -985,26 +1133,36 @@ def phase_train_bf16(f32: dict):
     rel = abs(hist[-1].loss - f32['final_loss']) / abs(f32['final_loss'])
     assert rel < 0.1, (hist[-1].loss, f32['final_loss'])
     warm_s = ends[1] - ends[0]
+    graph = tr.graph_stats['epoch']
+    hold = _hold_eager(tr, _bbc_init,
+                       lambda t, st: t.fit(st, y, 2, seed=SEED)[0], state,
+                       'bbc bf16')
     yb = torch.from_numpy(y[:250]).cuda()
     w = torch.ones(250, device='cuda')
     step = profile_run('profile_train_bf16_step',
                        lambda: tr.train_step(state, yb, w), top=10,
                        watch=VQ_NAMES)
+    replayed = _profile_epoch_graph('profile_train_bf16_epoch_graph', tr,
+                                    state, y)
     emit('train_bf16', compute_dtype='bf16', steps=14, launches=launches,
          fit_seconds=fit_seconds, warm_epoch_seconds=warm_s,
          warm_steps_per_s=tr.steps_per_epoch / warm_s,
          epoch_metrics=[m._asdict() for m in hist],
          final_loss_f32=f32['final_loss'], final_loss_rel_gap=rel,
-         peak_memory_gb=peak_gb, step_device_ms=step.get('device_ms'),
-         f32_step_device_ms=f32['step'].get('device_ms'))
+         capture_ms=graph['capture_ms'], memory_graphs=memory, **hold,
+         peak_memory_gb=memory['peak_allocated_gb'],
+         step_device_ms=step.get('device_ms'),
+         f32_step_device_ms=f32['step'].get('device_ms'),
+         busy_share_graph=replayed.get('busy_share'))
     return launches
 
 
 def phase_stream_kdd(kdd: dict):
     """The kdd phase's 200 steps again from the same init, streamed from
     the host (stream_bytes=0, chunks of STREAM_CHUNK_STEPS steps, the last
-    ragged), counted: params, EMA state and moments must be bit-equal to the
-    in-core `train_kdd` result. Then in-core and streamed fits in turns for
+    ragged; one chunk graph replayed over a static device chunk buffer),
+    counted: params, EMA state and moments must be bit-equal to the in-core
+    `train_kdd` result. Then in-core, streamed and eager fits in turns for
     steps/s."""
     from pgmvae_tpu_torch.ops import cuda_vq, fused_adam
     from pgmvae_tpu_torch.train import Trainer
@@ -1014,10 +1172,7 @@ def phase_stream_kdd(kdd: dict):
     tr = Trainer(core.cfg, KDD_LR, KDD_BATCH, y.shape[0], stream_bytes=0,
                  stream_chunk_bytes=STREAM_CHUNK_STEPS * row,
                  adam_impl='pallas')
-
-    def init(trainer):
-        return trainer.init_state(KDD_SEED)
-    state = init(tr)
+    state = _kdd_init(tr)
     torch.cuda.synchronize()
     # ---- the main path, counted
     cuda_vq.LAUNCHES = fused_adam.LAUNCHES = 0
@@ -1029,23 +1184,27 @@ def phase_stream_kdd(kdd: dict):
     # ---- end of the counted run
     n_leaves = 4 * (len(core.cfg.units) + 1)
     assert launches == {'vq_argmin': 200, 'adam': 200 * n_leaves}, launches
-    pairs = list(zip(_state_leaves(state), _state_leaves(ref)))
-    assert all(a.dtype == b.dtype and torch.equal(a, b) for a, b in pairs)
-    turns = {'in_core': [], 'streamed': []}
-    for name in ('in_core', 'streamed', 'streamed', 'in_core'):
-        trainer = core if name == 'in_core' else tr
-        st = init(trainer)
-        torch.cuda.synchronize()
-        t0 = time.time()
-        trainer.fit(st, y, 1, seed=KDD_SEED)
-        torch.cuda.synchronize()
-        turns[name].append(200 / (time.time() - t0))
+    leaves = _assert_bit_equal(state, ref, 'streamed vs in-core')
+    graph = tr.graph_stats['chunk']
+    turns = {'in_core': [], 'streamed': [], 'eager': []}
+    trainers = {'in_core': core, 'streamed': tr, 'eager': _eager_twin(core)}
+    with _uncounted():
+        for name in ('in_core', 'streamed', 'eager', 'eager', 'streamed',
+                     'in_core'):
+            trainer = trainers[name]
+            st = _kdd_init(trainer)
+            torch.cuda.synchronize()
+            t0 = time.time()
+            trainer.fit(st, y, 1, seed=KDD_SEED)
+            torch.cuda.synchronize()
+            turns[name].append(200 / (time.time() - t0))
     emit('stream_kdd', chunk_steps=STREAM_CHUNK_STEPS,
          chunk_bytes=STREAM_CHUNK_STEPS * row,
          chunks=[min(STREAM_CHUNK_STEPS, 200 - c)
                  for c in range(0, 200, STREAM_CHUNK_STEPS)],
-         launches=launches, bit_equal_leaves=len(pairs), seconds=seconds,
-         steps_per_s=200 / seconds, steps_per_s_in_turns=turns)
+         launches=launches, bit_equal_leaves=leaves, seconds=seconds,
+         steps_per_s=200 / seconds, capture_ms=graph['capture_ms'],
+         graph_replays=graph['replays'], steps_per_s_in_turns=turns)
     return launches, turns
 
 
@@ -1054,9 +1213,11 @@ def phase_packed_kdd(kdd: dict, turns: dict):
     phase's rows: one packed step against an unpacked step of each seed
     from the same init (every leaf within 1e-6 of its largest magnitude,
     unless a code flips, and then only on a float64-proven near-tie); then
-    200 packed steps, counted (one nearest-code launch and one Adam launch
-    a leaf per step for all four seeds), and the kdd seed's test PLL within
-    0.1 nat of `train_kdd`'s. Then a profile of one warm packed step."""
+    200 packed steps replayed as a graph, counted (one nearest-code launch
+    and one Adam launch a leaf per step for all four seeds) and held
+    bit-equal to the eager loop, and the kdd seed's test PLL within 0.1 nat
+    of `train_kdd`'s. Then profiles of one warm eager packed step and of
+    one replayed packed epoch."""
     from pgmvae_tpu_torch.models import vqvae
     from pgmvae_tpu_torch.ops import cuda_vq, fused_adam
     from pgmvae_tpu_torch.stage2 import Stage2
@@ -1102,7 +1263,7 @@ def phase_packed_kdd(kdd: dict, turns: dict):
     del packed1, z_packed
 
     states = init()
-    torch.cuda.synchronize()
+    mark = _memory_mark()
     # ---- the main path, counted
     cuda_vq.LAUNCHES = cuda_vq.LAUNCHES_BF16 = fused_adam.LAUNCHES = 0
     t0 = time.time()
@@ -1110,9 +1271,14 @@ def phase_packed_kdd(kdd: dict, turns: dict):
     seconds = time.time() - t0
     launches = {'vq_argmin': cuda_vq.LAUNCHES, 'adam': fused_adam.LAUNCHES}
     # ---- end of the counted run
+    memory = _memory_since(mark)
     n_leaves = 4 * (len(tr.cfg.units) + 1)
     assert launches == {'vq_argmin': 200, 'adam': 200 * n_leaves}, launches
     assert np.isfinite(ms.loss).all(), ms
+    graph = tr.graph_stats['packed']
+    hold = _hold_eager(
+        tr, lambda t: t.init_states_packed(seeds),
+        lambda t, st: t.fit_packed(st, y, 1, seeds)[0], states, 'packed')
     st = tr.unpack_seed(states, 0)
     cb = tr.codebook(st)
     s2 = Stage2(tr.cfg)
@@ -1125,6 +1291,8 @@ def phase_packed_kdd(kdd: dict, turns: dict):
     step = profile_run('profile_packed_kdd_step',
                        lambda: tr.train_step_packed(states, yb, w), top=10,
                        watch=VQ_NAMES)
+    replayed = _profile_epoch_graph('profile_packed_kdd_epoch_graph', tr,
+                                    states, y, seeds)
     emit('packed_kdd', seeds=seeds, steps=200, launches=launches,
          seconds=seconds, step_code_flips_by_seed=flips,
          step_flip_gap=flip_gap, step_max_rel_gap_by_seed=step_gaps,
@@ -1135,7 +1303,11 @@ def phase_packed_kdd(kdd: dict, turns: dict):
          samples_per_s_unpacked_in_turns=unpacked_sps,
          samples_per_s_train_kdd=y.shape[0] / kdd['fit_seconds'],
          speedup_vs_in_turns=packed_sps / max(unpacked_sps),
-         busy_share=step.get('busy_share'))
+         eager_samples_per_s_packed=n_seeds * y.shape[0]
+         / hold['eager_seconds'],
+         capture_ms=graph['capture_ms'], memory_graphs=memory, **hold,
+         busy_share_eager_step=step.get('busy_share'),
+         busy_share_graph=replayed.get('busy_share'))
     return launches, flip_gap, pll
 
 
@@ -1157,27 +1329,27 @@ def _uniforms(chain, steps: int, seed: int) -> torch.Tensor:
 
 
 def _gibbs_hold(model: dict, p1: int, steps: int):
-    """Two chains from the same state and the same uniforms for `steps`
-    steps, one through the kernel and one through its plain version (burn-in
-    0, so every step after the first counts). Their counts must be equal;
-    else the first step at which the chains part must be a code flip that
-    is a float64-proven near-tie. Returns (equal, first parting step or
+    """Two eager chains from the same state and the same uniforms for
+    `steps` steps, one through the kernel and one through its plain version
+    (burn-in 0, so every step after the first counts). Their counts must be
+    equal; else the first step at which the chains part must be a code flip
+    that is a float64-proven near-tie. Returns (equal, first parting step or
     None, code flips there, their largest gap). Not counted."""
     from pgmvae_tpu_torch import gibbs
     from pgmvae_tpu_torch.models import vqvae
     from pgmvae_tpu_torch.ops import cuda_vq
     args = (model['params'], model['codebook'], model['cfg'], model['dist'],
             model['y_test'], p1, 0)
-    ker, plain = gibbs.GibbsChain(*args), gibbs.GibbsChain(*args)
+    ker = gibbs.GibbsChain(*args, graphs=False)
+    plain = gibbs.GibbsChain(*args, graphs=False)
     us = _uniforms(ker, steps, SEED + 1)
-    launches = cuda_vq.LAUNCHES
-    try:
+    with _uncounted():
         for i in range(steps):
             before = ker.state.clone()
-            ker.step(i, us[i])
+            ker.run(i, 1, us.__getitem__)
             with mock.patch.object(cuda_vq, 'vq_codes_fused',
                                    cuda_vq.vq_codes_plain):
-                plain.step(i, us[i])
+                plain.run(i, 1, us.__getitem__)
             if torch.equal(ker.state, plain.state):
                 continue
             # the step's codes both ways, from the state before it
@@ -1190,18 +1362,48 @@ def _gibbs_hold(model: dict, p1: int, steps: int):
                                        cuda_vq.vq_codes_plain(z, cb))
             assert flips > 0, ('the chains parted without a code flip', i)
             return False, i, flips, gap
-    finally:
-        cuda_vq.LAUNCHES = launches
     assert torch.equal(ker.counts, plain.counts)
     return True, None, 0, 0.0
 
 
+def _gibbs_graph_hold(params, codebook, cfg, dist, x, p1: int, steps: int,
+                      seed: int) -> dict:
+    """A chain replayed as a graph against the eager chain, from the same
+    state with the same uniforms for `steps` steps (burn-in 0): state and
+    counts must be equal. Not counted. Returns the capture time, and the
+    steps/s of a second run of each, in turns."""
+    from pgmvae_tpu_torch import gibbs
+    chains = {name: gibbs.GibbsChain(params, codebook, cfg, dist, x, p1, 0,
+                                     graphs=name == 'graph')
+              for name in ('graph', 'eager')}
+    us = _uniforms(chains['graph'], steps, seed)
+    rates = {'graph': [], 'eager': []}
+    with _uncounted():
+        for chain in chains.values():
+            chain.run(0, steps, us.__getitem__)
+        torch.cuda.synchronize()
+        g, e = chains['graph'], chains['eager']
+        assert torch.equal(g.state, e.state), 'graph vs eager Gibbs state'
+        assert torch.equal(g.counts, e.counts), 'graph vs eager counts'
+        for name in ('graph', 'eager', 'eager', 'graph'):
+            torch.cuda.synchronize()
+            t0 = time.time()
+            chains[name].run(0, steps, us.__getitem__)
+            torch.cuda.synchronize()
+            rates[name].append(steps / (time.time() - t0))
+    capture_ms = chains['graph'].graph.capture_ms
+    chains['graph'].release()
+    return {'graph_hold_steps': steps, 'graph_hold_counts_equal': True,
+            'capture_ms': capture_ms, 'steps_per_s_in_turns': rates}
+
+
 def phase_cmll(model: dict):
     """The Gibbs CMLL of the bbc model that `train` trained, through the
-    public entry point, counted: bbc's test split, the driver's p1 = 105 (11
-    blocks, the last of 8), cut to CMLL_SMP sweeps with burn-in CMLL_BURN.
-    Then the hold against the plain version and a profile of a
-    CMLL_SEGMENT-step segment."""
+    public entry point (its step replayed as a graph), counted: bbc's test
+    split, `driver.py`'s p1 = 105 (11 blocks, the last of 8), cut to
+    CMLL_SMP sweeps with burn-in CMLL_BURN. Then the kernel's hold against
+    the plain version, the graph's hold against the eager chain and a
+    profile of a replayed CMLL_SEGMENT-step segment."""
     from pgmvae_tpu_torch import gibbs
     from pgmvae_tpu_torch.ops import cuda_vq
     cfg, y_test = model['cfg'], model['y_test']
@@ -1223,10 +1425,18 @@ def phase_cmll(model: dict):
     assert p1 == 105 and steps == 2100 and launches == steps, (p1, launches)
     assert np.isfinite(value) and value < 0, value
     equal, first, flips, gap = _gibbs_hold(model, p1, CMLL_HOLD)
+    held = _gibbs_graph_hold(model['params'], model['codebook'], cfg,
+                             model['dist'], y_test, p1, CMLL_HOLD, SEED + 4)
     chain = gibbs.GibbsChain(model['params'], model['codebook'], cfg,
                              model['dist'], y_test, p1, CMLL_BURN)
     assert chain.blocks == 11 and chain.vol_last == 8, chain.blocks
     full = 3000 * p1                    # the driver's 3000 sweeps
+    us = _uniforms(chain, CMLL_SEGMENT, SEED + 2)
+    replayed = profile_run('profile_cmll_segment',
+                           lambda: chain.run(0, CMLL_SEGMENT, us.__getitem__),
+                           top=10,
+                           watch=VQ_NAMES)
+    chain.release()
     emit('cmll', model=dict(n_var=cfg.n_var, units=list(cfg.units),
                             dim=cfg.dim, num_codes=cfg.num_codes),
          rows=int(y_test.shape[0]), p1=p1, blocks=chain.blocks,
@@ -1234,16 +1444,14 @@ def phase_cmll(model: dict):
          steps=steps, launches=launches, cmll=value, seconds=seconds,
          steps_per_s=steps / seconds, full_steps=full,
          full_seconds_extrapolated=full * seconds / steps,
+         uniform_sub_steps=chain.sub_steps,
          hold_steps=CMLL_HOLD, hold_counts_equal=equal,
          hold_first_parting_step=first, hold_code_flips=flips,
-         hold_flip_gap=gap,
+         hold_flip_gap=gap, **held,
+         busy_share_graph=replayed.get('busy_share'),
          reduced=[f'{CMLL_SMP} sweeps with burn-in {CMLL_BURN} (the driver: '
                   f'3000 and 150)', 'the 14-step model of phase train',
                   'synthetic independent columns, not bbc data'])
-    us = _uniforms(chain, CMLL_SEGMENT, SEED + 2)
-    profile_run('profile_cmll_segment',
-                lambda: chain.run(0, CMLL_SEGMENT, us.__getitem__), top=10,
-                watch=VQ_NAMES)
     return launches, gap
 
 
@@ -1335,10 +1543,12 @@ def phase_checkpoint(kdd: dict):
 
 def phase_cmll_kdd(kdd: dict):
     """The driver's own CMLL at the kdd sweep's width on the model
-    `train_kdd` trained, through the public entry point, counted: p1 = 6
-    (11 blocks, the last of 4), 3000 sweeps, burn-in 150, so 18,000 steps,
-    over the first KDD_CMLL_ROWS test rows. Then a profile of one
-    CMLL_SEGMENT-step segment over the whole test split."""
+    `train_kdd` trained, through the public entry point (replayed as a
+    graph), counted: p1 = 6 (11 blocks, the last of 4), 3000 sweeps,
+    burn-in 150, so 18,000 steps, over the first KDD_CMLL_ROWS test rows.
+    Then the graph's hold against the eager chain over those rows, and a
+    replayed CMLL_SEGMENT-step segment over the whole test split, timed
+    and profiled."""
     from pgmvae_tpu_torch import gibbs
     from pgmvae_tpu_torch.ops import cuda_vq
     tr, state = kdd['tr'], kdd['state']
@@ -1362,31 +1572,154 @@ def phase_cmll_kdd(kdd: dict):
     steps = 3000 * p1
     assert p1 == 6 and steps == 18000 and launches == steps, (p1, launches)
     assert np.isfinite(value) and value < 0, value
+    held = _gibbs_graph_hold(state.params, cb, cfg, kdd['dist'], y, p1,
+                             CMLL_HOLD, SEED + 5)
     chain = gibbs.GibbsChain(state.params, cb, cfg, kdd['dist'], y_all, p1,
                              150)
     assert chain.blocks == 11 and chain.vol_last == 4, chain.blocks
     us = _uniforms(chain, CMLL_SEGMENT, SEED + 3)
-    launches_before = cuda_vq.LAUNCHES
-    torch.cuda.synchronize()
-    t0 = time.time()
-    chain.run(0, CMLL_SEGMENT, us.__getitem__)
-    torch.cuda.synchronize()
-    full_s = time.time() - t0
+    with _uncounted():
+        full_s = []
+        for _ in range(2):              # the first run captures the step
+            torch.cuda.synchronize()
+            t0 = time.time()
+            chain.run(0, CMLL_SEGMENT, us.__getitem__)
+            torch.cuda.synchronize()
+            full_s.append(time.time() - t0)
+        replayed = profile_run('profile_cmll_kdd_full_split_segment',
+                               lambda: chain.run(0, CMLL_SEGMENT,
+                                                 us.__getitem__),
+                               top=10, watch=VQ_NAMES)
     emit('cmll_kdd', rows=int(y.shape[0]), p1=p1, blocks=chain.blocks,
          vol_last=chain.vol_last, num_smp=3000, burn_in=150, steps=steps,
          launches=launches, cmll=value, seconds=seconds,
-         steps_per_s=steps / seconds, full_split_rows=int(y_all.shape[0]),
+         steps_per_s=steps / seconds, **held,
+         full_split_rows=int(y_all.shape[0]),
+         full_split_uniform_sub_steps=chain.sub_steps,
          full_split_segment_steps=CMLL_SEGMENT,
-         full_split_segment_seconds=full_s,
-         full_split_steps_per_s=CMLL_SEGMENT / full_s,
+         full_split_segment_seconds=full_s[1],
+         full_split_steps_per_s=CMLL_SEGMENT / full_s[1],
+         full_split_first_run_seconds=full_s[0],
+         full_split_capture_ms=chain.graph.capture_ms,
+         busy_share_graph_full_split=replayed.get('busy_share'),
          reduced=[f'the first {KDD_CMLL_ROWS} of {y_all.shape[0]} test rows '
                   f'(the whole split: one {CMLL_SEGMENT}-step segment, '
                   f'timed)', 'the 200-step model of phase train_kdd',
-                  'synthetic independent columns, not kdd data'])
-    profile_run('profile_cmll_kdd_full_split_segment',
-                lambda: chain.run(0, CMLL_SEGMENT, us.__getitem__), top=10,
-                watch=VQ_NAMES)
-    cuda_vq.LAUNCHES = launches_before      # timing launches are not counted
+                  'synthetic shared-factor columns, not kdd data'])
+    chain.release()
+    return launches
+
+
+def phase_run_epochs(kdd: dict) -> dict:
+    """`run_epochs` and `run_epochs_packed` (the JAX package's public
+    multi-epoch entry points) over RUN_EPOCHS kdd epochs on the device
+    data, each counted, with its metrics read once ([E, 4] and [S, E, 4]);
+    held bit-equal (state and metrics) to `fit` and `fit_packed` from the
+    same init, which are not counted."""
+    from pgmvae_tpu_torch.ops import cuda_vq, fused_adam
+    tr, y = kdd['tr'], kdd['y']
+    seeds = list(PACKED_SEEDS)
+    data = torch.as_tensor(y, device='cuda')
+    n_leaves = 4 * (len(tr.cfg.units) + 1)
+    steps = RUN_EPOCHS * tr.steps_per_epoch
+    out, launches = {}, {}
+    for name in ('run_epochs', 'run_epochs_packed'):
+        packed = name == 'run_epochs_packed'
+        state = tr.init_states_packed(seeds) if packed else _kdd_init(tr)
+        torch.cuda.synchronize()
+        # ---- the main path, counted
+        cuda_vq.LAUNCHES = fused_adam.LAUNCHES = 0
+        t0 = time.time()
+        if packed:
+            state, ms = tr.run_epochs_packed(state, data, seeds, 0,
+                                             RUN_EPOCHS)
+        else:
+            state, ms = tr.run_epochs(state, data, KDD_SEED, 0, RUN_EPOCHS)
+        ms = ms.cpu().numpy()
+        seconds = time.time() - t0
+        launches[name] = {'vq_argmin': cuda_vq.LAUNCHES,
+                          'adam': fused_adam.LAUNCHES}
+        # ---- end of the counted run
+        tr.release_graphs()
+        assert launches[name] == {'vq_argmin': steps,
+                                  'adam': steps * n_leaves}, launches
+        assert ms.shape == ((len(seeds),) if packed else ()) + (
+            RUN_EPOCHS, 4), ms.shape
+        with _uncounted():
+            if packed:
+                ref, hist = tr.fit_packed(tr.init_states_packed(seeds), y,
+                                          RUN_EPOCHS, seeds)
+                ref_ms = np.stack(hist, -1)
+            else:
+                ref, hist = tr.fit(_kdd_init(tr), y, RUN_EPOCHS,
+                                   seed=KDD_SEED)
+                ref_ms = np.array([list(m) for m in hist], np.float32)
+        leaves = _assert_bit_equal(state, ref, name + ' vs fit')
+        assert np.array_equal(ms, ref_ms), (name, ms, ref_ms)
+        out[name] = dict(epochs=RUN_EPOCHS, steps=steps,
+                         launches=launches[name], seconds=seconds,
+                         steps_per_s=steps / seconds,
+                         samples_per_s=(len(seeds) if packed else 1)
+                         * RUN_EPOCHS * y.shape[0] / seconds,
+                         capture_ms=tr.graph_stats[
+                             'packed' if packed else 'epoch']['capture_ms'],
+                         bit_equal_leaves=leaves, metrics_equal=True)
+    emit('run_epochs', **out)
+    return launches
+
+
+def phase_train_kdd_full(splits: dict) -> dict:
+    """One full kdd epoch at realistic size: 180,092 train rows, 5,628
+    steps of batch 32 (K=4096, lr 2e-4, cost 0.35, seed 5) through `fit`'s
+    graph path, counted, on the shared-factor splits; its wall time and
+    steps/s, and the test PLL's move from the initial model's (stage 2 on
+    the whole train split, uncounted)."""
+    from pgmvae_tpu_torch.ops import cuda_vq, fused_adam
+    from pgmvae_tpu_torch.stage2 import Stage2
+    from pgmvae_tpu_torch.train import Trainer
+    cfg = _kdd_config()
+    y, y_test = splits['train'], splits['test']
+    tr = Trainer(cfg, KDD_LR, KDD_BATCH, y.shape[0], adam_impl='pallas')
+    state = _kdd_init(tr)
+    s2 = Stage2(cfg)
+
+    def pll():
+        cb = tr.codebook(state)
+        return s2.pseudo_log_likelihood(state.params, cb, y_test,
+                                        s2.cpt(state.params, cb, y))
+    with _uncounted():
+        pll_init = pll()
+    mark = _memory_mark()
+    # ---- the main path, counted
+    cuda_vq.LAUNCHES = fused_adam.LAUNCHES = 0
+    t0 = time.time()
+    state, hist = tr.fit(state, y, 1, seed=KDD_SEED)
+    torch.cuda.synchronize()
+    seconds = time.time() - t0
+    launches = {'vq_argmin': cuda_vq.LAUNCHES, 'adam': fused_adam.LAUNCHES}
+    # ---- end of the counted run
+    memory = _memory_since(mark)
+    steps = tr.steps_per_epoch
+    n_leaves = 4 * (len(cfg.units) + 1)
+    assert steps == 5628 and launches == {'vq_argmin': steps,
+                                          'adam': steps * n_leaves}, (
+        steps, launches)
+    assert np.isfinite(list(hist[0])).all(), hist
+    with _uncounted():
+        t1 = time.time()
+        pll_after = pll()
+        stage2_seconds = time.time() - t1
+    assert np.isfinite(pll_after) and pll_after > pll_init, (pll_init,
+                                                            pll_after)
+    emit('train_kdd_full', rows=int(y.shape[0]), batch=KDD_BATCH,
+         steps=steps, launches=launches, seconds=seconds,
+         steps_per_s=steps / seconds, samples_per_s=y.shape[0] / seconds,
+         capture_ms=tr.graph_stats['epoch']['capture_ms'],
+         memory_graphs=memory, epoch_metrics=hist[0]._asdict(),
+         pll_test_initial=pll_init, pll_test=pll_after,
+         pll_move=pll_after - pll_init, stage2_seconds=stage2_seconds,
+         reduced=['one epoch of the sweep cell\'s 200',
+                  'synthetic shared-factor columns, not kdd data'])
     return launches
 
 
@@ -1460,8 +1793,9 @@ def phase_cli():
     run counted: the reference run's flags with the Adam kernel for 3
     epochs; the same with --checkpoint and --cmll; --resume from that file
     for 1 epoch; --adam-impl fused_bf16 (the kernel's bfloat16 variant);
-    --compute-dtype bf16 (the nearest-code kernel's bfloat16 instance).
-    Then PgmModel.from_checkpoint serves the file, and the sweep runner
+    --compute-dtype bf16 (the nearest-code kernel's bfloat16 instance);
+    --profile for 1 epoch (its trace read back). Then
+    PgmModel.from_checkpoint serves the file, and the sweep runner
     runs a packed 2x2 grid (pk-2 lines), the same command again (no cell
     runs) and one --isolate cell (in its own process on the card)."""
     from pgmvae_tpu_torch.data.loader import load_split
@@ -1489,6 +1823,24 @@ def phase_cli():
                       (kv.split(':') for kv in rest.split())}
             runs[name] = dict(identifier=ident, result=fields,
                               launches=launches, seconds=seconds)
+        # --profile: a torch.profiler trace of a 1-epoch run in its log
+        # directory (counted like the 1-epoch resume run)
+        rc, lines, prof_launches, prof_s = _cli(
+            tmp, ['-e', '1', '--adam-impl', 'pallas', '--profile'])
+        assert rc == 0 and len(lines) == 1, (rc, lines)
+        with open(os.path.join(tmp, 'logs', 'tuning',
+                               lines[0].split(' ', 1)[0], 'trace.json')) as f:
+            events = json.load(f)['traceEvents']
+        trace = dict(events=len(events), seconds=prof_s,
+                     launches=prof_launches,
+                     aten_ops=sum('aten::' in str(e.get('name'))
+                                  for e in events),
+                     kernel_events=sum(e.get('cat') == 'kernel'
+                                       for e in events),
+                     vq_argmin_events=sum('vq_argmin_kernel'
+                                          in str(e.get('name'))
+                                          for e in events))
+        assert trace['aten_ops'] > 0, trace
         y_test = load_split('nltcs', 'test', tmp)
         # ---- serving the checkpoint, counted
         cuda_vq.LAUNCHES = 0
@@ -1546,13 +1898,18 @@ def phase_cli():
         got = {k: r['launches'][k] for k in want}
         assert got == want, (name, got, want)
     assert serve_launches == 1, serve_launches
+    assert prof_launches == {'vq_argmin': vq['resume'], 'vq_argmin_bf16': 0,
+                             'adam': steps * n_leaves,
+                             'adam_bf16': 0}, prof_launches
     np.testing.assert_allclose(scores.mean(),
                                runs['checkpoint_cmll']['result']['pll-test'],
                                rtol=1e-5)
     emit('cli', runs=runs, serve_launches=serve_launches,
-         serve_score_mean=float(scores.mean()), sweep=sweep)
+         serve_score_mean=float(scores.mean()), profile_trace=trace,
+         sweep=sweep)
     total = {k: sum(r['launches'][k] for r in runs.values())
              + sweep['grid']['launches'][k] + iso['launches'][k]
+             + prof_launches[k]
              for k in ('vq_argmin', 'vq_argmin_bf16', 'adam', 'adam_bf16')}
     total['vq_argmin'] += serve_launches
     return total
@@ -1676,7 +2033,11 @@ def main() -> int:
     stream_launches, turns = phase_stream_kdd(kdd)
     packed_launches, packed_gap, packed_pll = phase_packed_kdd(kdd, turns)
     sweep_kdd_launches = phase_sweep_kdd(kdd, packed_pll)
+    epochs_launches = phase_run_epochs(kdd)
+    splits = kdd['splits']
     del kdd
+    full_launches = phase_train_kdd_full(splits)
+    del splits
     cli_launches = phase_cli()
     main_row = rows[('shape',) + MAIN_SHAPE]
     bf16_row = rows_bf16[('shape',) + BF16_MAIN_SHAPE]
@@ -1689,6 +2050,10 @@ def main() -> int:
                 'stream_kdd': stream_launches['vq_argmin'],
                 'packed_kdd': packed_launches['vq_argmin'],
                 'sweep_kdd': sweep_kdd_launches['vq_argmin'],
+                'run_epochs': epochs_launches['run_epochs']['vq_argmin'],
+                'run_epochs_packed':
+                    epochs_launches['run_epochs_packed']['vq_argmin'],
+                'train_kdd_full': full_launches['vq_argmin'],
                 'cli': cli_launches['vq_argmin']}
     vq_bf16_paths = {'train_bf16': bf16_launches['vq_argmin_bf16'],
                      'cli': cli_launches['vq_argmin_bf16']}
@@ -1699,6 +2064,10 @@ def main() -> int:
                   'stream_kdd': stream_launches['adam'],
                   'packed_kdd': packed_launches['adam'],
                   'sweep_kdd': sweep_kdd_launches['adam'],
+                  'run_epochs': epochs_launches['run_epochs']['adam'],
+                  'run_epochs_packed':
+                      epochs_launches['run_epochs_packed']['adam'],
+                  'train_kdd_full': full_launches['adam'],
                   'cli': cli_launches['adam']}
     timed = ('ms', 'device_ms', 'plain_ms', 'plain_device_ms',
              'bound_ms', 'bound_by', 'library_ms', 'library_device_ms')

@@ -18,6 +18,12 @@ from __future__ import annotations
 
 import torch
 
+from pgmvae_tpu_torch.registry import (  # noqa: F401
+    REGISTRY,
+    DatasetInfo,
+    default_units,
+)
+
 __version__ = "0.1.0"
 
 

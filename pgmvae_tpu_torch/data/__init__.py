@@ -1,1 +1,6 @@
-from pgmvae_tpu_torch.data.loader import load_binary_csv, load_split  # noqa: F401
+from pgmvae_tpu_torch.data.loader import (  # noqa: F401
+    load_split,
+    load_binary_csv,
+    leave_one_out_index,
+    leave_one_out,
+)

@@ -5,10 +5,16 @@ The TRW files are strictly single-char `0`/`1` CSV, so each row is exactly
 reshaping the raw byte buffer. Files of any other layout go through
 `np.genfromtxt`. (The JAX package also has a native multithreaded parser;
 the port does not carry it yet.)
+
+Leave-one-out views are never materialized on the training path (each
+network masks its own variable inside the model); `leave_one_out_index` and
+`leave_one_out` give the reference's gather table and views for tests and
+debugging, as the JAX package's do.
 """
 
 from __future__ import annotations
 
+from functools import lru_cache
 from typing import Optional
 
 import numpy as np
@@ -40,3 +46,19 @@ def load_split(name: str, split: str, root: Optional[str] = None,
     info = registry.REGISTRY[name]
     y = load_binary_csv(registry.split_path(name, split, root), info.n_var)
     return y.astype(dtype)
+
+
+@lru_cache(maxsize=None)
+def leave_one_out_index(n_var: int) -> np.ndarray:
+    """Static gather table [n_var, n_var-1] int32: row v is
+    [0 .. n_var-1] without v (the reference's off-diagonal construction)."""
+    full = np.broadcast_to(np.arange(n_var, dtype=np.int32), (n_var, n_var))
+    mask = ~np.eye(n_var, dtype=bool)
+    return np.ascontiguousarray(full[mask].reshape(n_var, n_var - 1))
+
+
+def leave_one_out(y: np.ndarray) -> np.ndarray:
+    """Materialized leave-one-out views [n_var, N, n_var-1] of y [N, n_var]
+    (tests and debugging only)."""
+    idx = leave_one_out_index(y.shape[-1])
+    return np.transpose(y[:, idx], (1, 0, 2))

@@ -17,11 +17,20 @@ sampling (the port of `pgmvae_tpu/gibbs.py`, reference
   normalised by `floor(valid * p1 / vol_last)`, the reference's floor
   division, kept so that values stay comparable.
 
-Each step takes its uniforms [blocks, B] as an argument: the public
-function draws them from a `torch.Generator` on the chain's device, and a
-test can feed the JAX package's `uniform(fold_in(key, i), (blocks, B))`
-through the same chain. The chain runs eagerly, one step after another,
-with the counts on the device until the end: no step reads the device.
+The step is one body over static buffers, the counterpart of the JAX
+package's `_cmll_segment` (`lax.fori_loop`): a device step counter i takes
+the place of the loop index, steps count their draws multiplied by a 0/1
+flag (i > burn_in*p1), and the uniforms [blocks, B] of step i are row j of a
+static buffer [G, blocks, B] filled once every sub-segment of G steps (G
+keeps the buffer within UNIFORM_BYTES). On CUDA the first step runs eagerly
+and the body is captured into a CUDA graph, which every later step replays
+(`graphs.StepGraph`); on the CPU, or with `graphs=False`, the body runs in a
+Python loop. No step reads the device: the counts stay there until the end.
+
+`run(start, steps, uniform)` fills the buffer from `uniform(i)`, so a test
+can feed the JAX package's `uniform(fold_in(key, i), (blocks, B))` through
+the same body; the public function fills it with one draw of [G, blocks, B]
+from a `torch.Generator` a sub-segment.
 """
 
 from __future__ import annotations
@@ -32,11 +41,13 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from pgmvae_tpu_torch import graphs as pgraphs
 from pgmvae_tpu_torch.models import vqvae
 
 LOG_EPS = 1e-5          # reference core/model.py:148
 SEGMENT_STEPS = 8192    # steps between progress lines (the JAX package's
 #                         segment: one device execution there)
+UNIFORM_BYTES = 256 << 20   # bound on the static uniform buffer
 
 
 def get_probability(params, codebook, cfg, dist, y, fts, parents=None):
@@ -72,10 +83,11 @@ def get_probability(params, codebook, cfg, dist, y, fts, parents=None):
 class GibbsChain:
     """The blockwise chain over a test batch x [B, n] on the params'
     device: `state` [blocks, B, n_var] and `counts` [B, n], both float32,
-    updated in place by `step`."""
+    updated in place by the step body. On CUDA the body is replayed as a
+    captured graph unless `graphs` is False."""
 
     def __init__(self, params, codebook, cfg: vqvae.VqVaeConfig, dist, x,
-                 p1: int, burn_in: int, parents=None):
+                 p1: int, burn_in: int, parents=None, graphs: bool = True):
         self.device = vqvae.param_leaves(params)[0].device
         self.params, self.codebook, self.cfg = params, codebook, cfg
         self.p1, self.burn_in = int(p1), int(burn_in)
@@ -96,41 +108,85 @@ class GibbsChain:
         self.marker = torch.arange(self.blocks, device=self.device) * self.p1
         self.vol = torch.full((self.blocks,), self.p1, device=self.device)
         self.vol[-1] = self.vol_last
+        # the step counter i, the position j in the uniform buffer, and the
+        # buffer of G steps' uniforms
+        self.i = torch.zeros((), dtype=torch.int64, device=self.device)
+        self.j = torch.zeros(1, dtype=torch.int64, device=self.device)
+        self.sub_steps = max(1, min(SEGMENT_STEPS, UNIFORM_BYTES
+                                    // (4 * self.blocks * batch)))
+        self.u = torch.empty((self.sub_steps, self.blocks, batch),
+                             device=self.device)
+        self.graph = pgraphs.StepGraph(
+            lambda generators: self._step(), self.device,
+            capture=graphs and self.device.type == 'cuda')
 
-    def step(self, i: int, u: torch.Tensor) -> None:
-        """Gibbs step i with uniforms u [blocks, B]: block b resamples
-        variable marker_b + i mod vol_b; steps past burn_in*p1 count."""
-        y = self.marker + torch.remainder(i, self.vol)       # [blocks]
+    def _step(self) -> None:
+        """Gibbs step i with the uniforms u[j]: block b resamples variable
+        marker_b + i mod vol_b; steps past burn_in*p1 count."""
+        y = self.marker + torch.remainder(self.i, self.vol)   # [blocks]
         prb = get_probability(self.params, self.codebook, self.cfg,
                               self.dist, self.state, y, parents=self.parents)
-        gibbs = (u < prb).to(self.state.dtype)               # [blocks, B]
+        u = self.u.index_select(0, self.j)[0]                 # [blocks, B]
+        gibbs = (u < prb).to(self.state.dtype)
         self.state.scatter_(
             2, y.view(-1, 1, 1).expand(-1, self.state.shape[1], 1),
             gibbs[:, :, None])
-        if i > self.burn_in * self.p1:       # strict >, ref core/model.py:139
-            self.counts.index_add_(1, y, gibbs.T)
+        # strict >, ref core/model.py:139; a 0/1 flag, as the JAX package's
+        # segment counts
+        flag = (self.i > self.burn_in * self.p1).to(self.counts.dtype)
+        self.counts.index_add_(1, y, gibbs.T * flag)
+        self.i.add_(1)
+        self.j.add_(1)
+
+    def _run(self, start: int, steps: int, fill) -> None:
+        """Steps start .. start+steps-1, in sub-segments of at most G steps:
+        `fill(i0, g)` writes the uniforms of steps i0 .. i0+g-1 into
+        u[:g], then the body runs g times."""
+        with torch.no_grad():
+            self.i.fill_(start)
+            done = 0
+            while done < steps:
+                g = min(self.sub_steps, steps - done)
+                fill(start + done, g)
+                self.j.zero_()
+                self.graph.run(g)
+                done += g
 
     def run(self, start: int, steps: int,
             uniform: Callable[[int], torch.Tensor]) -> None:
-        """Steps start .. start+steps-1, step i with uniforms `uniform(i)`."""
-        with torch.no_grad():
-            for i in range(start, start + steps):
-                self.step(i, uniform(i))
+        """Steps start .. start+steps-1, step i with uniforms `uniform(i)`
+        [blocks, B]."""
+        self._run(start, steps, self._filler(uniform))
 
-    def sample(self, num_smp: int, uniform: Callable[[int], torch.Tensor],
-               verbose: bool = False) -> float:
-        """Run the whole chain (num_smp * p1 steps from step 0) and return
-        its CMLL. `verbose` prints progress every SEGMENT_STEPS steps."""
+    def _filler(self, uniform: Callable[[int], torch.Tensor]):
+        """A `fill` that copies `uniform(i)` into the buffer, step by step."""
+        def fill(i0: int, g: int) -> None:
+            for k in range(g):
+                self.u[k].copy_(uniform(i0 + k))
+        return fill
+
+    def _sample(self, num_smp: int, fill, verbose: bool) -> float:
         total, done = int(num_smp) * self.p1, 0
         while done < total:
             seg = min(SEGMENT_STEPS, total - done)
-            self.run(done, seg, uniform)
+            self._run(done, seg, fill)
             done += seg
             if verbose:
                 # sampling progress, as the reference prints it under
                 # `verbose` (reference core/model.py:141-142)
                 print(f'cmll sampling step {done}/{total}', flush=True)
         return self.cmll(num_smp)
+
+    def sample(self, num_smp: int, uniform: Callable[[int], torch.Tensor],
+               verbose: bool = False) -> float:
+        """Run the whole chain (num_smp * p1 steps from step 0), step i with
+        uniforms `uniform(i)`, and return its CMLL. `verbose` prints
+        progress every SEGMENT_STEPS steps."""
+        return self._sample(num_smp, self._filler(uniform), verbose)
+
+    def release(self) -> None:
+        """Release the captured step graph and its memory pool."""
+        self.graph.release()
 
     def cmll(self, num_smp: int) -> float:
         """The CMLL of the counts so far, as if num_smp sweeps had run."""
@@ -155,15 +211,19 @@ def conditional_marginal_log_likelihood(params, codebook,
                                         parents=None) -> float:
     """CMLL of a test batch x [B, n_var] (numpy or a tensor); `dist` is the
     train-split CPT ([n, K], or [n, K, 2^m] with `parents` [n, m]). The
-    chain runs on the params' device and draws its uniforms from
-    `generator`, which must live there (None: one seeded 0)."""
+    chain runs on the params' device (on CUDA as a replayed graph) and
+    draws its uniforms from `generator`, which must live there (None: one
+    seeded 0): one draw of [G, blocks, B] a sub-segment of G steps (the
+    chain's `sub_steps`), not one a step."""
     chain = GibbsChain(params, codebook, cfg, dist, x, p1, burn_in,
                        parents=parents)
     if generator is None:
         generator = torch.Generator(device=chain.device).manual_seed(0)
-    shape = (chain.blocks, chain.x.shape[0])
 
-    def uniform(i: int) -> torch.Tensor:
-        return torch.rand(shape, generator=generator, device=chain.device)
-
-    return chain.sample(num_smp, uniform, verbose=verbose)
+    def fill(i0: int, g: int) -> None:
+        torch.rand((g, chain.blocks, chain.x.shape[0]), generator=generator,
+                   out=chain.u[:g])
+    try:
+        return chain._sample(num_smp, fill, verbose)
+    finally:
+        chain.release()

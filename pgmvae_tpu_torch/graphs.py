@@ -1,0 +1,170 @@
+"""Multi-step device executions as CUDA graphs: the port's counterpart of
+the JAX package's `jit` + `lax.scan` / `lax.fori_loop` (a train epoch, a
+streamed chunk, a Gibbs segment).
+
+A `StepGraph` holds one step body that reads and writes only static
+buffers: tensors that keep their addresses from step to step (params,
+moments, EMA state, step counters, the data, a permutation, a chunk or
+uniform buffer), with a device counter in place of the loop index. The body
+ends by copying every tensor it made anew into the static buffer that the
+next step reads.
+
+On CUDA (`capture=True`) the first step runs eagerly on a side stream as
+the warm-up: it builds and loads the kernels, sets up cuBLAS and autograd,
+and advances the caller's state like any other step. The body is then
+captured on that stream into a `torch.cuda.CUDAGraph` with a private memory
+pool, and every later step is one `replay()` on the current stream. The
+graph keeps its pool until `release()`. A failure to capture or replay
+raises; nothing falls back to the eager loop. On the CPU, or with
+`capture=False` (the eager reference the graphs are held against on the
+card), `run` calls the body once a step in a Python loop: the plain
+version.
+
+Random draws inside the body come from the `generators` it is given. For a
+capture these are the graph's own generators, registered with it; before
+each run of replays their states are set from the caller's generators, and
+after it the caller's are set from theirs, so the draws are the ones the
+eager loop makes and the caller's generators end where the eager loop would
+leave them.
+
+Launch accounting: the kernel wrappers count a launch when Python calls
+them (`cuda_vq.LAUNCHES`, `fused_adam.LAUNCHES`, and their bfloat16
+twins). A capture calls them without launching anything, so the counts a
+capture adds are taken back and kept as the graph's launches per step, and
+every replay adds them again. The counts then read as if every step had
+run eagerly.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import time
+from typing import Callable, Optional, Sequence
+
+import torch
+
+from pgmvae_tpu_torch.ops import cuda_vq, fused_adam
+
+# (module, attribute) of every kernel launch counter
+COUNTERS = ((cuda_vq, 'LAUNCHES'), (cuda_vq, 'LAUNCHES_BF16'),
+            (fused_adam, 'LAUNCHES'), (fused_adam, 'LAUNCHES_BF16'))
+
+
+def launch_counts() -> tuple:
+    """The kernel launch counters, in COUNTERS order."""
+    return tuple(getattr(module, name) for module, name in COUNTERS)
+
+
+def add_launches(per_step: Sequence[int], steps: int = 1) -> None:
+    """Add `steps` times `per_step` to the launch counters."""
+    for (module, name), n in zip(COUNTERS, per_step):
+        setattr(module, name, getattr(module, name) + n * steps)
+
+
+def _set_launch_counts(counts: Sequence[int]) -> None:
+    for (module, name), n in zip(COUNTERS, counts):
+        setattr(module, name, n)
+
+
+def tensor_key(*tensors) -> tuple:
+    """What a captured graph holds of tensors: address, shape and type."""
+    return tuple((t.data_ptr(), tuple(t.shape), t.dtype) for t in tensors)
+
+
+class StepGraph:
+    """A step body `body(generators)` run `steps` times by `run`: captured
+    and replayed on CUDA, looped eagerly otherwise (see the module doc).
+    `n_generators` is the number of generators the body draws from; `key`
+    names what the body reads, for a cache to compare."""
+
+    def __init__(self, body: Callable[[Sequence[torch.Generator]], None],
+                 device: torch.device, n_generators: int = 0,
+                 capture: bool = True, key=None, buffers=None):
+        self.body, self.device, self.key = body, torch.device(device), key
+        self.buffers = buffers          # the static buffers the body reads
+        self.capture = capture
+        self.generators = [torch.Generator(device=self.device)
+                           for _ in range(n_generators)]
+        self.graph = None
+        self.stream: Optional[torch.cuda.Stream] = None
+        self.launches = (0,) * len(COUNTERS)   # captured, per replay
+        self.capture_ms: Optional[float] = None
+        self.replays = 0
+
+    def run(self, steps: int,
+            generators: Sequence[torch.Generator] = ()) -> None:
+        """`steps` steps of the body, drawing from `generators` (one for
+        each of the body's)."""
+        generators = list(generators)
+        if len(generators) != len(self.generators):
+            raise ValueError(f'the body draws from {len(self.generators)} '
+                             f'generators, got {len(generators)}')
+        if steps <= 0:
+            return
+        if not self.capture:
+            for _ in range(steps):
+                self.body(generators)
+            return
+        if self.graph is None:
+            self._capture(generators)
+            steps -= 1
+        if steps == 0:
+            return
+        for mine, theirs in zip(self.generators, generators):
+            mine.set_state(theirs.get_state())
+        for _ in range(steps):
+            self._replay()
+        self.replays += steps
+        add_launches(self.launches, steps)
+        for mine, theirs in zip(self.generators, generators):
+            theirs.set_state(mine.get_state())
+
+    def _capture(self, generators) -> None:
+        """The warm-up step (eager, on the side stream, counted as it
+        launches), then the capture of the body, whose counted launches
+        become the graph's per replay."""
+        with self._side_stream():
+            self.body(generators)
+        before = launch_counts()
+        try:
+            t0 = time.perf_counter()
+            self.graph = self._record()
+            self.capture_ms = (time.perf_counter() - t0) * 1e3
+        finally:
+            self.launches = tuple(a - b for a, b in
+                                  zip(launch_counts(), before))
+            _set_launch_counts(before)
+
+    @contextlib.contextmanager
+    def _side_stream(self):
+        """The capture stream as the current stream, ordered after the work
+        queued so far and before the work queued after."""
+        if self.stream is None:
+            self.stream = torch.cuda.Stream(self.device)
+        current = torch.cuda.current_stream(self.device)
+        self.stream.wait_stream(current)
+        with torch.cuda.stream(self.stream):
+            yield
+        current.wait_stream(self.stream)
+
+    def _record(self):
+        """The body captured on the side stream into a CUDA graph with its
+        own memory pool and the body's generators registered."""
+        graph = torch.cuda.CUDAGraph()
+        for gen in self.generators:
+            graph.register_generator_state(gen)
+        with self._side_stream(), torch.cuda.graph(graph,
+                                                   stream=self.stream):
+            self.body(self.generators)
+        return graph
+
+    def _replay(self) -> None:
+        self.graph.replay()
+
+    def release(self) -> None:
+        """Drop the graph, its memory pool and the buffers it holds."""
+        if self.graph is not None:
+            self.graph.reset()
+            self.graph = None
+            torch.cuda.empty_cache()
+        self.buffers = self.body = None

@@ -19,6 +19,16 @@ types, as the shared-memory tiles are float32 either way. `LAUNCHES` and
 `LAUNCHES_BF16` count calls that launched the float32 and the bfloat16
 instance (one launch or, when K is split into strips, two), so a run can
 show that its path went through them.
+
+The wrapper is safe to capture into a CUDA graph (`graphs.StepGraph`): it
+launches on `torch.cuda.current_stream()`, which is the capture stream
+under `torch.cuda.graph`; its output and split-K workspaces come from the
+caching allocator, so under a capture from the graph's private pool; and
+the C entry point's only runtime call besides the launch is
+`cudaGetLastError`. The library must be built and its kernels loaded
+before a capture (the graphs' eager warm-up step does both); a first build
+during a capture raises. A capture counts its launches once, and
+`graphs.StepGraph` adds them again for every replay.
 """
 
 from __future__ import annotations
@@ -220,6 +230,9 @@ def vq_codes_fused(z: torch.Tensor, codebook: torch.Tensor) -> torch.Tensor:
     if n == 0 or b == 0:
         return out
     p = plan(n, b, d, k)
+    if _lib is None and torch.cuda.is_current_stream_capturing():
+        raise RuntimeError('vq_argmin: build() must run before a CUDA graph '
+                           'capture')
     lib = build()
     bf16 = z.dtype == torch.bfloat16
     fn = lib.vq_argmin_bf16 if bf16 else lib.vq_argmin

@@ -27,6 +27,16 @@ launches.
 
 The kernel's library is built with `-fmad=false`, so on the card it is
 bit-equal to `adam_update_plain` on the same inputs.
+
+The update is safe to capture into a CUDA graph (`graphs.StepGraph`): it
+launches on `torch.cuda.current_stream()` (the capture stream under
+`torch.cuda.graph`), takes the step count, bias corrections and learning
+rate from device tensors (so a replay reads the count the last replay
+left), allocates only through the caching allocator, and the C entry
+point's only runtime call besides the launch is `cudaGetLastError`. The
+library must be built before a capture (the graphs' eager warm-up step
+does it); a first build during a capture raises. A capture counts its
+launches once, and `graphs.StepGraph` adds them again for every replay.
 """
 
 from __future__ import annotations
@@ -165,6 +175,9 @@ def _plain(quads, scalars, b1: float, b2: float, eps: float) -> None:
 def _kernel(quads, scalars, b1: float, b2: float, eps: float,
             device: torch.device) -> None:
     global LAUNCHES, LAUNCHES_BF16
+    if _lib is None and torch.cuda.is_current_stream_capturing():
+        raise RuntimeError('adam: build() must run before a CUDA graph '
+                           'capture')
     lib = build()
     stream = torch.cuda.current_stream(device).cuda_stream
     with torch.cuda.device(device):

@@ -85,11 +85,17 @@ REGISTRY = {
 }
 
 
+# the benchmark's read-only data mount, the JAX package's last candidate
+REFERENCE_DATA_DIR = os.path.join(os.sep, 'root', 'reference', 'data', 'trw')
+
+
 def data_dir() -> str:
     """Directory holding the TRW benchmark CSVs: $PGMVAE_DATA_DIR, else
-    ./data/trw."""
+    ./data/trw, else the read-only benchmark mount `REFERENCE_DATA_DIR`,
+    in the JAX package's order."""
     for cand in (os.environ.get('PGMVAE_DATA_DIR'),
-                 os.path.join(os.curdir, 'data', 'trw')):
+                 os.path.join(os.curdir, 'data', 'trw'),
+                 REFERENCE_DATA_DIR):
         if cand and os.path.isdir(cand):
             return cand
     raise FileNotFoundError('no TRW data directory found; set PGMVAE_DATA_DIR')

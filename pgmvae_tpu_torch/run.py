@@ -17,10 +17,11 @@ of either package serves; `--resume` refuses a checkpoint whose model
 config differs; `--cmll` adds the Gibbs CMLL of the test split to the
 result line; `--adam-impl fused_bf16` keeps the Adam moments in bfloat16;
 `--compute-dtype bf16` trains in bfloat16 with float32 masters (identifier
-flag cd-bf16). Grids of cells, packed seeds and isolated cells are
-`pgmvae_tpu_torch.run_pipeline`'s. Flags of features the port does not run
-yet (a mesh, --profile) exit with code 2 and say which ROADMAP.md item holds
-them.
+flag cd-bf16); `--profile` writes a `torch.profiler` trace of the run
+(`trace.json`, Chrome's trace format) into the run's log directory
+`logs/tuning/<identifier>/`. Grids of cells, packed seeds and isolated
+cells are `pgmvae_tpu_torch.run_pipeline`'s. A device mesh, which the port
+does not run yet, exits with code 2 and names its ROADMAP.md item.
 """
 
 from __future__ import annotations
@@ -167,11 +168,32 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument('--resume', type=str, default=None,
                    help='checkpoint to resume stage-1 training from')
     p.add_argument('--profile', action='store_true',
-                   help='capture a profiler trace (not ported yet)')
+                   help='write a torch.profiler trace of the run into its '
+                        'log directory (trace.json)')
     p.add_argument('--data-dir', type=str, default=None,
                    help='override TRW data directory')
     p.add_argument('--result-file', type=str, default='result.txt')
     return p
+
+
+def _profiled(exp, device: str) -> dict:
+    """`run_experiment` under `torch.profiler` (the device's kernels too on
+    CUDA), its trace written to `<exp.log_dir>/trace.json`: the counterpart
+    of the JAX CLI's `jax.profiler` trace."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from pgmvae_tpu_torch.driver import run_experiment
+    activities = [ProfilerActivity.CPU]
+    if device != 'cpu':
+        activities.append(ProfilerActivity.CUDA)
+    with profile(activities=activities) as prof:
+        res = run_experiment(exp, device=device)
+        if device != 'cpu':
+            torch.cuda.synchronize(device)
+    os.makedirs(exp.log_dir, exist_ok=True)
+    prof.export_chrome_trace(os.path.join(exp.log_dir, 'trace.json'))
+    return res
 
 
 def main(argv=None) -> int:
@@ -226,14 +248,16 @@ def main(argv=None) -> int:
         data_dir=args.data_dir, verbose=args.verbose,
         log_dir=os.path.join(os.curdir, 'logs', 'tuning'))
     exp.log_dir = os.path.join(exp.log_dir, exp.identifier)
-    missing = unported(exp) + (
-        ['--profile: ROADMAP.md A9, benchmark twin'] if args.profile else [])
+    missing = unported(exp)
     if missing:
         for msg in missing:
             print(f'error: not ported yet: {msg}', file=sys.stderr)
         return 2
 
-    res = run_experiment(exp, device=device)
+    if args.profile:
+        res = _profiled(exp, device)
+    else:
+        res = run_experiment(exp, device=device)
     line = append_result(res['identifier'], res['pll_train'],
                          res['pll_valid'], res['pll_test'], res['cmll_test'],
                          path=args.result_file)

@@ -41,6 +41,25 @@ fit(b, start_epoch=a) is bit-identical to fit(a + b).
 
 Train steps update the state's params and moments in place; `copy_state`
 takes a snapshot that later steps leave alone.
+
+Epochs as CUDA graphs (the counterpart of the JAX package's epoch `scan`
+and its blocks of epochs): an epoch runs one step body over static buffers
+(`graphs.StepGraph`). The body takes row i of a static permutation buffer
+through a device step counter, gathers its batch (from the device data, or
+from a static chunk buffer that the streamed epoch refills every chunk),
+derives w from that row, runs the train step, copies the tensors the step
+made anew (the EMA state, the counts) into the state's own, and adds the
+step's metrics into static sums. The permutation is drawn eagerly, once an
+epoch. On CUDA the epoch's first step runs eagerly as the warm-up, the body
+is captured, and every other step is a replay; the graph stays on the
+Trainer, keyed on the addresses and shapes of the state and data, and is
+captured anew for another state or data tensor (`fit` and `fit_packed`
+release it before they return). Every batch is [bs, n_var] with 0/1
+weights, so the ragged last batch needs no graph of its own. The restart
+draws come from the graph's own generators, which take the epoch
+generators' state before the replays: the replayed epoch is bit-equal to
+the eager loop (`Trainer(graphs=False)`, and the CPU's). The epoch updates
+the state in place: it returns the state it was given.
 """
 
 from __future__ import annotations
@@ -52,7 +71,7 @@ from typing import NamedTuple, Optional, Sequence, Union
 import numpy as np
 import torch
 
-from pgmvae_tpu_torch import resolve_device
+from pgmvae_tpu_torch import graphs, resolve_device
 from pgmvae_tpu_torch.models import vqvae
 from pgmvae_tpu_torch.ops import fused_adam
 from pgmvae_tpu_torch.ops import quantizer as q
@@ -123,6 +142,32 @@ def copy_state(state: TrainState) -> TrainState:
     return _map_state(torch.clone, state)
 
 
+def _assign(dst: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
+    """Copy a tensor a step made anew into the state tensor it replaces."""
+    if dst is not src:
+        dst.copy_(src)
+    return dst
+
+
+def _state_key(state: TrainState) -> tuple:
+    """The addresses, shapes and types of a state's tensors: what a graph
+    captured over the state holds."""
+    tensors = []
+    _map_state(tensors.append, state)
+    return graphs.tensor_key(*tensors)
+
+
+class _EpochBuffers(NamedTuple):
+    """The static buffers an epoch body reads besides the state and data."""
+    perm: torch.Tensor       # [steps, bs] (packed [steps, S, bs]) row ids
+    i: torch.Tensor          # int64 [1]: the step that runs next
+    total: torch.Tensor      # [4] (packed [S, 4]) weighted metric sums
+    wtot: torch.Tensor       # float32 scalar: the weights' sum
+    # a streamed epoch's device chunk [chunk, bs, n_var] and its row j
+    chunk: Optional[torch.Tensor] = None
+    j: Optional[torch.Tensor] = None
+
+
 def epoch_seed(seed: int, epoch: int) -> int:
     """The seed of epoch `epoch`'s generator: a function of (seed, epoch)
     alone."""
@@ -137,8 +182,16 @@ class Trainer:
                  batch_size: int, n_train: int, adam_eps: float = 1e-7,
                  stream_bytes: int = 4 << 30,
                  stream_chunk_bytes: int = 64 << 20,
-                 adam_impl: Optional[str] = None, device=None):
+                 adam_impl: Optional[str] = None, device=None,
+                 graphs: bool = True):
         self.device = resolve_device(device)
+        # on CUDA the epochs replay captured step graphs; graphs=False runs
+        # the eager step loop, the reference the graphs are held against
+        self.graphs = bool(graphs)
+        self._graphs = {}
+        # by epoch kind, of the last graph released: its capture time (ms)
+        # and replays
+        self.graph_stats = {}
         self.cfg = cfg
         self.learning_rate = float(learning_rate)
         self.adam_eps = float(adam_eps)
@@ -340,39 +393,163 @@ class Trainer:
                          device=self.device)
         return torch.cat([perm, pad]).view(steps, bs)
 
-    @staticmethod
-    def _run_steps(state, step_fn, batches, weights, restart):
-        """step_fn over (batch, weights row) pairs; returns (state, the
-        sample-weighted mean of the steps' metrics, on the device)."""
-        total = wtot = 0
-        for yb, w in zip(batches, weights):
-            state, m = step_fn(state, yb, w, restart)
-            wsum = torch.sum(w)
-            total = total + m * wsum
-            wtot = wtot + wsum
-        return state, total / wtot
+    def _use_graphs(self) -> bool:
+        return self.graphs and self.device.type == 'cuda'
+
+    def release_graphs(self) -> None:
+        """Release the captured step graphs and their memory pools (`fit`
+        and `fit_packed` do so before they return)."""
+        for kind in list(self._graphs):
+            self._release_graph(kind)
+
+    def _release_graph(self, kind: str) -> None:
+        g = self._graphs.pop(kind)
+        self.graph_stats[kind] = {'capture_ms': g.capture_ms,
+                                  'replays': g.replays}
+        g.release()
+
+    def _epoch_graph(self, kind: str, key, perm: torch.Tensor, make_body,
+                     n_generators: int,
+                     chunk_shape: Optional[tuple] = None
+                     ) -> graphs.StepGraph:
+        """The step graph of `kind` whose body reads what `key` names (the
+        addresses and shapes of the state, data and S), its epoch buffers
+        reset for `perm`: the cached one, or a new one (after releasing the
+        old) when the caller passes another state or data. Without graphs
+        a new eager one each call. `chunk_shape` adds a streamed epoch's
+        chunk buffer and its counter."""
+        capture = self._use_graphs()
+        cached = self._graphs.get(kind)
+        if cached is None or cached.key != key or not capture:
+            if cached is not None:
+                self._release_graph(kind)
+
+            def counter():
+                return torch.zeros(1, dtype=torch.int64, device=self.device)
+            ep = _EpochBuffers(
+                perm=torch.empty_like(perm), i=counter(),
+                total=torch.zeros(perm.shape[1:-1] + (4,),
+                                  dtype=torch.float32, device=self.device),
+                wtot=torch.zeros((), dtype=torch.float32,
+                                 device=self.device))
+            if chunk_shape is not None:
+                ep = ep._replace(
+                    chunk=torch.empty(chunk_shape, device=self.device,
+                                      dtype=getattr(torch, self.cfg.dtype)),
+                    j=counter())
+            cached = graphs.StepGraph(make_body(ep), self.device,
+                                      n_generators, capture, key, ep)
+            if capture:
+                self._graphs[kind] = cached
+        ep = cached.buffers
+        ep.perm.copy_(perm)
+        ep.i.zero_()
+        ep.total.zero_()
+        ep.wtot.zero_()
+        return cached
+
+    def _advance(self, state: TrainState, yb: torch.Tensor, w: torch.Tensor,
+                 generators, seeds: Optional[int], ep: _EpochBuffers):
+        """The end of every epoch body: one train step of `state` (packed
+        with `seeds`) on batch yb with weights w, the tensors it made anew
+        copied into `state`'s, the step's metrics added into the epoch's
+        sample-weighted sums, the step index advanced."""
+        restart = list(generators) or None
+        if seeds is None:
+            new, m = self._step(state, yb, w, restart)
+        else:
+            new, m = self.train_step_packed(state, yb, w, restart)
+        _map_state(_assign, state, new)
+        wsum = torch.sum(w)
+        ep.total.add_(m * wsum)
+        ep.wtot.add_(wsum)
+        ep.i.add_(1)
+
+    def _run_epoch_core(self, kind: str, state: TrainState,
+                        data: torch.Tensor, perm: torch.Tensor,
+                        generators: Sequence[torch.Generator],
+                        seeds: Optional[int]):
+        """An in-core epoch (packed with `seeds`). Its body takes row i of
+        the static permutation ([bs], or [S, bs] packed), gathers its batch
+        from the device data and derives the weights from it (the
+        sentinels end every permutation, so one w serves all seeds)."""
+        restart = (list(generators) if self.cfg.dead_code_threshold > 0
+                   else [])
+
+        def make(ep):
+            def body(gens):
+                idx = ep.perm.index_select(0, ep.i)[0]
+                w = ((idx if seeds is None else idx[0]) >= 0).to(data.dtype)
+                yb = data.index_select(0, torch.clamp(idx.reshape(-1),
+                                                      min=0))
+                if seeds is not None:
+                    yb = yb.view(seeds, self.batch_size, -1)
+                self._advance(state, yb, w, gens, seeds, ep)
+            return body
+        key = (kind, _state_key(state), graphs.tensor_key(data), seeds)
+        g = self._epoch_graph(kind, key, perm, make, len(restart))
+        g.run(self.steps_per_epoch, restart)
+        return state, g.buffers.total / g.buffers.wtot
 
     def run_epoch(self, state: TrainState, data: torch.Tensor,
                   generator: torch.Generator):
         """One epoch over the device-resident data [N, n_var]; returns
-        (state, sample-weighted epoch metrics [4] on the device)."""
-        perm = self._padded_perm(generator)
-        restart = generator if self.cfg.dead_code_threshold > 0 else None
-        batches = (data.index_select(0, torch.clamp(idx, min=0))
-                   for idx in perm)
-        return self._run_steps(state, self.train_step, batches,
-                               (perm >= 0).to(data.dtype), restart)
+        (state, sample-weighted epoch metrics [4] on the device). The state
+        is updated in place: the returned one holds the same tensors. On
+        CUDA the step is a captured graph, replayed once a step."""
+        return self._run_epoch_core('epoch', state, data,
+                                    self._padded_perm(generator),
+                                    [generator], None)
 
-    def _host_batches(self, data: np.ndarray, perm: np.ndarray):
+    def run_epoch_packed(self, states: TrainState, data: torch.Tensor,
+                         generators: Sequence[torch.Generator]):
+        """One epoch of S packed seeds over the device-resident data, seed s
+        drawing from generators[s]; returns (states, metrics [S, 4])."""
+        perms = torch.stack([self._padded_perm(g) for g in generators], 1)
+        return self._run_epoch_core('packed', states, data, perms,
+                                    generators, len(generators))
+
+    def run_epochs(self, state: TrainState, data: torch.Tensor, seed: int,
+                   start_epoch: int, num_epochs: int):
+        """Epochs start_epoch .. start_epoch + num_epochs - 1 over the
+        device-resident data, epoch e with `epoch_generator(seed, e)` (as
+        `fit`); returns (state, metrics [num_epochs, 4] on the device)."""
+        ms = []
+        for epoch in range(start_epoch, start_epoch + num_epochs):
+            state, m = self.run_epoch(state, data,
+                                      self.epoch_generator(seed, epoch))
+            ms.append(m)
+        return state, torch.stack(ms)
+
+    def run_epochs_packed(self, states: TrainState, data: torch.Tensor,
+                          seeds: Sequence[int], start_epoch: int,
+                          num_epochs: int):
+        """`run_epochs` for S packed seeds, seed s with the epoch generators
+        of seeds[s]; returns (states, metrics [S, num_epochs, 4] on the
+        device)."""
+        ms = []
+        for epoch in range(start_epoch, start_epoch + num_epochs):
+            states, m = self.run_epoch_packed(
+                states, data, [self.epoch_generator(s, epoch) for s in seeds])
+            ms.append(m)
+        return states, torch.stack(ms, 1)
+
+    def _chunk_steps(self, data: np.ndarray) -> int:
+        """Steps a streamed chunk holds: ~stream_chunk_bytes of batches."""
+        return max(1, min(self.steps_per_epoch, self.stream_chunk_bytes
+                          // (self.batch_size * data.shape[1]
+                              * data.itemsize)))
+
+    def _host_chunks(self, data: np.ndarray, perm: np.ndarray):
         """The batches of `perm` [steps, bs] (sentinels take row 0, as
-        in-core) gathered on the host from `data`, yielded on the device.
-        `chunk` steps at a time are gathered into one of two pinned buffers
-        and copied on a side stream: the next chunk's gather and copy go
-        ahead of this chunk's steps, the steps wait for their copy by an
-        event, and a buffer is refilled only once its last copy is done."""
+        in-core) gathered on the host from `data`, `_chunk_steps` steps at
+        a time, yielded on the device as [chunk, bs, n_var]. Each chunk is
+        gathered into one of two pinned buffers and copied on a side
+        stream: the next chunk's gather and copy go ahead of this chunk's
+        steps, the steps wait for their copy by an event, and a buffer is
+        refilled only once its last copy is done."""
         steps, bs = perm.shape
-        chunk = max(1, min(steps, self.stream_chunk_bytes
-                           // (bs * data.shape[1] * data.itemsize)))
+        chunk = self._chunk_steps(data)
         cuda = self.device.type == 'cuda'
         bufs = [torch.empty((chunk, bs, data.shape[1]),
                             dtype=getattr(torch, self.cfg.dtype),
@@ -405,31 +582,35 @@ class Trainer:
                 compute = torch.cuda.current_stream(self.device)
                 compute.wait_event(event)
                 dev.record_stream(compute)
-            yield from dev
+            yield dev
 
     def _run_epoch_streamed(self, state: TrainState, data: np.ndarray,
                             generator: torch.Generator):
         """`run_epoch` over host data: the same permutation, weights, steps
-        and restart draws, the batches fed by `_host_batches`."""
+        and restart draws; each chunk of `_host_chunks` is copied into a
+        static device chunk buffer, and the body takes row j of it (a
+        second counter, reset every chunk), so that one graph serves every
+        chunk, the ragged last one included."""
         perm = self._padded_perm(generator)
-        restart = generator if self.cfg.dead_code_threshold > 0 else None
-        batches = self._host_batches(data, perm.cpu().numpy())
-        return self._run_steps(state, self.train_step, batches,
-                               (perm >= 0).to(getattr(torch, self.cfg.dtype)),
-                               restart)
+        restart = [generator] if self.cfg.dead_code_threshold > 0 else []
+        shape = (self._chunk_steps(data), self.batch_size, data.shape[1])
+        key = ('chunk', _state_key(state), shape)
 
-    def run_epoch_packed(self, states: TrainState, data: torch.Tensor,
-                         generators: Sequence[torch.Generator]):
-        """One epoch of S packed seeds over the device-resident data, seed s
-        drawing from generators[s]; returns (states, metrics [S, 4])."""
-        seeds = len(generators)
-        perms = torch.stack([self._padded_perm(g) for g in generators], 1)
-        restart = generators if self.cfg.dead_code_threshold > 0 else None
-        batches = (data.index_select(0, torch.clamp(idx.reshape(-1), min=0))
-                   .view(seeds, self.batch_size, -1) for idx in perms)
-        # the sentinels end every permutation: one w for all seeds
-        return self._run_steps(states, self.train_step_packed, batches,
-                               (perms[:, 0] >= 0).to(data.dtype), restart)
+        def make(ep):
+            def body(gens):
+                idx = ep.perm.index_select(0, ep.i)[0]
+                w = (idx >= 0).to(ep.chunk.dtype)
+                yb = ep.chunk.index_select(0, ep.j)[0]
+                ep.j.add_(1)
+                self._advance(state, yb, w, gens, None, ep)
+            return body
+        g = self._epoch_graph('chunk', key, perm, make, len(restart), shape)
+        ep = g.buffers
+        for dev in self._host_chunks(data, perm.cpu().numpy()):
+            ep.chunk[:dev.shape[0]].copy_(dev)
+            ep.j.zero_()
+            g.run(dev.shape[0], restart)
+        return state, ep.total / ep.wtot
 
     # -------------------------------------------------------------- fit --
     def _padded_data(self, data_host) -> np.ndarray:
@@ -446,8 +627,9 @@ class Trainer:
         """Train for `epochs` epochs (indices start_epoch ..); returns
         (state, list of EpochMetrics of floats). Epoch e uses the generator
         `epoch_generator(seed, e)`. The data is read from the device once
-        per epoch when `verbose` or `log_fn` asks for it, else once. Data
-        past `stream_bytes` is streamed from the host."""
+        per epoch when `verbose` or `log_fn` asks for it, else once (as
+        `run_epochs` reads it). Data past `stream_bytes` is streamed from
+        the host. The step graphs are released before it returns."""
         if epochs <= 0:
             return state, []
         data_host = self._padded_data(data_host)
@@ -461,25 +643,28 @@ class Trainer:
                                    device=self.device)
             run = self.run_epoch
         logged = verbose or log_fn is not None
-        history, pending = [], []
-        for epoch in range(start_epoch, start_epoch + epochs):
-            state, m = run(state, data, self.epoch_generator(seed, epoch))
-            if not logged:
-                pending.append(m)
-                continue
-            m_host = EpochMetrics(*m.tolist())
-            history.append(m_host)
-            if verbose:
-                print(f'epoch {epoch + 1}/{start_epoch + epochs}'
-                      f'{" (streamed)" if streamed else ""} '
-                      f'loss={m_host.loss:.6f} mse={m_host.mse:.6f} '
-                      f'mae={m_host.mae:.6f} ppl={m_host.perplexity:.1f}')
-            if log_fn is not None:
-                log_fn(epoch, m_host)
-        if pending:
-            history = [EpochMetrics(*row)
-                       for row in torch.stack(pending).tolist()]
-        return state, history
+        try:
+            history, pending = [], []
+            for epoch in range(start_epoch, start_epoch + epochs):
+                state, m = run(state, data, self.epoch_generator(seed, epoch))
+                if not logged:
+                    pending.append(m)
+                    continue
+                m_host = EpochMetrics(*m.tolist())
+                history.append(m_host)
+                if verbose:
+                    print(f'epoch {epoch + 1}/{start_epoch + epochs}'
+                          f'{" (streamed)" if streamed else ""} '
+                          f'loss={m_host.loss:.6f} mse={m_host.mse:.6f} '
+                          f'mae={m_host.mae:.6f} ppl={m_host.perplexity:.1f}')
+                if log_fn is not None:
+                    log_fn(epoch, m_host)
+            if pending:
+                history = [EpochMetrics(*row)
+                           for row in torch.stack(pending).tolist()]
+            return state, history
+        finally:
+            self.release_graphs()
 
     # --------------------------------------------------- packed seeds --
     def init_states_packed(self, seeds: Sequence[Union[int,
@@ -495,19 +680,21 @@ class Trainer:
                    epochs: int, seeds: Sequence[int], start_epoch: int = 0):
         """Train S packed seeds for `epochs` epochs, seed s with the epoch
         generators of seeds[s] (as `fit`, so start_epoch composes); returns
-        (states, EpochMetrics of [S, epochs] numpy arrays), read once. The
-        data is placed on the device: packed runs do not stream."""
+        (states, EpochMetrics of [S, epochs] numpy arrays), read once
+        (`run_epochs_packed`). The data is placed on the device: packed
+        runs do not stream. The step graphs are released before it
+        returns."""
         if epochs <= 0:
             return states, None
         data = torch.as_tensor(self._padded_data(data_host),
                                dtype=getattr(torch, self.cfg.dtype),
                                device=self.device)
-        ms = []
-        for epoch in range(start_epoch, start_epoch + epochs):
-            states, m = self.run_epoch_packed(
-                states, data, [self.epoch_generator(s, epoch) for s in seeds])
-            ms.append(m)
-        ms = torch.stack(ms, 1).cpu().numpy()            # [S, epochs, 4]
+        try:
+            states, ms = self.run_epochs_packed(states, data, seeds,
+                                                start_epoch, epochs)
+        finally:
+            self.release_graphs()
+        ms = ms.cpu().numpy()                            # [S, epochs, 4]
         return states, EpochMetrics(*np.moveaxis(ms, -1, 0))
 
     @staticmethod

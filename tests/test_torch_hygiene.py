@@ -1,8 +1,9 @@
 """Rules of the PyTorch/CUDA port that no parity test shows: it never
 imports the JAX side (nor msgpack or ml_dtypes, which the card's machine
 lacks), it runs on CUDA unless told otherwise, its kernel wrappers take the
-plain versions only for CPU tensors, a missing nvcc is a clear error, and
-features not ported yet (a mesh, --profile) refuse to run."""
+plain versions only for CPU tensors, a missing nvcc is a clear error, a
+feature not ported yet (a mesh) refuses to run, and --profile writes a
+trace."""
 
 import os
 import pkgutil
@@ -66,7 +67,7 @@ def test_port_imports_without_jax_side():
     assert {'pgmvae_tpu_torch.' + m for m in (
         'ops._build', 'ops.fused_adam', 'train', 'driver', 'run',
         'utils.logging', 'checkpoint', 'utils.msgpack', 'gibbs',
-        'run_pipeline', '_cell_runner')} <= set(_port_modules())
+        'run_pipeline', '_cell_runner', 'graphs')} <= set(_port_modules())
 
 
 def test_no_import_line_names_the_jax_side():
@@ -234,9 +235,24 @@ def test_unported_features_raise_and_the_cli_exits_2(flags, fields, item,
     assert not (tmp_path / 'r.txt').exists()
 
 
-def test_cli_profile_exits_2(capsys, tmp_path):
-    rc = trun.main(['-n', 'nltcs', '-k', '5', '-d', '3', '--device', '-1',
+def test_cli_profile_writes_a_trace(tmp_path, monkeypatch):
+    """--profile (as the JAX CLI's, run.py:230-234) wraps the run in a
+    torch.profiler trace, written as Chrome trace JSON into the run's log
+    directory; the run's result line is written as without it."""
+    import json
+    rng = np.random.default_rng(0)
+    for split, rows in (('train', 64), ('valid', 16), ('test', 16)):
+        y = (rng.random((rows, 16)) < 0.4).astype(np.uint8)
+        with open(tmp_path / f'nltcs.{split}.data', 'w') as f:
+            f.write('\n'.join(','.join(map(str, r)) for r in y) + '\n')
+    monkeypatch.chdir(tmp_path)
+    rc = trun.main(['-n', 'nltcs', '-k', '5', '-d', '3', '-b', '32', '-e',
+                    '1', '-m', '--device', '-1', '--data-dir', str(tmp_path),
                     '--result-file', str(tmp_path / 'r.txt'), '--profile'])
-    assert rc == 2
-    assert 'ROADMAP.md A9' in capsys.readouterr().err
-    assert not (tmp_path / 'r.txt').exists()
+    assert rc == 0
+    ident = (tmp_path / 'r.txt').read_text().split(' ', 1)[0]
+    trace = tmp_path / 'logs' / 'tuning' / ident / 'trace.json'
+    with open(trace) as f:
+        events = json.load(f)['traceEvents']
+    names = {e.get('name') for e in events}
+    assert any('aten::' in str(n) for n in names), sorted(map(str, names))[:20]

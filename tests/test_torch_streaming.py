@@ -92,13 +92,16 @@ def test_streamed_start_epoch_composes_and_logs():
 
 def test_host_batches_are_the_in_core_batches():
     """The chunked host gather yields, batch for batch, what the in-core
-    epoch takes from the device (sentinel rows read row 0)."""
+    epoch takes from the device (sentinel rows read row 0): chunks of 2, 2
+    and 1 steps."""
     y = _data(2)
     tr = Trainer(CFG, 0.01, BS, N, stream_chunk_bytes=2 * ROW, device='cpu')
     perm = tr._padded_perm(tr.epoch_generator(5, 0))
     data = torch.from_numpy(y)
     want = [data.index_select(0, torch.clamp(idx, min=0)) for idx in perm]
-    got = [b.clone() for b in tr._host_batches(y, perm.numpy())]
+    chunks = [c.clone() for c in tr._host_chunks(y, perm.numpy())]
+    assert [c.shape[0] for c in chunks] == [2, 2, 1]
+    got = [b for c in chunks for b in c]
     assert len(got) == len(want) == 5
     for g, w in zip(got, want):
         assert torch.equal(g, w)
