@@ -30,7 +30,16 @@ from the host (bit-equal to in-core) and packed with three more seeds
 bbc width (14 steps); then the command line end to end on nltcs-shaped
 data, with a checkpoint, CMLL, a resume, bfloat16 Adam moments, bf16
 compute and --profile, and the sweep runner (a packed 2x2 grid, its resume
-and an isolated cell). Each phase prints one JSON line; any failed check
+and an isolated cell). The device mesh (`pgmvae_tpu_torch/parallel`): an
+NCCL world of one on the kdd cell with its collectives in the epoch's
+graph, bit-equal to the unmeshed run; `dryrun_multichip(8)` (a (4, 2) mesh
+of ranks sharing the card over gloo); a (2, 4) mesh at full bbc width
+against its single-device twin; the command line and an isolated sweep
+cell on a (2, 2) mesh. Mesh ranks are processes of their own: their
+launches come back summed over the ranks. Times taken with ranks sharing
+one card are labelled so and say nothing of a multi-GPU run. And the
+native CSV parser against the numpy path at kdd's train size. Each phase
+prints one JSON line; any failed check
 raises, so the script exits non-zero. The last three lines are the kernel
 summary, the card's name and power limit as nvidia-smi gives them, and
 `{"ok": true, "device": {...}}`.
@@ -41,6 +50,7 @@ Without a CUDA device it exits non-zero and prints no result.
 from __future__ import annotations
 
 import contextlib
+import io
 import json
 import os
 import re
@@ -64,15 +74,18 @@ NEAR_TIE_REL = 1e-5
 # one large K, the kdd sweep's train batch (alone and packed, S=4) and
 # stage-2 chunk, and a Gibbs step's (11 blocks over bbc's test split, over
 # 1,024 kdd test rows and over all 34,955; the nltcs command line's 16
-# blocks over its test split). The bfloat16 instance is timed at the same
-# shapes; its main-path shape is bbc's train batch (phase train_bf16).
+# blocks over its test split), and a rank's shard of mesh_bbc's (2, 4)
+# mesh (265 of 1060 networks: 125 rows of a train batch, 16 of a stage-2
+# chunk). The bfloat16 instance is timed at the same shapes; its main-path
+# shape is bbc's train batch (phase train_bf16).
 GIBBS_SHAPES = [(11, 330, 20, 50), (11, 1024, 10, 4096),
                 (11, 34955, 10, 4096), (16, 3236, 10, 50)]
 KERNEL_SHAPES = [(3, 9, 5, 7), (5, 32, 8, 130), (4, 17, 10, 50),
                  (2, 64, 16, 1024), (1058, 32, 20, 50), (1058, 330, 20, 50),
                  (1058, 250, 20, 50), (1058, 256, 20, 4096),
                  (64, 32, 10, 4096), (256, 32, 10, 4096),
-                 (64, 118, 10, 4096)] + GIBBS_SHAPES
+                 (64, 118, 10, 4096), (265, 125, 20, 50),
+                 (265, 16, 20, 50)] + GIBBS_SHAPES
 MAIN_SHAPE = (1058, 32, 20, 50)   # the stage-2 chunk: most main-path launches
 TIE_SPLIT = (64, 32, 10, 4096)    # ties across code tiles and strips
 BF16_MAIN_SHAPE = (1058, 250, 20, 50)
@@ -447,10 +460,29 @@ def phase_kernel_adam(moment_dtype=torch.float32):
         emit(name, shape=list(shape), unaligned=unaligned,
              steps=ADAM_STEPS, bit_equal=True)
 
-    # times over the 20 leaves of the bbc model (section train)
+    # times over the 20 leaves of the bbc model (section train), and of a
+    # rank's quarter of mesh_bbc's padded model (265 of 1060 networks)
     cfg = vqvae.VqVaeConfig(n_var=1058, units=default_units(1058, 20),
                             dim=20, num_codes=50, fan_mode='per_network')
-    params, _ = vqvae.init_model(gen, cfg)
+    row = _adam_times(cfg, gen, moment_dtype, name + '_bbc')
+    if not bf16:
+        shard = _mesh_bbc_config()
+        params, _ = vqvae.init_model(gen, shard)
+        params = vqvae.map_params(lambda p: p[:shard.n_var // MESH_BBC[1]]
+                                  .contiguous(), params)
+        _adam_times(params, gen, moment_dtype, name + '_bbc_shard')
+    return row
+
+
+def _adam_times(cfg, gen, moment_dtype, name):
+    """The Adam kernel, its plain version and (float32 moments) PyTorch's
+    fused Adam timed over the leaves of `cfg`'s model (or the params dict
+    `cfg`); one line `name`."""
+    from pgmvae_tpu_torch.models import vqvae
+    from pgmvae_tpu_torch.ops import fused_adam
+    bf16 = moment_dtype == torch.bfloat16
+    params = (cfg if isinstance(cfg, dict)
+              else vqvae.init_model(gen, cfg)[0])
     leaves = vqvae.param_leaves(params)
     grads = vqvae.map_params(
         lambda p: torch.randn(p.shape, generator=gen, device='cuda') * 0.01,
@@ -491,7 +523,7 @@ def phase_kernel_adam(moment_dtype=torch.float32):
         bound_share=bound_ms / kernel_dev, bytes_per_param=per_param,
         achieved_tb_s=per_param * numel / (ms * 1e-3) / 1e12,
         shapes=[list(p.shape) for p in leaves])
-    emit(name + '_bbc', **row)
+    emit(name, **row)
     return row
 
 
@@ -2010,6 +2042,390 @@ def phase_sweep_kdd(kdd: dict, packed_pll: float):
     return launches
 
 
+# --------------------------------------------------------- the mesh --
+
+MESH_BBC = (2, 4)                 # mesh_bbc: (data, model), 8 ranks
+MESH_CLI = ['--mesh-data', '2', '--mesh-model', '2']
+SHARED = 'gloo, 8 ranks sharing one H100'
+# the first mesh step against one device's, per leaf max|a-b| / max|b|: the
+# data axis sums each gradient in two parts, and Adam's first update
+# g / (|g| + eps) turns that rounding into a few 1e-6 of a zero-initialised
+# bias where |g| is near eps. Readings: 5.58e-6 on the H100 (param11, the
+# same in two runs), 1.4e-5 in a CPU rehearsal at n_var 60; the limit sits
+# twice above the larger. The leaves past 1e-6 are reported.
+FIRST_STEP_NORMWISE = 3e-5
+
+
+def _mesh_bbc_config():
+    """bbc's recipe with its variable axis padded to a multiple of the
+    model axis: 1060 networks, 1058 active."""
+    return _bbc_train_config()._replace(n_var=1060, n_active=1058)
+
+
+def _mesh_bbc_batch(splits):
+    """The first step's global batch: the first rows of the train split,
+    padded to the model's width, and its weights."""
+    cfg = _mesh_bbc_config()
+    y = np.zeros((250, cfg.n_var), np.float32)
+    y[:, :cfg.n_active] = splits['train'][:250]
+    return torch.as_tensor(y, device='cuda'), torch.ones(250, device='cuda')
+
+
+def _step_leaves(st) -> dict:
+    """The leaves held after the first step, by name."""
+    from pgmvae_tpu_torch.models import vqvae
+    out = {f'param{i}': x for i, x in enumerate(vqvae.param_leaves(
+        st.params))}
+    out.update({f'ema_{f}': getattr(st.ema, f)
+                for f in ('codebook', 'counts', 'dw')})
+    for m in ('mu', 'nu'):
+        out.update({f'{m}{i}': x for i, x in enumerate(
+            vqvae.param_leaves(getattr(st.opt_state, m)))})
+    return out
+
+
+def _mesh_bbc_rank(device, splits, out_dir):
+    """One rank of mesh_bbc: the layout, stage-2 counts of the initial
+    params, the first step (every rank writes its shard for the
+    comparison), then Trainer.fit for 2 epochs and stage 2."""
+    from pgmvae_tpu_torch.models import vqvae
+    from pgmvae_tpu_torch.ops import quantizer as q
+    from pgmvae_tpu_torch.parallel import MeshContext, make_mesh
+    from pgmvae_tpu_torch.stage2 import Stage2
+    from pgmvae_tpu_torch.train import Trainer, copy_state
+    torch.cuda.reset_peak_memory_stats(device)
+    ctx = MeshContext(make_mesh(*MESH_BBC, device=device))
+    cfg = _mesh_bbc_config()
+    tr = Trainer(cfg, LR, 250, splits['train'].shape[0], mesh_ctx=ctx,
+                 adam_impl='pallas')
+    st = tr.init_state(SEED)
+    lo, hi = tr.var_range
+    layout = {name: (list(x.shape), x.numel() * x.element_size())
+              for name, x in _step_leaves(st).items()}
+    s2 = Stage2(cfg, mesh_ctx=ctx)
+    n1, n0 = s2.counts(st.params, tr.codebook(st), splits['test'])
+    yb, w = _mesh_bbc_batch(splits)
+    with torch.no_grad(), _uncounted():     # a comparison's codes
+        z = vqvae.encode(st.params, ctx.local_rows(yb), lo=lo)
+        codes = q.vq_codes(z, tr.codebook(st)).cpu().numpy()
+    first, _ = tr.train_step(copy_state(st), yb, w,
+                             torch.Generator(device=device).manual_seed(7))
+    torch.save({k: v.cpu() for k, v in _step_leaves(first).items()},
+               os.path.join(out_dir, f'shard-{ctx.rank}.pt'))
+    del first
+    torch.cuda.synchronize(device)
+    t0 = time.time()
+    st, hist = tr.fit(st, splits['train'], 2, seed=SEED)
+    torch.cuda.synchronize(device)
+    fit_s = time.time() - t0
+    cb = tr.codebook(st)
+    dist = s2.cpt(st.params, cb, splits['train'])
+    pll = s2.pseudo_log_likelihood(st.params, cb, splits['test'], dist)
+    return dict(rank=ctx.rank, coords=[ctx.data_rank, ctx.model_rank],
+                var_range=[lo, hi], layout=layout,
+                counts=(n1, n0) if ctx.rank == 0 else None, codes=codes,
+                loss=[m.loss for m in hist], pll_test=pll, fit_s=fit_s,
+                steps=2 * tr.steps_per_epoch, chunk=s2.chunk,
+                backend=ctx.describe()['backend'],
+                peak_gb=torch.cuda.max_memory_allocated(device) / 1e9)
+
+
+def _normwise(a: torch.Tensor, b: torch.Tensor) -> float:
+    """max|a - b| / max|b| over a leaf (0 for two zero leaves)."""
+    gap = float((a.double() - b.double()).abs().max())
+    return gap / max(float(b.double().abs().max()), 1e-30) if gap else 0.0
+
+
+def phase_mesh_bbc():
+    """The (2, 4) mesh at full bbc width: 1060 networks (1058 active,
+    units 111, D 20, K 50, EMA, restarts at 0.25) on 8 ranks sharing the
+    card over gloo, against a single-device twin of the same padded config
+    from the same int seed. Holds: each rank's bytes of every stacked leaf
+    are the total's quarter, exactly; every rank's first-step params, EMA
+    state and moments within FIRST_STEP_NORMWISE of the twin's rows (per
+    leaf, max|a-b| / max|b|; the leaves past 1e-6 reported), leaving out
+    only the networks whose codes flip by float64-proven near-ties, and
+    bit-equal to those of the rank with the same model coordinate on data
+    rank 0; stage-2 counts of the initial params bit-equal; after 2 epochs
+    the loss within 1e-4 relative and the test PLL within 0.01 nat; the ranks' summed launches as expected. Times are
+    those of ranks sharing one card and say nothing of a multi-GPU run."""
+    from pgmvae_tpu_torch.models import vqvae
+    from pgmvae_tpu_torch.ops import quantizer as q
+    from pgmvae_tpu_torch.parallel import mesh as pmesh
+    from pgmvae_tpu_torch.stage2 import Stage2
+    from pgmvae_tpu_torch.train import Trainer, copy_state
+    cfg = _mesh_bbc_config()
+    splits = _bbc_like_splits(cfg.n_active)
+    tr = Trainer(cfg, LR, 250, splits['train'].shape[0], adam_impl='pallas')
+    with tempfile.TemporaryDirectory() as out_dir:
+        t0 = time.time()
+        ranks = pmesh.spawn(_mesh_bbc_rank, (splits, out_dir),
+                            world_size=MESH_BBC[0] * MESH_BBC[1],
+                            device='cuda:0', timeout=600,
+                            collective_timeout=300)
+        world_s = time.time() - t0
+        res = [r.value for r in ranks]
+        launches = pmesh.summed_launches(ranks)
+
+        # the single-device twin: same config, seed, batch and draws
+        st = tr.init_state(SEED)
+        with _uncounted():
+            n1, n0 = Stage2(cfg).counts(st.params, tr.codebook(st),
+                                        splits['test'])
+            yb, w = _mesh_bbc_batch(splits)
+            with torch.no_grad():
+                z = vqvae.encode(st.params, yb)
+                codes = q.vq_codes(z, tr.codebook(st))
+            cb0 = tr.codebook(st).clone()
+            first, _ = tr.train_step(copy_state(st), yb, w, torch.Generator(
+                device='cuda').manual_seed(7))
+        whole = _step_leaves(first)
+        del first
+        for r in res:                               # the layout, exactly
+            for name, (shape, nbytes) in r['layout'].items():
+                full = whole[name]
+                assert nbytes * MESH_BBC[1] == (full.numel()
+                                                * full.element_size()), (
+                    name, shape, list(full.shape))
+        # codes of the first step: each rank's rows of its networks; a
+        # network whose codes flip (on a proven near-tie) is left out of
+        # the comparison below, every other network's rows are held
+        per = -(-250 // MESH_BBC[0])
+        flips, gap, flipped = 0, 0.0, set()
+        for r in res:
+            (lo, hi), (d, _) = r['var_range'], r['coords']
+            rows = slice(d * per, min((d + 1) * per, 250))
+            mine = torch.as_tensor(r['codes'][:, :rows.stop - rows.start],
+                                   device='cuda')
+            ref = codes[lo:hi, rows]
+            m, g = near_ties(z[lo:hi, rows].contiguous(), cb0[lo:hi], mine,
+                             ref)
+            flips, gap = flips + m, max(gap, g)
+            flipped.update((lo + (mine != ref).any(1).nonzero()[:, 0])
+                           .tolist())
+        keep = torch.ones(cfg.n_var, dtype=torch.bool)
+        keep[sorted(flipped)] = False
+        # every rank's shard, in rank order (data rank 0 first): against
+        # the twin's rows, and bit-equal to its data-rank-0 replica
+        first_rel, replicas = {}, {}
+        for r in res:
+            (lo, hi), (d, m) = r['var_range'], r['coords']
+            shard = torch.load(os.path.join(out_dir, f'shard-{r["rank"]}.pt'))
+            rows = keep[lo:hi]
+            for name, x in shard.items():
+                if d == 0:
+                    replicas[m, name] = x
+                else:
+                    assert torch.equal(x, replicas[m, name]), (
+                        'a data replica drifted', r['rank'], name)
+                first_rel[name] = max(first_rel.get(name, 0.0), _normwise(
+                    x[rows].to('cuda'), whole[name][lo:hi][rows.cuda()]))
+            del shard
+        del whole, replicas
+    worst = max(first_rel.values())
+    over = sorted(((k, v) for k, v in first_rel.items() if v > 1e-6),
+                  key=lambda kv: -kv[1])
+    assert worst <= FIRST_STEP_NORMWISE, (
+        'first mesh step vs one device', over[:5])
+    mn1, mn0 = res[0]['counts']
+    np.testing.assert_array_equal(mn1, n1)          # bit-equal
+    np.testing.assert_array_equal(mn0, n0)
+
+    torch.cuda.synchronize()
+    t0 = time.time()
+    with _uncounted():
+        st, hist = tr.fit(st, splits['train'], 2, seed=SEED)
+    torch.cuda.synchronize()
+    one_fit_s = time.time() - t0
+    s2 = Stage2(cfg)
+    with _uncounted():
+        cb = tr.codebook(st)
+        dist = s2.cpt(st.params, cb, splits['train'])
+        pll = s2.pseudo_log_likelihood(st.params, cb, splits['test'], dist)
+    loss_rel = abs(res[0]['loss'][-1] - hist[-1].loss) / abs(hist[-1].loss)
+    assert loss_rel <= 1e-4, (res[0]['loss'], [m.loss for m in hist])
+    assert abs(res[0]['pll_test'] - pll) <= 0.01, (res[0]['pll_test'], pll)
+    assert all(r['pll_test'] == res[0]['pll_test'] for r in res)
+
+    steps, chunk, n_ranks = res[0]['steps'], res[0]['chunk'], len(res)
+    chunks = sum(-(-splits[s].shape[0] // chunk)
+                 for s in ('test', 'train', 'test'))
+    expect_vq = n_ranks * (1 + steps + chunks)
+    expect_adam = n_ranks * (1 + steps) * 20
+    assert launches['vq_argmin'] == expect_vq, (launches, expect_vq)
+    assert launches['adam'] == expect_adam, (launches, expect_adam)
+    emit('mesh_bbc', mesh=list(MESH_BBC), backend=res[0]['backend'],
+         timed_as=SHARED, n_var=cfg.n_var, n_active=cfg.n_active,
+         units=list(cfg.units), launches=launches,
+         first_step_normwise_max=worst, first_step_over_1e6=over,
+         first_step_flips=flips, first_step_flip_gap=gap,
+         first_step_networks_left_out=sorted(flipped),
+         first_step_replicas_bit_equal=True, counts_bit_equal=True,
+         loss=res[0]['loss'], loss_one_device=[m.loss for m in hist],
+         loss_rel=loss_rel, pll_test=res[0]['pll_test'],
+         pll_test_one_device=pll, steps=steps,
+         mesh_step_ms=1e3 * max(r['fit_s'] for r in res) / steps,
+         one_device_step_ms=1e3 * one_fit_s / steps, world_s=world_s,
+         rank_peak_gb=[r['peak_gb'] for r in res])
+    return {k: launches[k] for k in ('vq_argmin', 'adam')}
+
+
+def phase_mesh_dryrun():
+    """`dryrun_multichip(8)` on the card: a (4, 2) mesh of 8 ranks sharing
+    it over gloo, n_var 18 with 17 active, 2 EMA epochs and stage 2 against
+    the single-device replay, and the restart step, at the JAX package's
+    tolerances; printed beside MULTICHIP_r05.json's line (the JAX package
+    on 8 CPU devices)."""
+    from pgmvae_tpu_torch.__graft_entry__ import dryrun_report
+    t0 = time.time()
+    report = dryrun_report(8, device='cuda')
+    seconds = time.time() - t0
+    print(report['line'], flush=True)
+    with open(os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                           'MULTICHIP_r05.json')) as f:
+        jax_line = json.load(f)['tail'].strip()
+    emit('mesh_dryrun', line=report['line'], jax_line=jax_line,
+         launches=report['launches'], seconds=seconds)
+    return report['launches']
+
+
+def _nccl_rank(device, y, graphs):
+    """One NCCL rank (a world of one) training the kdd cell for one epoch
+    through the mesh step; returns its state and how the epoch ran."""
+    from pgmvae_tpu_torch.parallel import MeshContext, make_mesh
+    from pgmvae_tpu_torch.train import Trainer
+    ctx = MeshContext(make_mesh(1, 1, device=device))
+    tr = Trainer(_kdd_config(), KDD_LR, KDD_BATCH, len(y), mesh_ctx=ctx,
+                 adam_impl='pallas', graphs=graphs)
+    st, hist = tr.fit(_kdd_init(tr), y, 1, seed=KDD_SEED)
+    return dict(backend=ctx.describe()['backend'],
+                leaves=[x.cpu() for x in _state_leaves(st)],
+                loss=hist[0].loss, graph=tr.graph_stats.get('epoch'))
+
+
+def phase_mesh_nccl(kdd: dict):
+    """An NCCL world of one on the kdd cell (200 steps): the mesh step with
+    its collectives captured into the epoch's graph, held bit-equal to the
+    unmeshed graph run (an all-reduce over one rank changes nothing). If
+    the capture fails, the eager mesh step is held instead, and the line
+    says so."""
+    from pgmvae_tpu_torch.parallel import mesh as pmesh
+    from pgmvae_tpu_torch.train import Trainer
+    y = kdd['y']
+    captured, error = True, None
+    try:
+        ranks = pmesh.spawn(_nccl_rank, (y, True), world_size=1,
+                            device='cuda:0', timeout=300,
+                            collective_timeout=120)
+    except Exception as e:  # noqa: BLE001 — reported, the eager step held
+        captured, error = False, f'{type(e).__name__}: {str(e)[-800:]}'
+        ranks = pmesh.spawn(_nccl_rank, (y, False), world_size=1,
+                            device='cuda:0', timeout=300,
+                            collective_timeout=120)
+    got = ranks[0].value
+    assert got['backend'] == 'nccl', got['backend']
+    with _uncounted():
+        tr = Trainer(_kdd_config(), KDD_LR, KDD_BATCH, len(y),
+                     adam_impl='pallas')
+        st, hist = tr.fit(_kdd_init(tr), y, 1, seed=KDD_SEED)
+    ref = _state_leaves(st)
+    bad = [i for i, (a, b) in enumerate(zip(got['leaves'], ref, strict=True))
+           if not torch.equal(a.to('cuda'), b)]
+    assert not bad, ('NCCL mesh epoch vs unmeshed graph epoch', bad[:8])
+    emit('mesh_nccl', backend='nccl', world=1, captured=captured,
+         capture_error=error, graph=got['graph'], steps=tr.steps_per_epoch,
+         loss=got['loss'], loss_unmeshed=hist[0].loss,
+         bit_equal_leaves=len(ref), launches=ranks[0].launches)
+    return ranks[0].launches
+
+
+def phase_cli_mesh():
+    """The command line with the reference flags and a (2, 2) mesh for one
+    epoch on nltcs-shaped splits, and the sweep runner's isolated cell
+    with the same mesh: the JAX identifier of the unmeshed run, PLLs within
+    0.01 nat of it, the backend and the ranks' devices recorded."""
+    from pgmvae_tpu_torch import run_pipeline
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        _write_nltcs_like(tmp)
+        rc, lines, _, one_s = _cli(tmp, ['-e', '1', '--adam-impl', 'pallas'])
+        assert rc == 0 and len(lines) == 1, (rc, lines)
+        ident, rest = lines[0].split(' ', 1)
+        one = {k: float(v) for k, v in (kv.split(':') for kv in rest.split())}
+        err = io.StringIO()
+        with contextlib.redirect_stderr(err):
+            rc, lines, _, mesh_s = _cli(tmp, ['-e', '1', '--adam-impl',
+                                              'pallas'] + MESH_CLI)
+        assert rc == 0 and len(lines) == 1, (rc, lines, err.getvalue())
+        m_ident, rest = lines[0].split(' ', 1)
+        got = {k: float(v) for k, v in (kv.split(':') for kv in rest.split())}
+        assert m_ident == ident, (m_ident, ident)
+        for k in ('pll-train', 'pll-valid', 'pll-test'):
+            assert abs(got[k] - one[k]) <= 0.01, (k, got[k], one[k])
+        mesh = json.loads(next(line for line in err.getvalue().splitlines()
+                               if line.startswith('mesh: '))[6:])
+        assert mesh['backend'] == 'gloo' and mesh['shape'] == [2, 2], mesh
+        assert mesh['devices'] == ['cuda:0'] * 4, mesh
+        out['cli'] = dict(identifier=ident, pll=got, pll_one_device=one,
+                          mesh=mesh, seconds=mesh_s, one_device_s=one_s)
+
+        flags = ['-n', 'nltcs', '-k', '50', '-d', '10', '-b', '128', '-e',
+                 '1', '-r', '0.01', '-c', '0.25', '-m', '-s', '1',
+                 '--adam-impl', 'pallas', '--isolate', '--cell-timeout',
+                 '300'] + MESH_CLI
+        rc, lines, _, pipe_s = _cli(tmp, flags, module=run_pipeline, base=[])
+        assert rc == 0 and len(lines) == 1, (rc, lines)
+        with open(os.path.join(tmp, 'logs', 'sweep-joblog.jsonl')) as f:
+            rec = [json.loads(line) for line in f][-1]
+        assert rec['ok'] and rec['identifier'] == ident, rec
+        assert abs(rec['pll_test'] - one['pll-test']) <= 0.01, rec
+        assert rec['mesh']['backend'] == 'gloo', rec['mesh']
+        assert rec['mesh']['devices'] == ['cuda:0'] * 4, rec['mesh']
+        out['sweep'] = dict(identifier=rec['identifier'],
+                            pll_test=rec['pll_test'], mesh=rec['mesh'],
+                            cell_process=rec['cell_process'],
+                            seconds=pipe_s)
+    launches = {k: mesh['launches'][k] + rec['mesh']['launches'][k]
+                for k in mesh['launches']}
+    emit('cli_mesh', launches=launches, **out)
+    return launches
+
+
+def phase_native_csv():
+    """The port's native CSV parser, built here from native/fastcsv.cpp,
+    against the numpy path on a CSV of kdd's train size (180,092 x 64):
+    equal arrays, and the seconds of each path."""
+    from pgmvae_tpu_torch.data import loader, native
+    from pgmvae_tpu_torch.registry import REGISTRY
+    info = REGISTRY['kdd']
+    rng = np.random.default_rng(SEED)
+    y = (rng.random((info.n_train, info.n_var)) < 0.1).astype(np.uint8)
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, 'kdd.train.data')
+        text = np.full((y.shape[0], 2 * info.n_var), ord(','), np.uint8)
+        text[:, ::2] = y + ord('0')
+        text[:, -1] = ord('\n')
+        text.tofile(path)
+        t0 = time.time()
+        assert native.unavailable() is None, native.unavailable()
+        build_s = time.time() - t0
+        before = native.PARSES
+        t0 = time.time()
+        got = loader.load_binary_csv(path, info.n_var)
+        native_s = time.time() - t0
+        assert native.PARSES == before + 1, 'the native path was not taken'
+        with mock.patch.object(native, 'parse_binary_csv',
+                               lambda *a: None):
+            t0 = time.time()
+            ref = loader.load_binary_csv(path, info.n_var)
+            numpy_s = time.time() - t0
+    np.testing.assert_array_equal(got, y)
+    np.testing.assert_array_equal(got, ref)
+    emit('native_csv', rows=info.n_train, n_var=info.n_var,
+         library=native.library_path().name, build_s=build_s,
+         native_s=native_s, numpy_s=numpy_s, equal=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device; nothing was run', file=sys.stderr)
@@ -2017,6 +2433,7 @@ def main() -> int:
     t_start = time.time()
     smi = phase_device()
     phase_build()
+    phase_native_csv()
     rows, kernel_err = phase_kernel()
     rows_bf16, kernel_bf16_err = phase_kernel(torch.bfloat16)
     adam_row = phase_kernel_adam()
@@ -2034,11 +2451,15 @@ def main() -> int:
     packed_launches, packed_gap, packed_pll = phase_packed_kdd(kdd, turns)
     sweep_kdd_launches = phase_sweep_kdd(kdd, packed_pll)
     epochs_launches = phase_run_epochs(kdd)
+    nccl_launches = phase_mesh_nccl(kdd)
     splits = kdd['splits']
     del kdd
     full_launches = phase_train_kdd_full(splits)
     del splits
     cli_launches = phase_cli()
+    dryrun_launches = phase_mesh_dryrun()
+    mesh_bbc_launches = phase_mesh_bbc()
+    cli_mesh_launches = phase_cli_mesh()
     main_row = rows[('shape',) + MAIN_SHAPE]
     bf16_row = rows_bf16[('shape',) + BF16_MAIN_SHAPE]
     emit('done', seconds=time.time() - t_start, device_ms_by=DEVICE_TIMER)
@@ -2054,7 +2475,11 @@ def main() -> int:
                 'run_epochs_packed':
                     epochs_launches['run_epochs_packed']['vq_argmin'],
                 'train_kdd_full': full_launches['vq_argmin'],
-                'cli': cli_launches['vq_argmin']}
+                'cli': cli_launches['vq_argmin'],
+                'mesh_nccl': nccl_launches['vq_argmin'],
+                'mesh_dryrun': dryrun_launches['vq_argmin'],
+                'mesh_bbc': mesh_bbc_launches['vq_argmin'],
+                'cli_mesh': cli_mesh_launches['vq_argmin']}
     vq_bf16_paths = {'train_bf16': bf16_launches['vq_argmin_bf16'],
                      'cli': cli_launches['vq_argmin_bf16']}
     adam_paths = {'serving': 0, 'train': train_launches['adam'],
@@ -2068,7 +2493,11 @@ def main() -> int:
                   'run_epochs_packed':
                       epochs_launches['run_epochs_packed']['adam'],
                   'train_kdd_full': full_launches['adam'],
-                  'cli': cli_launches['adam']}
+                  'cli': cli_launches['adam'],
+                  'mesh_nccl': nccl_launches['adam'],
+                  'mesh_dryrun': dryrun_launches['adam'],
+                  'mesh_bbc': mesh_bbc_launches['adam'],
+                  'cli_mesh': cli_mesh_launches['adam']}
     timed = ('ms', 'device_ms', 'plain_ms', 'plain_device_ms',
              'bound_ms', 'bound_by', 'library_ms', 'library_device_ms')
     print(json.dumps({'kernels': [{

@@ -3,7 +3,8 @@
     python -m pgmvae_tpu_torch._cell_runner
 
 with the cell's ExperimentConfig fields as one JSON object on stdin, plus
-`_device` (-1 is the CPU, else a CUDA device index) and, for a packed group,
+`_device` (-1 is the CPU, else a CUDA device index), `_mesh_timeout` (the
+seconds a mesh cell's spawned ranks may run) and, for a packed group,
 `_packed`: the list of its cells' fields. It prints the result (a dict, or
 for a packed group a list of dicts) as the last line of its stdout. Each
 result carries `cell_process`: the device the process ran on and its kernel
@@ -26,18 +27,21 @@ def _config(fields: dict):
 
 
 def main() -> int:
-    from pgmvae_tpu_torch.driver import run_experiment, run_packed_experiments
+    from pgmvae_tpu_torch.driver import (MESH_TIMEOUT, run_experiment,
+                                         run_packed_experiments)
     from pgmvae_tpu_torch.ops import cuda_vq, fused_adam
 
     kw = json.load(sys.stdin)
     index = kw.pop('_device', 0)
     device = 'cpu' if index == -1 else f'cuda:{index}'
     packed = kw.pop('_packed', None)
+    mesh_timeout = kw.pop('_mesh_timeout', MESH_TIMEOUT)
     if packed is not None:
         res = run_packed_experiments([_config(c) for c in packed],
                                      device=device)
     else:
-        res = run_experiment(_config(kw), device=device)
+        res = run_experiment(_config(kw), device=device,
+                             mesh_timeout=mesh_timeout)
     process = {'device': device, 'launches': {
         'vq_argmin': cuda_vq.LAUNCHES, 'vq_argmin_bf16': cuda_vq.LAUNCHES_BF16,
         'adam': fused_adam.LAUNCHES, 'adam_bf16': fused_adam.LAUNCHES_BF16}}

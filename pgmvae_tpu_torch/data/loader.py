@@ -1,10 +1,10 @@
 """Host-side loading of the TRW benchmark CSVs.
 
 The TRW files are strictly single-char `0`/`1` CSV, so each row is exactly
-`2*n_var` bytes (`n_var` digits + `n_var-1` commas + newline) and parses by
-reshaping the raw byte buffer. Files of any other layout go through
-`np.genfromtxt`. (The JAX package also has a native multithreaded parser;
-the port does not carry it yet.)
+`2*n_var` bytes (`n_var` digits + `n_var-1` commas + newline). They are read
+by the native multithreaded parser (`data/native.py`) where it runs, else by
+reshaping the raw byte buffer with numpy; files of any other layout go
+through `np.genfromtxt`.
 
 Leave-one-out views are never materialized on the training path (each
 network masks its own variable inside the model); `leave_one_out_index` and
@@ -23,7 +23,14 @@ from pgmvae_tpu_torch import registry
 
 
 def load_binary_csv(path: str, n_var: int) -> np.ndarray:
-    """Load a 0/1 CSV with `n_var` columns into a uint8 array [N, n_var]."""
+    """Load a 0/1 CSV with `n_var` columns into a uint8 array [N, n_var].
+
+    Path order, as the JAX package's: the native parser, the numpy
+    byte-stride parse, `np.genfromtxt`."""
+    from pgmvae_tpu_torch.data import native
+    arr = native.parse_binary_csv(path, n_var)
+    if arr is not None:
+        return arr
     with open(path, 'rb') as f:
         buf = f.read()
     row_bytes = 2 * n_var  # digits + commas + '\n'

@@ -1,5 +1,5 @@
 """Experiment driver: one (dataset x hyperparameters) cell, end to end (the
-port of `pgmvae_tpu/driver.py`, single device).
+port of `pgmvae_tpu/driver.py`).
 
 `run_packed_experiments` runs cells that differ only in seed as one packed
 program (`Trainer.fit_packed`), then stage 2 per seed.
@@ -11,11 +11,22 @@ joint-CPT records (with a mixture's own CMLL and `<checkpoint>.mix`). It
 returns a plain dict, as the JAX package's does. `ExperimentConfig` is the
 port's own copy of the JAX package's, with the same fields, defaults,
 checks and identifier.
+
+A device mesh (`mesh_data` x `mesh_model` > 1): the variable axis is padded
+up to a multiple of `mesh_model` with inert networks (`n_active` threads the
+true count through), the default units widen with `mesh_model`, and every
+rank runs `run_experiment` under one `MeshContext`. Called outside a world,
+`run_experiment` spawns the ranks itself (`parallel.mesh.spawn`) and returns
+rank 0's result, with the mesh's shape, backend, the ranks' devices and
+their summed kernel launches under 'mesh'. Only rank 0 writes logs and
+checkpoints; the CMLL runs on rank 0 with the gathered model while the
+other ranks wait.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import sys
 import time
 from typing import Optional, Tuple
 
@@ -157,31 +168,32 @@ def _check_naive_dim(quantizer: str, dim: int) -> None:
 
 def unported(exp: ExperimentConfig) -> list:
     """What `exp` asks for that the port does not do yet, one message per
-    feature, each naming its ROADMAP.md item; empty when it can run."""
-    out = []
-    if exp.mesh_data * exp.mesh_model > 1:
-        out.append(f'a device mesh (mesh_data={exp.mesh_data}, '
-                   f'mesh_model={exp.mesh_model}): ROADMAP.md A11, '
-                   f'multi-GPU')
-    return out
+    feature, each naming its ROADMAP.md item; empty when it can run, as
+    every cell now can."""
+    return []
 
 
 def _cmll(exp, cfg, params, codebook, dist, y_test, parents, device,
-          verbose=False):
+          verbose=False, mesh=None):
     """A Gibbs CMLL of the test split with the reference's settings
     (p1 = n_var // 10, 3000 sweeps, burn-in 150; reference run.py:74),
-    uniforms from a generator seeded with exp.seed."""
+    uniforms from a generator seeded with exp.seed. Under a mesh, params
+    and codebook are the gathered model and the chain runs on rank 0."""
     from pgmvae_tpu_torch import gibbs
-    return gibbs.conditional_marginal_log_likelihood(
-        params, codebook, cfg, dist, y_test,
-        p1=max(y_test.shape[1] // 10, 1), num_smp=3000, burn_in=150,
-        generator=torch.Generator(device=device).manual_seed(exp.seed),
-        verbose=verbose, parents=parents)
+    from pgmvae_tpu_torch.parallel.mesh import MeshContext
+
+    def chain():
+        return gibbs.conditional_marginal_log_likelihood(
+            params, codebook, cfg, dist, y_test,
+            p1=max(y_test.shape[1] // 10, 1), num_smp=3000, burn_in=150,
+            generator=torch.Generator(device=device).manual_seed(exp.seed),
+            verbose=verbose, parents=parents)
+    return (mesh or MeshContext(None)).on_rank0(chain)
 
 
 def _posthoc_cpt_records(exp, cfg, params, codebook, y_train, y_valid,
                          y_test, primary_id, platform, device,
-                         state=None) -> list:
+                         state=None, mesh=None, full=None) -> list:
     """One stage-2 record per M in exp.cpt_parents_eval, computed from the
     trained `params` (see ExperimentConfig.cpt_parents_eval), and with
     exp.cpt_parents_mix one more record in which each variable keeps the M
@@ -189,7 +201,9 @@ def _posthoc_cpt_records(exp, cfg, params, codebook, y_train, y_valid,
     With exp.cmll the mix record gets its own CMLL over the winners'
     tables composed into one joint CPT (stage2.compose_mixed_cpt, exact);
     with exp.checkpoint (and `state` given) those tables are saved to
-    `<checkpoint>.mix`, which PgmModel.from_checkpoint serves."""
+    `<checkpoint>.mix`, which PgmModel.from_checkpoint serves. Under a
+    `mesh`, `full()` gives the gathered state for the CMLL and the file,
+    which rank 0 alone computes and writes."""
     from pgmvae_tpu_torch.stage2 import Stage2, select_parents
 
     splits = (('train', y_train), ('valid', y_valid), ('test', y_test))
@@ -204,7 +218,7 @@ def _posthoc_cpt_records(exp, cfg, params, codebook, y_train, y_valid,
     for m in loop_ms:
         te = time.time()
         par = select_parents(y_train, m) if m > 0 else None
-        s2m = Stage2(cfg, parents=par, device=device)
+        s2m = Stage2(cfg, mesh_ctx=mesh, parents=par, device=device)
         dist_m = s2m.cpt(params, codebook, y_train)
         if keep_tables:
             dists_by_m[m] = dist_m
@@ -250,11 +264,13 @@ def _posthoc_cpt_records(exp, cfg, params, codebook, y_train, y_valid,
             from pgmvae_tpu_torch.stage2 import compose_mixed_cpt
             sel_ms = np.asarray(cands, np.int32)[sel]
             mdist, mpar = compose_mixed_cpt(dists_by_m, parents_by_m, sel_ms)
+            whole = full() if mesh is not None else None
             if exp.cmll:
                 tcm = time.time()
                 # the same Gibbs settings as the cell's own CMLL
-                records[-1]['cmll_test'] = _cmll(exp, cfg, params, codebook,
-                                                 mdist, y_test, mpar, device)
+                records[-1]['cmll_test'] = _cmll(
+                    exp, cfg, *_model_of(whole, params, codebook), mdist,
+                    y_test, mpar, device, mesh=mesh)
                 records[-1]['cmll_wall'] = round(time.time() - tcm, 3)
                 records[-1]['cmll_m_max'] = int(sel_ms.max(initial=0))
             if exp.checkpoint and state is not None:
@@ -263,14 +279,28 @@ def _posthoc_cpt_records(exp, cfg, params, codebook, y_train, y_valid,
                          'mix_m_histogram': records[-1]['mix_m_histogram']}
                 if mpar is not None:
                     extra['cpt_parents'] = mpar.tolist()
-                ckpt.save(exp.checkpoint + '.mix', cfg, state, mdist,
-                          extra=extra)
+                if mesh is None or mesh.rank == 0:
+                    ckpt.save(exp.checkpoint + '.mix', cfg,
+                              state if whole is None else whole, mdist,
+                              extra=extra)
                 records[-1]['checkpoint'] = exp.checkpoint + '.mix'
     return records
 
 
+def _model_of(whole, params, codebook) -> tuple:
+    """(params, codebook) of the gathered state `whole`, else the given
+    ones."""
+    if whole is None:
+        return params, codebook
+    cb = whole.ema.codebook if whole.ema is not None else (
+        whole.params.get('codebook'))
+    return whole.params, cb
+
+
 def _model_config(exp: ExperimentConfig):
-    """The VqVaeConfig of a cell and its dataset's registry entry."""
+    """The VqVaeConfig of a cell and its dataset's registry entry. With
+    mesh_model > 1 the default units widen with it, and the variable axis
+    is padded up to a multiple of it with inert networks."""
     from pgmvae_tpu_torch.models.vqvae import VqVaeConfig
     from pgmvae_tpu_torch.registry import REGISTRY
     if exp.name not in REGISTRY:
@@ -279,8 +309,14 @@ def _model_config(exp: ExperimentConfig):
     info = REGISTRY[exp.name]
     quantizer = exp.quantizer or ('ema' if exp.ema else 'vq')
     _check_naive_dim(quantizer, exp.dim)
-    units = tuple(exp.units) if exp.units else info.encoder_units(exp.dim)
-    cfg = VqVaeConfig(n_var=info.n_var, units=units, dim=exp.dim,
+    units = tuple(exp.units) if exp.units else info.encoder_units(
+        exp.dim, mesh_model=exp.mesh_model)
+    n_var, n_active = info.n_var, None
+    if exp.mesh_model > 1 and n_var % exp.mesh_model:
+        n_active = n_var
+        n_var = -(-n_var // exp.mesh_model) * exp.mesh_model
+    cfg = VqVaeConfig(n_var=n_var, n_active=n_active, units=units,
+                      dim=exp.dim,
                       num_codes=exp.embedding, cost=exp.cost, decay=exp.decay,
                       quantizer=quantizer, zero_debias=exp.zero_debias,
                       dead_code_threshold=exp.dead_code_threshold,
@@ -305,8 +341,11 @@ def _evaluate(exp, cfg, info, trainer, s2, state, splits, parents, device,
     """The result of one trained cell: the stage-2 CPT and the PLL of the
     three `splits` (train, valid, test), the CMLL with exp.cmll, the
     checkpoint with exp.checkpoint and the post-hoc records with
-    exp.cpt_parents_eval, as the plain dict the JAX package returns."""
+    exp.cpt_parents_eval, as the plain dict the JAX package returns. Under
+    a mesh every rank takes part in stage 2 and the gathers; rank 0 alone
+    writes the checkpoint."""
     y_train, y_valid, y_test = splits
+    mesh = trainer.mesh if trainer.mesh.mesh is not None else None
     codebook = trainer.codebook(state)
     t1 = time.time()
     dist = s2.cpt(state.params, codebook, y_train)
@@ -314,12 +353,23 @@ def _evaluate(exp, cfg, info, trainer, s2, state, splits, parents, device,
            for split, y in zip(('train', 'valid', 'test'), splits)}
     eval_wall = time.time() - t1
 
+    gathered = []
+
+    def full():
+        """The state gathered over 'model' once (a collective: every rank
+        calls it at the same point)."""
+        if not gathered:
+            gathered.append(trainer.unshard_state(state))
+        return gathered[0]
+
     cmll_test = 1  # the reference hardcodes 1 when CMLL is off (run.py:77)
     cmll_wall = None
     if exp.cmll:
         t2 = time.time()
-        cmll_test = _cmll(exp, cfg, state.params, codebook, dist, y_test,
-                          parents, device, verbose=exp.verbose)
+        cmll_test = _cmll(
+            exp, cfg, *_model_of(full() if mesh else None, state.params,
+                                 codebook),
+            dist, y_test, parents, device, verbose=exp.verbose, mesh=mesh)
         cmll_wall = round(time.time() - t2, 3)
 
     if exp.checkpoint:
@@ -327,7 +377,9 @@ def _evaluate(exp, cfg, info, trainer, s2, state, splits, parents, device,
         extra = {'identifier': exp.identifier, 'pll': pll}
         if parents is not None:
             extra['cpt_parents'] = parents.tolist()
-        ckpt.save(exp.checkpoint, cfg, state, dist, extra=extra)
+        whole = full() if mesh else state
+        if mesh is None or mesh.rank == 0:
+            ckpt.save(exp.checkpoint, cfg, whole, dist, extra=extra)
 
     # the primary record's identity is independent of the post-hoc eval
     # list (training and the primary stage 2 never see it)
@@ -348,10 +400,12 @@ def _evaluate(exp, cfg, info, trainer, s2, state, splits, parents, device,
         result['best_epoch'] = best_epoch
     if cmll_wall is not None:
         result['cmll_wall'] = cmll_wall
+    if mesh is not None:
+        result['mesh'] = mesh.describe()
     if exp.cpt_parents_eval:
         result['posthoc'] = _posthoc_cpt_records(
             exp, cfg, state.params, codebook, y_train, y_valid, y_test,
-            primary_id, platform, device, state=state)
+            primary_id, platform, device, state=state, mesh=mesh, full=full)
     return result
 
 
@@ -446,12 +500,45 @@ def run_packed_experiments(exps, device=None) -> list:
     return results
 
 
-def run_experiment(exp: ExperimentConfig, device=None) -> dict:
-    """Stage-1 train + stage-2 CPT/PLL on `device` (None means CUDA)."""
+# seconds a spawned mesh world may run before it is terminated: a rank
+# stuck outside a collective would otherwise keep the caller waiting
+MESH_TIMEOUT = 24 * 3600.0
+
+
+def _experiment_rank(device, exp: ExperimentConfig) -> dict:
+    """One rank of a spawned mesh run (`parallel.mesh.spawn`)."""
+    return run_experiment(exp, device=device)
+
+
+def _run_spawned(exp: ExperimentConfig, device, timeout: float) -> dict:
+    """A mesh cell from outside a world: one process per rank, rank 0's
+    result, with the ranks' devices and summed kernel launches. A world
+    that runs past `timeout` seconds is terminated and raises
+    TimeoutError."""
+    from pgmvae_tpu_torch.parallel import mesh as pmesh
+    ranks = exp.mesh_data * exp.mesh_model
+    backend, devices = pmesh.placement(ranks, device)
+    print(f'mesh ({exp.mesh_data}, {exp.mesh_model}): {ranks} ranks over '
+          f'{backend} on {", ".join(devices)}', file=sys.stderr, flush=True)
+    results = pmesh.spawn(_experiment_rank, (exp,), world_size=ranks,
+                          device=device, timeout=timeout)
+    res = results[0].value
+    res['mesh'].update(devices=[r.device for r in results],
+                       launches=pmesh.summed_launches(results))
+    return res
+
+
+def run_experiment(exp: ExperimentConfig, device=None,
+                   mesh_timeout: float = MESH_TIMEOUT) -> dict:
+    """Stage-1 train + stage-2 CPT/PLL on `device` (None means CUDA). A
+    mesh cell outside a torch.distributed world spawns its ranks (see the
+    module doc) and fails if they run past `mesh_timeout` seconds."""
     from pgmvae_tpu_torch import checkpoint as ckpt
     from pgmvae_tpu_torch import resolve_device
     from pgmvae_tpu_torch.data.loader import load_split
     from pgmvae_tpu_torch.models.vqvae import VqVaeConfig
+    from pgmvae_tpu_torch.parallel.mesh import (MeshContext, in_world,
+                                                make_mesh)
     from pgmvae_tpu_torch.stage2 import Stage2, select_parents
     from pgmvae_tpu_torch.train import Trainer, copy_state
     from pgmvae_tpu_torch.utils.logging import MetricLogger
@@ -463,16 +550,22 @@ def run_experiment(exp: ExperimentConfig, device=None) -> dict:
             f'run_packed_experiments / run_pipeline --pack-seeds '
             f'{exp.packed_seeds} (unpacked training follows a numerically '
             f'different trajectory)')
-    missing = unported(exp)
-    if missing:
-        raise NotImplementedError('not ported yet: ' + '; '.join(missing))
     cfg, info = _model_config(exp)
     device = resolve_device(device)
-    logger = MetricLogger(exp.log_dir) if exp.log_dir else None
+    mesh_ctx = MeshContext(None)
+    if exp.mesh_data * exp.mesh_model > 1:
+        if not in_world():
+            return _run_spawned(exp, device, mesh_timeout)
+        mesh_ctx = MeshContext(make_mesh(exp.mesh_data, exp.mesh_model,
+                                         device))
+    # rank 0 alone writes the logs
+    logger = (MetricLogger(exp.log_dir)
+              if exp.log_dir and mesh_ctx.rank == 0 else None)
 
     y_train = load_split(exp.name, 'train', exp.data_dir)
     trainer = Trainer(cfg, exp.rate, exp.batch, len(y_train),
-                      adam_impl=exp.adam_impl, device=device)
+                      mesh_ctx=mesh_ctx, adam_impl=exp.adam_impl,
+                      device=device)
     state = trainer.init_state(exp.seed)
     if exp.resume:
         saved_cfg, state, _, _ = ckpt.load(exp.resume, state_template=state)
@@ -491,9 +584,10 @@ def run_experiment(exp: ExperimentConfig, device=None) -> dict:
             raise ValueError(
                 f'--resume {exp.resume}: checkpoint config does not match the '
                 f'requested run: ' + '; '.join(mismatches))
+        state = trainer.shard_state(state)
     parents = (select_parents(y_train, exp.cpt_parents)
                if exp.cpt_parents > 0 else None)
-    s2 = Stage2(cfg, parents=parents, device=device)
+    s2 = Stage2(cfg, mesh_ctx=mesh_ctx, parents=parents, device=device)
     log_fn = logger.log_epoch if logger else None
     y_valid = load_split(exp.name, 'valid', exp.data_dir)
     y_test = load_split(exp.name, 'test', exp.data_dir)

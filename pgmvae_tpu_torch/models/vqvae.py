@@ -18,6 +18,11 @@ Packed seeds (`seeds=S`): S models stacked on axis 0, every leaf
 [S * n, ...], each with its own batch, y [S, B, n_var]; a layer is still one
 `torch.baddbmm`, now over S * n networks. bf16 compute passes bfloat16
 params and samples: the layers run in bfloat16 and the mask takes y's dtype.
+
+A shard of the variable axis (a device mesh's model rank, `lo`): the leaves
+hold networks [lo, lo + n_local) of n_var, and each network's inert input
+is its GLOBAL variable: the mask's zero sits at column lo + i of row i, and
+the rank-1 first layer's diagonal is W[i, lo + i, :].
 """
 
 from __future__ import annotations
@@ -164,20 +169,29 @@ def _dense_stack(layers, x, activation):
 FIRST_LAYER_RANK1_BYTES = 4 << 30
 
 
-def _diag(w0):
-    """W[..., v, v, :] of a first-layer kernel [..., n, n, o] -> [..., n, o]."""
-    return torch.diagonal(w0, dim1=-3, dim2=-2).transpose(-1, -2)
+def _diag(w0, lo: int = 0):
+    """W[..., v, lo + v, :] of a first-layer kernel [..., n, n_var, o] ->
+    [..., n, o] (lo: the shard's first network)."""
+    return torch.diagonal(w0, offset=lo, dim1=-3, dim2=-2).transpose(-1, -2)
 
 
-def _rank1_linear(w0, y):
+def _own_inputs(y, lo: int, n: int):
+    """y's columns lo .. lo + n - 1 as [..., n, B, 1]: each network's own
+    variable."""
+    return y.transpose(-1, -2).narrow(-2, lo, n)[..., None]
+
+
+def _rank1_linear(w0, y, lo: int = 0):
     """sum_i y_i W[v,i,o] - y_v W[v,v,o]: the masked first layer's linear
-    map without the [n, B, n] masked input. w0 [n, n, o] and y [B, n], or
-    with a leading seed axis, w0 [S, n, n, o] and y [S, B, n]."""
+    map without the [n, B, n] masked input. w0 [n, n_var, o] and y
+    [B, n_var], or with a leading seed axis, w0 [S, n, n, o] and y
+    [S, B, n]; network v of a shard starting at `lo` is variable lo + v."""
     if w0.dim() == 3:
         base = torch.matmul(y, w0)                                   # [n,B,o]
     else:   # one sample batch per seed: 'sbi,snio->snbo'
         base = torch.matmul(y.unsqueeze(-3), w0)                     # [S,n,B,o]
-    return base - y.transpose(-1, -2)[..., None] * _diag(w0)[..., None, :]
+    return base - (_own_inputs(y, lo, w0.shape[-3])
+                   * _diag(w0, lo)[..., None, :])
 
 
 class _Rank1Linear(torch.autograd.Function):
@@ -188,43 +202,51 @@ class _Rank1Linear(torch.autograd.Function):
     diagonal; the masked path gets its exact zero from the zeroed input."""
 
     @staticmethod
-    def forward(ctx, w0, y):
+    def forward(ctx, w0, y, lo=0):
         ctx.save_for_backward(w0, y)
-        return _rank1_linear(w0, y)
+        ctx.lo = lo
+        return _rank1_linear(w0, y, lo)
 
     @staticmethod
     def backward(ctx, g):
         w0, y = ctx.saved_tensors
+        lo, n = ctx.lo, w0.shape[-3]
         gw = torch.einsum('...bi,...nbo->...nio', y, g).contiguous()
-        gw.diagonal(dim1=-3, dim2=-2).zero_()
+        gw.diagonal(offset=lo, dim1=-3, dim2=-2).zero_()
         gy = None
         if ctx.needs_input_grad[1]:
+            own = torch.einsum('...nbo,...no->...bn', g, _diag(w0, lo))
             gy = (torch.einsum('...nbo,...nio->...bi', g, w0)
-                  - torch.einsum('...nbo,...no->...bn', g, _diag(w0)))
-        return gw, gy
+                  - F.pad(own, (lo, y.shape[-1] - lo - n)))
+        # one gradient an input: (w0, y) or (w0, y, lo)
+        return (gw, gy, None)[:len(ctx.needs_input_grad)]
 
 
-def _first_layer_rank1(w0, b0, y, act):
+def _first_layer_rank1(w0, b0, y, act, lo: int = 0):
     """First encoder layer without materializing the [n, B, n] masked input:
     act(sum_i y_i W[v,i,o] - y_v W[v,v,o] + b), one matmul shared by all n
     networks plus a rank-1 diagonal correction."""
-    return act(_Rank1Linear.apply(w0, y) + b0)
+    return act(_Rank1Linear.apply(w0, y, lo) + b0)
 
 
 def encode(params, y: torch.Tensor,
            var_ids: Optional[torch.Tensor] = None,
            activation: str = 'selu',
            first_layer: str = 'masked',
-           seeds: Optional[int] = None) -> torch.Tensor:
+           seeds: Optional[int] = None, lo: int = 0) -> torch.Tensor:
     """Samples y [B, n_var] (or [F, B, n_var], one state per selected
     network) -> latents z [F, B, D]. Network f sees y with its own
     variable's input masked to zero. `var_ids` selects a subset of networks;
     params must already be gathered to match (see gather_variables). With
     `seeds`, y is [S, B, n_var] and params hold S stacks of n_var networks:
-    z is [S * n_var, B, D]."""
+    z is [S * n_var, B, D]. `lo`: params hold a shard of the variable axis,
+    networks lo .. lo + n_local - 1."""
     w0, b0 = params['enc'][0]
     n_var = w0.shape[1]
     act = activation_fn(activation)
+    rows = var_ids
+    if var_ids is None and seeds is None and (lo or w0.shape[0] != n_var):
+        rows = torch.arange(lo, lo + w0.shape[0], device=y.device)
     # rank1 needs the shared-sample layout (the per-network-state [F,B,n]
     # case and explicit var_ids subsets keep the masked path)
     if var_ids is None and (y.dim() == 2 or seeds is not None) and (
@@ -233,13 +255,13 @@ def encode(params, y: torch.Tensor,
                 and 4 * n_var * y.shape[-2] * n_var
                 > FIRST_LAYER_RANK1_BYTES)):
         if seeds is None:
-            x = _first_layer_rank1(w0, b0, y, act)
+            x = _first_layer_rank1(w0, b0, y, act, lo)
         else:
             x = _first_layer_rank1(w0.view(seeds, n_var, *w0.shape[1:]),
                                    b0.view(seeds, n_var, *b0.shape[1:]), y,
                                    act).flatten(0, 1)
         return _dense_stack(params['enc'][1:], x, act)
-    mask = loo_mask(n_var, var_ids, y.dtype, device=y.device)
+    mask = loo_mask(n_var, rows, y.dtype, device=y.device)
     if seeds is not None:
         x = (y[:, None] * mask).flatten(0, 1)                  # [S*n,B,n]
     else:
@@ -248,10 +270,13 @@ def encode(params, y: torch.Tensor,
 
 
 def encode_codes(params, codebook, y: torch.Tensor, cfg: VqVaeConfig,
-                 var_ids: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Encoder + quantizer only -> code indices [F, B] int32."""
+                 var_ids: Optional[torch.Tensor] = None,
+                 lo: int = 0) -> torch.Tensor:
+    """Encoder + quantizer only -> code indices [F, B] int32 (`lo`: params
+    hold a shard of the variable axis from network lo)."""
     with torch.no_grad():
-        z = encode(params, y, var_ids, cfg.activation, cfg.first_layer)
+        z = encode(params, y, var_ids, cfg.activation, cfg.first_layer,
+                   lo=lo)
         if cfg.quantizer == 'naive':
             return q.naive_codes(z)
         return q.vq_codes(z, codebook, impl=cfg.vq_impl)
@@ -286,26 +311,31 @@ def _decode(params, x: torch.Tensor, activation: str = 'selu'):
 def apply_model(params, codebook, y: torch.Tensor, cfg: VqVaeConfig,
                 weights: Optional[torch.Tensor] = None,
                 var_ids: Optional[torch.Tensor] = None,
-                seeds: Optional[int] = None) -> ForwardOut:
+                seeds: Optional[int] = None,
+                shard: Optional[q.Shard] = None) -> ForwardOut:
     """Full forward pass: y [B, n_var] -> recon [F, B, n_var] (each
     network's own column is inert; mask it out of any loss with
     `loo_mask`). `weights` [B] (0/1 for ragged final batches) weight every
     mean of the quantizer's losses. With `seeds` (packed, y [S, B, n_var]),
-    recon is [S * n_var, B, n_var] and the losses are per seed, [S]."""
-    z = encode(params, y, var_ids, cfg.activation, cfg.first_layer, seeds)
+    recon is [S * n_var, B, n_var] and the losses are per seed, [S]. With
+    `shard` (a mesh rank's networks and rows) the losses are the rank's
+    partial sums of the global means."""
+    z = encode(params, y, var_ids, cfg.activation, cfg.first_layer, seeds,
+               lo=0 if shard is None else shard.lo)
     # with explicit var_ids the rows are selection positions, not variable
     # ids: the padding row-mask only applies to the full-stack layout
     na = (cfg.active_vars
           if var_ids is None and cfg.active_vars < cfg.n_var else None)
     if cfg.quantizer == 'naive':
-        out = q.naive_forward(z, weights, n_active=na, seeds=seeds)
+        out = q.naive_forward(z, weights, n_active=na, seeds=seeds,
+                              shard=shard)
         latent, indices = out.output, q.naive_codes(z.detach())
         e_loss = out.e_loss
         q_loss = torch.zeros_like(e_loss)
     else:
         latent, indices, e_loss, q_loss = q.vq_forward(
             z, codebook, weights, impl=cfg.vq_impl, n_active=na,
-            seeds=seeds)
+            seeds=seeds, shard=shard)
     recon = _decode(params, latent, cfg.activation)
     return ForwardOut(recon, z, indices, e_loss, q_loss)
 

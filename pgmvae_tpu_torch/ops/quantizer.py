@@ -12,6 +12,11 @@ and return one mean per seed, [S].
 Under bf16 compute z and the codebook are bfloat16: the losses' squares
 stay bfloat16 and the float32 sample weights promote their sums to float32,
 and the EMA statistics are taken from z widened to float32.
+
+Under a device mesh (`Shard`) a rank holds networks [lo, lo + n) of n_var
+and some rows of the batch: the losses are its partial sums of the global
+means (global row ids against n_active, the global n and sum of weights),
+which the caller all-reduces.
 """
 
 from __future__ import annotations
@@ -76,19 +81,32 @@ def naive_codes(z: torch.Tensor) -> torch.Tensor:
     return torch.sum(bits * power, dim=-1, dtype=torch.int32)
 
 
+class Shard(NamedTuple):
+    """A mesh rank's part of a batched mean: its networks start at `lo` of
+    `n_var`, and `wsum` is the sum of the GLOBAL batch's weights."""
+    lo: int
+    n_var: int
+    wsum: torch.Tensor
+
+
 def _masked_mean(x: torch.Tensor, weights: Optional[torch.Tensor],
                  n_active: Optional[int] = None,
-                 seeds: Optional[int] = None) -> torch.Tensor:
+                 seeds: Optional[int] = None,
+                 shard: Optional[Shard] = None) -> torch.Tensor:
     """Mean over all elements of x [n, B, D], with optional per-sample
     weights on axis 1 (0 on the padded rows of a ragged batch). With a
     padded variable axis, `n_active` excludes networks >= n_active from both
     the sum and the denominator. With `seeds`, x holds S stacks of n/S
-    networks and the result is each stack's mean, [S]."""
+    networks and the result is each stack's mean, [S]. With `shard` (and
+    weights), x holds networks shard.lo .. of shard.n_var and the result is
+    this part's share of the global mean."""
     if seeds is not None:
         x = x.view(seeds, -1, *x.shape[1:])
-    n = x.shape[-3]
+    n = x.shape[-3] if shard is None else shard.n_var
     if n_active is not None and n_active < n:
-        row = torch.arange(n, device=x.device).view(n, 1, 1)
+        lo = 0 if shard is None else shard.lo
+        row = torch.arange(lo, lo + x.shape[-3],
+                           device=x.device).view(-1, 1, 1)
         x = x * (row < n_active).to(x.dtype)
         n = n_active
 
@@ -96,8 +114,8 @@ def _masked_mean(x: torch.Tensor, weights: Optional[torch.Tensor],
         return torch.sum(t) if seeds is None else torch.sum(t, (1, 2, 3))
     if weights is None:
         return total(x) / (n * x.shape[-2] * x.shape[-1])
-    return total(x * weights[None, :, None]) / (
-        n * x.shape[-1] * torch.sum(weights))
+    wsum = torch.sum(weights) if shard is None else shard.wsum
+    return total(x * weights[None, :, None]) / (n * x.shape[-1] * wsum)
 
 
 class VqOut(NamedTuple):
@@ -110,7 +128,8 @@ class VqOut(NamedTuple):
 def vq_forward(z: torch.Tensor, codebook: torch.Tensor,
                weights: Optional[torch.Tensor] = None, impl: str = 'xla',
                n_active: Optional[int] = None,
-               seeds: Optional[int] = None) -> VqOut:
+               seeds: Optional[int] = None,
+               shard: Optional[Shard] = None) -> VqOut:
     """Quantize with straight-through gradients and both latent losses:
 
     e_loss = mean((sg(q) - z)^2)   commitment
@@ -123,9 +142,9 @@ def vq_forward(z: torch.Tensor, codebook: torch.Tensor,
     indices = vq_codes(z, codebook, impl=impl)
     quantized = vq_quantize(codebook, indices)
     e_loss = _masked_mean((quantized.detach() - z) ** 2, weights, n_active,
-                          seeds)
+                          seeds, shard)
     q_loss = _masked_mean((quantized - z.detach()) ** 2, weights, n_active,
-                          seeds)
+                          seeds, shard)
     output = z + (quantized - z).detach()
     return VqOut(output, indices, e_loss, q_loss)
 
@@ -258,9 +277,10 @@ class NaiveOut(NamedTuple):
 
 def naive_forward(z: torch.Tensor, weights: Optional[torch.Tensor] = None,
                   n_active: Optional[int] = None,
-                  seeds: Optional[int] = None) -> NaiveOut:
+                  seeds: Optional[int] = None,
+                  shard: Optional[Shard] = None) -> NaiveOut:
     """loss = mean(-(z-0.5)^2), which pushes latents to 0/1; the output is a
     hard 0/1 step through the reference's clamp trick."""
-    e_loss = _masked_mean(-((z - 0.5) ** 2), weights, n_active, seeds)
+    e_loss = _masked_mean(-((z - 0.5) ** 2), weights, n_active, seeds, shard)
     output = torch.clamp(torch.clamp(z - 0.499999, min=0.0) * 1e7, max=1.0)
     return NaiveOut(output, e_loss)

@@ -20,13 +20,22 @@ result line; `--adam-impl fused_bf16` keeps the Adam moments in bfloat16;
 flag cd-bf16); `--profile` writes a `torch.profiler` trace of the run
 (`trace.json`, Chrome's trace format) into the run's log directory
 `logs/tuning/<identifier>/`. Grids of cells, packed seeds and isolated
-cells are `pgmvae_tpu_torch.run_pipeline`'s. A device mesh, which the port
-does not run yet, exits with code 2 and names its ROADMAP.md item.
+cells are `pgmvae_tpu_torch.run_pipeline`'s.
+
+    python -m pgmvae_tpu_torch.run ... --mesh-data 2 --mesh-model 2
+
+runs the cell on a (data, model) device mesh: the command spawns one
+process a rank (NCCL with a GPU each when there are enough, else gloo with
+the ranks sharing the device), names the mesh's backend and the ranks'
+devices on stderr, and writes the JAX package's identifier (no mesh
+suffix). Rank 0 writes the logs and the checkpoint. Ranks that run past
+`--mesh-timeout` seconds (default 24 h) are terminated and the run fails.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import os
 import random
 import sys
@@ -71,6 +80,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help='data-parallel mesh axis size')
     p.add_argument('--mesh-model', type=int, default=1,
                    help='variable-axis model-parallel mesh size')
+    p.add_argument('--mesh-timeout', type=float, default=None,
+                   help='seconds the spawned mesh ranks may run before they '
+                        'are terminated and the run fails (default: '
+                        'driver.MESH_TIMEOUT, 24 h)')
     p.add_argument('--dead-code-threshold', type=float, default=0.0,
                    help='>0 enables EMA dead-code restarts: codes whose '
                         'moving-average usage drops below the threshold are '
@@ -176,7 +189,7 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def _profiled(exp, device: str) -> dict:
+def _profiled(exp, device: str, **kw) -> dict:
     """`run_experiment` under `torch.profiler` (the device's kernels too on
     CUDA), its trace written to `<exp.log_dir>/trace.json`: the counterpart
     of the JAX CLI's `jax.profiler` trace."""
@@ -188,7 +201,7 @@ def _profiled(exp, device: str) -> dict:
     if device != 'cpu':
         activities.append(ProfilerActivity.CUDA)
     with profile(activities=activities) as prof:
-        res = run_experiment(exp, device=device)
+        res = run_experiment(exp, device=device, **kw)
         if device != 'cpu':
             torch.cuda.synchronize(device)
     os.makedirs(exp.log_dir, exist_ok=True)
@@ -205,8 +218,7 @@ def main(argv=None) -> int:
     np.random.seed(args.seed)
     import torch
 
-    from pgmvae_tpu_torch.driver import (ExperimentConfig, run_experiment,
-                                         unported)
+    from pgmvae_tpu_torch.driver import ExperimentConfig, run_experiment
     from pgmvae_tpu_torch.registry import REGISTRY
     from pgmvae_tpu_torch.utils.logging import append_result
 
@@ -248,16 +260,15 @@ def main(argv=None) -> int:
         data_dir=args.data_dir, verbose=args.verbose,
         log_dir=os.path.join(os.curdir, 'logs', 'tuning'))
     exp.log_dir = os.path.join(exp.log_dir, exp.identifier)
-    missing = unported(exp)
-    if missing:
-        for msg in missing:
-            print(f'error: not ported yet: {msg}', file=sys.stderr)
-        return 2
 
+    kw = ({} if args.mesh_timeout is None
+          else {'mesh_timeout': args.mesh_timeout})
     if args.profile:
-        res = _profiled(exp, device)
+        res = _profiled(exp, device, **kw)
     else:
-        res = run_experiment(exp, device=device)
+        res = run_experiment(exp, device=device, **kw)
+    if 'mesh' in res:
+        print(f'mesh: {json.dumps(res["mesh"])}', file=sys.stderr)
     line = append_result(res['identifier'], res['pll_train'],
                          res['pll_valid'], res['pll_test'], res['cmll_test'],
                          path=args.result_file)

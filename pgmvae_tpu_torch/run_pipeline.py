@@ -14,8 +14,11 @@ again. `--pack-seeds S` trains up to S cells that differ only in seed as one
 packed program (`driver.run_packed_experiments`), recorded under pk-S
 identifiers. `--isolate` runs each cell, or packed group, in a fresh process
 (`python -m pgmvae_tpu_torch._cell_runner`) under `--cell-timeout`. A mesh
-(`--mesh-data`/`--mesh-model` > 1) is not ported yet: its cells fail, and
-their joblog lines say so (ROADMAP.md A11).
+(`--mesh-data`/`--mesh-model` > 1) runs each cell unpacked, its ranks
+spawned by `driver.run_experiment` (from the cell's own process under
+`--isolate`) and terminated past `--cell-timeout`; the joblog line records
+the mesh's shape, backend, the ranks' devices and their kernel launches
+under 'mesh'.
 """
 
 from __future__ import annotations
@@ -84,7 +87,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help='run each cell (or packed group) in a fresh process: '
                         'no device memory or state leaks between cells')
     p.add_argument('--cell-timeout', type=float, default=3600.0,
-                   help='per-cell wall-clock limit with --isolate')
+                   help='per-cell wall-clock limit with --isolate, and '
+                        "of a mesh cell's spawned ranks")
     p.add_argument('--retry-failed', action='store_true',
                    help='re-run cells whose last outcome was a failure')
     p.add_argument('--pack-seeds', type=int, default=1, metavar='S',
@@ -157,7 +161,11 @@ def _run_isolated(cells, device: int, timeout: float) -> list:
     """Run one cell, or a packed group, in a fresh process; its results."""
     if len(cells) == 1:
         return [_run_subprocess({**dataclasses.asdict(cells[0]),
-                                 '_device': device}, timeout)]
+                                 '_device': device,
+                                 # a minute early: the cell's process ends
+                                 # its mesh ranks before it is killed
+                                 '_mesh_timeout': max(1.0, timeout - 60)},
+                                timeout)]
     return _run_subprocess({'_device': device,
                             '_packed': [dataclasses.asdict(c)
                                         for c in cells]}, timeout)
@@ -297,7 +305,6 @@ def main(argv=None) -> int:
 
     pack = max(args.pack_seeds, 1)
     if pack > 1 and args.mesh_data * args.mesh_model > 1:
-        # the cells run one by one and fail: a mesh is not ported yet
         print('pack-seeds does not compose with a device mesh; running '
               'cells unpacked', file=sys.stderr)
         pack = 1
@@ -331,7 +338,9 @@ def main(argv=None) -> int:
                 elif len(todo) > 1:
                     results = run_packed_experiments(todo, device=device)
                 else:
-                    results = [run_experiment(todo[0], device=device)]
+                    results = [run_experiment(
+                        todo[0], device=device,
+                        mesh_timeout=args.cell_timeout)]
                 for res in results:
                     n_run += 1
                     # res['identifier'] carries pk-S when the cell ran

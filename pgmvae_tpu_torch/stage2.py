@@ -14,6 +14,12 @@ nearest-code kernel launch, and a count update: a one-hot `torch.bmm`, or an
 `index_add_` past SCATTER_COLS of joint width. Counts are integers < 2^24,
 exact in f32 under any summation order, so they accumulate in f32 on the
 device and are finished in float64 on the host, like the JAX package's.
+
+Under a device mesh (`mesh_ctx`) each data rank counts its ceil(chunk/D)
+rows of every chunk with its model rank's networks; the counts are
+all-reduced over 'data' (integers below 2^24: bit-equal) and gathered over
+'model', so every rank holds the global tables and the CPT and PLL are
+computed from them on the host exactly as on one device.
 """
 
 from __future__ import annotations
@@ -25,6 +31,7 @@ import torch
 
 from pgmvae_tpu_torch import resolve_device
 from pgmvae_tpu_torch.models import vqvae
+from pgmvae_tpu_torch.parallel.mesh import MeshContext
 
 SMOOTHING = 0.8     # reference core/model.py:88
 LOG_EPS = 1e-5      # reference core/model.py:93-94
@@ -80,9 +87,14 @@ class Stage2:
     """Counts, CPT and PLL of one model configuration on `device`."""
 
     def __init__(self, cfg: vqvae.VqVaeConfig, chunk: Optional[int] = None,
+                 mesh_ctx: Optional[MeshContext] = None,
                  parents: Optional[np.ndarray] = None,
                  scatter: Optional[bool] = None, device=None):
+        self.mesh = mesh_ctx or MeshContext(None)
+        if device is None and self.mesh.mesh is not None:
+            device = self.mesh.mesh.device
         self.device = resolve_device(device)
+        self.var_range = self.mesh.var_range(cfg.n_var)
         self.cfg = cfg
         self.k = cfg.effective_codes
         if cfg.quantizer == 'naive' and cfg.dim > NAIVE_STAGE2_MAX_DIM:
@@ -127,19 +139,20 @@ class Stage2:
         """One fixed-shape chunk: yb [chunk, n_var], wb [chunk] validity
         weights (0 on padded rows); adds into n1/n0 [n_var, K * n_states]
         in place."""
-        cfg = self.cfg
-        codes = vqvae.encode_codes(params, codebook, yb, cfg).long()  # [n,B]
+        lo, hi = self.var_range
+        codes = vqvae.encode_codes(params, codebook, yb, self.cfg,
+                                   lo=lo).long()               # [n, B]
         if self.parents is not None:
             # parent-state index j[v,b] = binary word of the sample's
             # values at v's parents; joint cell = code * 2^m + j
-            vals = yb[:, self.parents].long()                  # [B, n, m]
+            vals = yb[:, self.parents[lo:hi]].long()           # [B, n, m]
             pw = 1 << torch.arange(self.parents.shape[1], device=yb.device)
             codes = codes * self.n_states + (vals * pw).sum(-1).T
-        y1 = yb.T * wb[None, :]                                # [n, B]
-        y0 = (1.0 - yb.T) * wb[None, :]
+        y1 = yb.T[lo:hi] * wb[None, :]                         # [n, B]
+        y0 = (1.0 - yb.T[lo:hi]) * wb[None, :]
         if self.scatter:
             cols = n1.shape[1]
-            rows = torch.arange(cfg.n_var, device=yb.device)[:, None]
+            rows = torch.arange(hi - lo, device=yb.device)[:, None]
             flat = (rows * cols + codes).reshape(-1)
             n1.view(-1).index_add_(0, flat, y1.reshape(-1))
             n0.view(-1).index_add_(0, flat, y0.reshape(-1))
@@ -155,7 +168,7 @@ class Stage2:
         """Dataset code/label co-occurrence counts as float64
         [active_vars, K] ([active_vars, K, 2^m] with parents). Accepts
         true-width samples when the model's variable axis is padded."""
-        cfg, chunk = self.cfg, self.chunk
+        cfg, chunk, mesh = self.cfg, self.chunk, self.mesh
         y = np.asarray(y_host, np.float32)
         n = y.shape[0]
         rows = max(1, -(-n // chunk)) * chunk
@@ -166,14 +179,20 @@ class Stage2:
         yd = torch.from_numpy(yp).to(self.device)
         wd = torch.from_numpy(wp).to(self.device)
         cols = self.k * self.n_states
-        n1 = torch.zeros((cfg.n_var, cols), dtype=torch.float32,
+        lo, hi = self.var_range
+        n1 = torch.zeros((hi - lo, cols), dtype=torch.float32,
                          device=self.device)
         n0 = torch.zeros_like(n1)
         with torch.no_grad():
             for start in range(0, rows, chunk):
+                # this data rank's rows of the chunk
                 self._count_chunk(params, codebook, n1, n0,
-                                  yd[start:start + chunk],
-                                  wd[start:start + chunk])
+                                  mesh.local_rows(yd[start:start + chunk]),
+                                  mesh.local_rows(wd[start:start + chunk]))
+            if mesh.mesh is not None:
+                n1, n0 = mesh.all_reduce_many((n1, n0), 'data')
+                n1 = mesh.all_gather(n1, 'model')
+                n0 = mesh.all_gather(n0, 'model')
         na = cfg.active_vars                # padding networks sliced away
         n1 = n1.cpu().numpy().astype(np.float64)[:na]
         n0 = n0.cpu().numpy().astype(np.float64)[:na]

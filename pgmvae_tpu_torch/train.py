@@ -60,6 +60,20 @@ draws come from the graph's own generators, which take the epoch
 generators' state before the replays: the replayed epoch is bit-equal to
 the eager loop (`Trainer(graphs=False)`, and the CPU's). The epoch updates
 the state in place: it returns the state it was given.
+
+A device mesh (`mesh_ctx`, `parallel/mesh.py`): `init_state` draws the
+global model on the host from the int seed and `shard_state` keeps the
+rank's networks of every stacked leaf, so a mesh run starts from the
+numbers of a single-device run. A step takes the global batch and keeps the
+rank's rows; the losses are the rank's partial sums of the global means
+(the global mask columns, n_active and sum of weights); gradients and EMA
+statistics are all-reduced over 'data' before the Adam kernel and the EMA
+update; dead-code restarts draw the global [n_var, K] rows from the shared
+generator and take them from the batch's latents gathered over 'data'; the
+metrics are all-reduced over the world. Under NCCL the step with its
+collectives is captured into the epoch's graph; under gloo, whose
+collectives cannot be captured, epochs run the eager loop. Packed seeds
+refuse a mesh.
 """
 
 from __future__ import annotations
@@ -75,6 +89,7 @@ from pgmvae_tpu_torch import graphs, resolve_device
 from pgmvae_tpu_torch.models import vqvae
 from pgmvae_tpu_torch.ops import fused_adam
 from pgmvae_tpu_torch.ops import quantizer as q
+from pgmvae_tpu_torch.parallel.mesh import MeshContext, shard_leading_axis
 
 # Largest code space for which the per-step usage histogram is computed;
 # beyond it (naive quantizer, dim > 16) perplexity is reported as 0.
@@ -102,15 +117,18 @@ class EpochMetrics(NamedTuple):
     perplexity: float  # codebook usage: exp(entropy of code histogram)
 
 
-def _masked_recon_mean(x, w, mask, n_active=None):
+def _masked_recon_mean(x, w, mask, n_active=None, wsum=None):
     """Mean over a [n, B, n] tensor with per-sample weights w [B] and the
     leave-one-out mask [n, 1, n]: denominator n*(n-1)*sum(w), the mean over
     the reference's gathered [n, B, n-1] views. A packed [S, n, B, n] tensor
-    gives one mean per seed, [S]."""
+    gives one mean per seed, [S]. A mesh rank passes its networks' mask rows,
+    the global n (n_active) and the global batch's `wsum`: its share of the
+    global mean."""
     n = n_active if n_active is not None else x.shape[-3]
     x = x * mask * w[None, :, None]
     total = torch.sum(x) if x.dim() == 3 else torch.sum(x, (1, 2, 3))
-    return total / (n * (n - 1) * torch.clamp(torch.sum(w), min=1.0))
+    return total / (n * (n - 1) * torch.clamp(
+        torch.sum(w) if wsum is None else wsum, min=1.0))
 
 
 def _recon_error(recon, y, seeds=None):
@@ -179,12 +197,19 @@ class Trainer:
     """Trains one model configuration on `device` (None means CUDA)."""
 
     def __init__(self, cfg: vqvae.VqVaeConfig, learning_rate: float,
-                 batch_size: int, n_train: int, adam_eps: float = 1e-7,
+                 batch_size: int, n_train: int,
+                 mesh_ctx: Optional[MeshContext] = None,
+                 adam_eps: float = 1e-7,
                  stream_bytes: int = 4 << 30,
                  stream_chunk_bytes: int = 64 << 20,
                  adam_impl: Optional[str] = None, device=None,
                  graphs: bool = True):
+        self.mesh = mesh_ctx or MeshContext(None)
+        if device is None and self.mesh.mesh is not None:
+            device = self.mesh.mesh.device
         self.device = resolve_device(device)
+        self._shard_rule = shard_leading_axis(cfg.n_var)
+        self.var_range = self.mesh.var_range(cfg.n_var)
         # on CUDA the epochs replay captured step graphs; graphs=False runs
         # the eager step loop, the reference the graphs are held against
         self.graphs = bool(graphs)
@@ -215,10 +240,17 @@ class Trainer:
     def init_state(self, generator: Union[int, torch.Generator]
                    ) -> TrainState:
         """Random weights from `generator` (or an int seed, drawn on the
-        CPU, so a seed gives the same weights on every device)."""
+        CPU, so a seed gives the same weights on every device). Under a
+        mesh the global model is drawn on the host and each leaf keeps the
+        rank's shard; the moments and EMA state start from the shards."""
         if isinstance(generator, int):
             generator = torch.Generator().manual_seed(generator)
-        params, codebook = vqvae.init_model(generator, self.cfg, self.device)
+        sharded = self.mesh.mesh is not None
+        params, codebook = vqvae.init_model(
+            generator, self.cfg, 'cpu' if sharded else self.device)
+        if sharded:
+            params = vqvae.map_params(self._shard, params)
+            codebook = None if codebook is None else self._shard(codebook)
         ema = None
         if self.cfg.quantizer == 'ema':
             ema = q.ema_init(codebook, self.cfg.zero_debias)
@@ -231,6 +263,35 @@ class Trainer:
         step = torch.zeros((), dtype=torch.int32, device=self.device)
         return TrainState(params, ema, opt_state, step)
 
+    def _shard(self, leaf: torch.Tensor) -> torch.Tensor:
+        """The rank's shard of a leaf by the sharding rule, on the device."""
+        if self.mesh.mesh is not None and self._shard_rule(leaf):
+            lo, hi = self.var_range
+            leaf = leaf[lo:hi]
+        return leaf.to(self.device).contiguous()
+
+    def shard_state(self, state: TrainState) -> TrainState:
+        """Every leaf whose leading dimension is n_var cut to the rank's
+        networks (the JAX package's placement by `shard_leading_axis`),
+        the rest kept whole, on the device; the state itself without a
+        mesh."""
+        if self.mesh.mesh is None:
+            return state
+        return _map_state(self._shard, state)
+
+    def unshard_state(self, state: TrainState) -> TrainState:
+        """The global state of a sharded one, on every rank: each stacked
+        leaf gathered over 'model' (every rank must call it)."""
+        if self.mesh.mesh is None:
+            return state
+        m, n = self.mesh.shape[1], self.cfg.n_var
+
+        def gather(leaf):
+            if leaf.dim() >= 1 and leaf.shape[0] * m == n:
+                return self.mesh.all_gather(leaf, 'model')
+            return leaf
+        return _map_state(gather, state)
+
     def codebook(self, state: TrainState):
         if self.cfg.quantizer == 'vq':
             return state.params['codebook']
@@ -239,7 +300,8 @@ class Trainer:
         return None
 
     # ------------------------------------------------------------- step --
-    def _loss(self, params, state: TrainState, y, w, mask, seeds=None):
+    def _loss(self, params, state: TrainState, y, w, mask, seeds=None,
+              shard: Optional[q.Shard] = None):
         cfg = self.cfg
         cdt = COMPUTE_DTYPES[cfg.compute_dtype]
         p, yc = params, y
@@ -253,16 +315,21 @@ class Trainer:
                 codebook = p['codebook']
             elif codebook is not None:
                 codebook = codebook.to(cdt)
-        out = vqvae.apply_model(p, codebook, yc, cfg, weights=w, seeds=seeds)
+        out = vqvae.apply_model(p, codebook, yc, cfg, weights=w, seeds=seeds,
+                                shard=shard)
         # the float32 mask and weights make the sums float32
         mse = _masked_recon_mean(_recon_error(out.recon, yc, seeds) ** 2, w,
-                                 mask, cfg.active_vars)
+                                 mask, cfg.active_vars,
+                                 None if shard is None else shard.wsum)
         if cfg.quantizer == 'vq':
             aux = out.q_loss + cfg.cost * out.e_loss
         else:  # 'ema' and 'naive': commitment term only
             aux = cfg.cost * out.e_loss
         total = mse + aux
-        if cfg.l2_reg > 0:
+        # under a mesh the penalty of a rank's networks counts once, on
+        # data rank 0, so that the 'data' all-reduce of the gradients
+        # gives its gradient once
+        if cfg.l2_reg > 0 and self.mesh.data_rank == 0:
             total = total + cfg.l2_reg * vqvae.l2_penalty(params, seeds)
         return total, out, mse
 
@@ -270,21 +337,32 @@ class Trainer:
               generators=None, seeds: Optional[int] = None):
         """One step of an unpacked state, or with `seeds` of a packed state
         in its step layout (`_step_layout`); returns (state, metrics [4] or
-        [S, 4]). `generators` (one a seed) draw the dead-code restarts."""
-        cfg = self.cfg
-        mask = vqvae.loo_mask(cfg.n_var, None, y.dtype,
+        [S, 4]). `generators` (one a seed) draw the dead-code restarts.
+        Under a mesh y and w are the global batch (see the module doc)."""
+        cfg, mesh = self.cfg, self.mesh
+        shard, var_ids, w_all = None, None, w
+        if mesh.mesh is not None:
+            lo, hi = self.var_range
+            shard = q.Shard(lo, cfg.n_var, torch.sum(w))
+            var_ids = torch.arange(lo, hi, device=y.device)
+            w_all = mesh.padded_rows(w)
+            y, w = mesh.local_rows(y), mesh.local_rows(w)
+        mask = vqvae.loo_mask(cfg.n_var, var_ids, y.dtype,
                               n_active=cfg.active_vars, device=y.device)
         leaves = vqvae.param_leaves(state.params)
         live = [p.detach().requires_grad_() for p in leaves]
         with torch.enable_grad():
             loss, out, mse = self._loss(
                 vqvae.params_from_leaves(state.params, live), state, y, w,
-                mask, seeds)
+                mask, seeds, shard)
             # packed: the sum of the seeds' losses, each seed's gradient
             grads = torch.autograd.grad(
                 loss if seeds is None else torch.sum(loss), live)
-        grads = vqvae.params_from_leaves(
-            state.params, [g.contiguous() for g in grads])
+        grads = [g.contiguous() for g in grads]
+        if shard is not None:   # each network's gradient over the batch
+            grads = [g.contiguous()
+                     for g in mesh.all_reduce_many(grads, 'data')]
+        grads = vqvae.params_from_leaves(state.params, grads)
         opt_state = fused_adam.adam_update(state.params, grads,
                                            state.opt_state)
 
@@ -294,15 +372,20 @@ class Trainer:
             rows = z.shape[0]
             ema, counts = state.ema, None
             if cfg.quantizer == 'ema':
-                counts, dw = q.code_stats(z, out.indices, cfg.num_codes,
-                                          weights=w)
+                counts, dw = mesh.all_reduce_many(
+                    q.code_stats(z, out.indices, cfg.num_codes, weights=w),
+                    'data')
                 ema = q.ema_update(ema, counts, dw, cfg.decay, cfg.epsilon,
                                    cfg.zero_debias)
                 if cfg.dead_code_threshold > 0 and generators is not None:
+                    # the global draw, rows of the global batch
+                    z_all = mesh.all_gather(z, 'data', dim=1)
+                    lo, hi = self.var_range
                     ridx = torch.cat([
-                        q.restart_rows(cfg.n_var, z.shape[1], cfg.num_codes,
-                                       g, w, z.device) for g in generators])
-                    ema = q._apply_restart(ema, z, ridx,
+                        q.restart_rows(cfg.n_var, z_all.shape[1],
+                                       cfg.num_codes, g, w_all,
+                                       z.device)[lo:hi] for g in generators])
+                    ema = q._apply_restart(ema, z_all, ridx,
                                            cfg.dead_code_threshold,
                                            cfg.decay, cfg.zero_debias)
             elif cfg.effective_codes <= PERPLEXITY_MAX_CODES:
@@ -310,24 +393,31 @@ class Trainer:
                                      dtype=y.dtype, device=y.device)
                 counts.scatter_add_(1, out.indices.long(),
                                     w[None, :].expand(rows, -1))
+                counts = mesh.all_reduce(counts, 'data')
             mae = _masked_recon_mean(
                 torch.abs(_recon_error(out.recon.detach(), y, seeds)), w,
-                mask, cfg.active_vars)
+                mask, cfg.active_vars, None if shard is None else shard.wsum)
             if counts is None:
                 perplexity = torch.zeros(() if seeds is None else (seeds,),
                                          dtype=y.dtype, device=y.device)
             else:
                 if seeds is not None:               # per seed
                     counts = counts.view(seeds, -1, counts.shape[-1])
-                counts = counts[..., :cfg.active_vars, :]  # padding out
+                lo = 0 if shard is None else shard.lo   # padding out
+                counts = counts[..., :max(cfg.active_vars - lo, 0), :]
                 p = counts / torch.clamp(
                     torch.sum(counts, dim=-1, keepdim=True), min=1.0)
                 ppl = torch.exp(-torch.sum(
                     p * torch.log(torch.clamp(p, min=1e-12)), dim=-1))
-                perplexity = (torch.mean(ppl) if seeds is None
-                              else torch.mean(ppl, -1))
+                if shard is not None:   # this rank's share of the mean
+                    perplexity = torch.sum(ppl) / (
+                        cfg.active_vars * mesh.shape[0])
+                else:
+                    perplexity = (torch.mean(ppl) if seeds is None
+                                  else torch.mean(ppl, -1))
             metrics = torch.stack([loss.detach(), mse.detach(), mae,
                                    perplexity], dim=-1)
+            metrics = mesh.all_reduce(metrics)
         return TrainState(state.params, ema, opt_state,
                           state.step + 1), metrics
 
@@ -394,7 +484,8 @@ class Trainer:
         return torch.cat([perm, pad]).view(steps, bs)
 
     def _use_graphs(self) -> bool:
-        return self.graphs and self.device.type == 'cuda'
+        return (self.graphs and self.device.type == 'cuda'
+                and self.mesh.captures)
 
     def release_graphs(self) -> None:
         """Release the captured step graphs and their memory pools (`fit`
@@ -672,7 +763,10 @@ class Trainer:
                            ) -> TrainState:
         """S states, one per int seed or generator of `seeds` (as
         `init_state`), stacked leaf by leaf: every tensor gains a leading
-        seed axis."""
+        seed axis. Packed runs are single-device: a mesh is refused."""
+        if self.mesh.mesh is not None:
+            raise ValueError('packed-seed training does not compose with a '
+                             'device mesh; run packed cells single-device')
         return _map_state(lambda *leaves: torch.stack(leaves),
                           *(self.init_state(s) for s in seeds))
 

@@ -1,9 +1,9 @@
 """Rules of the PyTorch/CUDA port that no parity test shows: it never
 imports the JAX side (nor msgpack or ml_dtypes, which the card's machine
 lacks), it runs on CUDA unless told otherwise, its kernel wrappers take the
-plain versions only for CPU tensors, a missing nvcc is a clear error, a
-feature not ported yet (a mesh) refuses to run, and --profile writes a
-trace."""
+plain versions only for CPU tensors, a missing nvcc is a clear error, the
+command line runs a device mesh (its ranks spawned, the JAX identifier
+written), and --profile writes a trace."""
 
 import os
 import pkgutil
@@ -67,7 +67,9 @@ def test_port_imports_without_jax_side():
     assert {'pgmvae_tpu_torch.' + m for m in (
         'ops._build', 'ops.fused_adam', 'train', 'driver', 'run',
         'utils.logging', 'checkpoint', 'utils.msgpack', 'gibbs',
-        'run_pipeline', '_cell_runner', 'graphs')} <= set(_port_modules())
+        'run_pipeline', '_cell_runner', 'graphs', 'parallel',
+        'parallel.mesh', 'data.native', '__graft_entry__')
+            } <= set(_port_modules())
 
 
 def test_no_import_line_names_the_jax_side():
@@ -215,24 +217,46 @@ def test_trainer_refuses_what_is_not_ported(kind):
     assert int(state.step) == 1 and np.isfinite(hist[0].loss)
 
 
+def _write_nltcs_like(root, rows=(64, 16, 16)):
+    rng = np.random.default_rng(0)
+    for split, n in zip(('train', 'valid', 'test'), rows):
+        y = (rng.random((n, 16)) < 0.4).astype(np.uint8)
+        with open(root / f'nltcs.{split}.data', 'w') as f:
+            f.write('\n'.join(','.join(map(str, r)) for r in y) + '\n')
+
+
 UNPORTED = [
-    (['--mesh-model', '2'], dict(mesh_model=2), 'A11'),
-    (['--mesh-data', '2'], dict(mesh_data=2), 'A11'),
+    (['--mesh-model', '2'], dict(mesh_model=2), 'model'),
+    (['--mesh-data', '2'], dict(mesh_data=2), 'data'),
 ]
 
 
 @pytest.mark.parametrize('flags,fields,item', UNPORTED)
 def test_unported_features_raise_and_the_cli_exits_2(flags, fields, item,
-                                                     capsys, tmp_path):
+                                                     capsys, tmp_path,
+                                                     monkeypatch):
+    """A device mesh on the command line: the CLI spawns its two ranks
+    (gloo on the CPU), names the mesh on stderr, and writes the JAX
+    identifier (no mesh suffix) with the single-device run's PLLs."""
+    _write_nltcs_like(tmp_path)
+    monkeypatch.chdir(tmp_path)
+    base = ['-n', 'nltcs', '-k', '5', '-d', '3', '-b', '32', '-e', '1',
+            '-m', '--device', '-1', '--data-dir', str(tmp_path)]
+    rc = trun.main(base + ['--result-file', str(tmp_path / 'r.txt')]
+                   + flags)
+    assert rc == 0
+    err = capsys.readouterr().err
+    assert 'mesh: ' in err and '"backend": "gloo"' in err, err[-2000:]
+    ident, *plls = (tmp_path / 'r.txt').read_text().split()
     exp = driver.ExperimentConfig(name='nltcs', embedding=5, dim=3,
-                                  **fields)
-    with pytest.raises(NotImplementedError, match=f'ROADMAP.md {item}'):
-        driver.run_experiment(exp, device='cpu')
-    rc = trun.main(['-n', 'nltcs', '-k', '5', '-d', '3', '--device', '-1',
-                    '--result-file', str(tmp_path / 'r.txt')] + flags)
-    assert rc == 2
-    assert f'ROADMAP.md {item}' in capsys.readouterr().err
-    assert not (tmp_path / 'r.txt').exists()
+                                  batch=32, epoch=1, ema=True,
+                                  data_dir=str(tmp_path))
+    assert ident == exp.identifier
+    one = driver.run_experiment(exp, device='cpu')
+    got = [float(p.split(':')[1]) for p in plls[:3]]
+    np.testing.assert_allclose(
+        got, [one['pll_train'], one['pll_valid'], one['pll_test']],
+        rtol=1e-6, err_msg=item)
 
 
 def test_cli_profile_writes_a_trace(tmp_path, monkeypatch):

@@ -1,8 +1,9 @@
 """The port's package-level names and data directory against the JAX
 package's: every name the JAX package's `__init__` files export imports
-from the port's counterpart (`parallel` waits for the mesh), the
-leave-one-out table and views are JAX's, and `registry.data_dir` searches
-the same candidates in the same order."""
+from the port's counterpart, the
+leave-one-out table and views are JAX's, `registry.data_dir` searches
+the same candidates in the same order, and the public constructors and
+functions take the JAX package's parameters in its order."""
 
 import ast
 import importlib
@@ -17,7 +18,7 @@ import pgmvae_tpu.registry as jregistry
 import pgmvae_tpu_torch.data.loader as tloader
 import pgmvae_tpu_torch.registry as tregistry
 
-PACKAGES = ['', '.models', '.ops', '.data', '.utils']
+PACKAGES = ['', '.models', '.ops', '.data', '.utils', '.parallel']
 
 
 def _exported(module_name: str) -> list:
@@ -84,3 +85,43 @@ def test_data_dir_searches_what_jax_searches(present, monkeypatch):
                 reg.data_dir()
         return
     assert tregistry.data_dir() == jregistry.data_dir() == cands[present[0]]
+
+
+# ---------------------------------- the public signatures against JAX --
+
+# (JAX module:function, port module:function); a class stands for its
+# __init__
+SIGNATURES = [
+    ('pgmvae_tpu.train:Trainer', 'pgmvae_tpu_torch.train:Trainer'),
+    ('pgmvae_tpu.stage2:Stage2', 'pgmvae_tpu_torch.stage2:Stage2'),
+    ('pgmvae_tpu.serving:PgmModel', 'pgmvae_tpu_torch.serving:PgmModel'),
+    ('pgmvae_tpu.gibbs:get_probability',
+     'pgmvae_tpu_torch.gibbs:get_probability'),
+    ('pgmvae_tpu.gibbs:conditional_marginal_log_likelihood',
+     'pgmvae_tpu_torch.gibbs:conditional_marginal_log_likelihood'),
+    ('pgmvae_tpu.checkpoint:save', 'pgmvae_tpu_torch.checkpoint:save'),
+    ('pgmvae_tpu.checkpoint:load', 'pgmvae_tpu_torch.checkpoint:load'),
+]
+# the one rename: a JAX PRNG key is a torch.Generator in the port
+RENAMED = {'key': 'generator'}
+
+
+def _parameters(spec: str) -> list:
+    import inspect
+    module, name = spec.split(':')
+    obj = getattr(importlib.import_module(module), name)
+    names = list(inspect.signature(obj).parameters)
+    return names[1:] if inspect.isclass(obj) and names[:1] == ['self'] \
+        else names
+
+
+@pytest.mark.parametrize('jax_spec,port_spec', SIGNATURES,
+                         ids=[s[1].split(':')[1] for s in SIGNATURES])
+def test_public_signatures_lead_with_the_jax_parameters(jax_spec,
+                                                        port_spec):
+    """Every parameter of the JAX function, in order, leads the port's
+    (the port's own extras, such as `device` and `graphs`, follow), so a
+    positional call means the same in both packages."""
+    ref = [RENAMED.get(p, p) for p in _parameters(jax_spec)]
+    got = _parameters(port_spec)
+    assert got[:len(ref)] == ref, (got, ref)

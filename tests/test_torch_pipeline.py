@@ -4,7 +4,7 @@ classification and joblog reading on the same grids and joblogs, and on
 synthetic nltcs-shaped splits the same joblog and `result.txt`
 identifiers, a resume that runs nothing, --retry-failed, isolated cells in
 `python -m pgmvae_tpu_torch._cell_runner` processes, and mesh cells that
-fail with their ROADMAP.md item."""
+run in worlds of their own."""
 
 import dataclasses
 import json
@@ -168,14 +168,28 @@ def test_isolated_cells_run_in_cell_runner_processes(tmp_path):
 
 
 def test_mesh_cells_fail_with_their_roadmap_item(tmp_path):
-    _write_splits(tmp_path)
-    flags = ['-n', 'nltcs', '-k', '8', '-d', '4', '-e', '1', '-s', '1,2',
-             '--pack-seeds', '2', '--mesh-model', '2']
-    assert _run(tpipe, tmp_path, 'mesh', flags) == 1
-    recs = _joblog(tmp_path, 'mesh')
-    assert len(recs) == 2 and not any(r['ok'] for r in recs)
-    assert all('ROADMAP.md A11' in r['error'] for r in recs)
-    assert not (tmp_path / 'mesh.txt').exists()
+    """Mesh cells run unpacked (packing does not compose with a mesh),
+    each in a world of its own ranks, under the JAX runner's identifiers;
+    the joblog records the mesh, and the PLLs are the single-device
+    runs'."""
+    _write_splits(tmp_path, rows=(256, 64, 64))
+    grid = ['-n', 'nltcs', '-k', '8', '-d', '4', '-b', '128', '-e', '1',
+            '-r', '0.01', '-m', '-s', '1,2']
+    assert _run(tpipe, tmp_path, 'mesh',
+                grid + ['--pack-seeds', '2', '--mesh-model', '2']) == 0
+    assert _run(tpipe, tmp_path, 'solo', grid) == 0
+    recs, solo = _joblog(tmp_path, 'mesh'), _joblog(tmp_path, 'solo')
+    assert [r['identifier'] for r in recs] == [
+        JExp(**BASE, seed=s).identifier for s in (1, 2)]
+    assert _result_ids(tmp_path, 'mesh') == _result_ids(tmp_path, 'solo')
+    for r, one in zip(recs, solo):
+        assert r['ok'] and r['mesh']['backend'] == 'gloo'
+        assert r['mesh']['shape'] == [1, 2]
+        assert r['mesh']['devices'] == ['cpu', 'cpu']
+        assert r['mesh']['launches'] == {
+            'vq_argmin': 0, 'vq_argmin_bf16': 0, 'adam': 0, 'adam_bf16': 0}
+        np.testing.assert_allclose(r['pll_test'], one['pll_test'],
+                                   rtol=1e-6)
 
 
 def test_cli_flags_equal_jax():
