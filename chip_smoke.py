@@ -38,7 +38,12 @@ against its single-device twin; the command line and an isolated sweep
 cell on a (2, 2) mesh. Mesh ranks are processes of their own: their
 launches come back summed over the ranks. Times taken with ranks sharing
 one card are labelled so and say nothing of a multi-GPU run. And the
-native CSV parser against the numpy path at kdd's train size. Each phase
+native CSV parser against the numpy path at kdd's train size. Last, the
+measurement twins in-process: `pgmvae_tpu_torch.bench` (the nltcs
+headline and the JAX `bench.py`'s eight cells at full width),
+`bench_packed` at the kdd sweep's shape (S=4, one epoch) and `bench_cmll`
+at its defaults, each held to its record, one graph capture per kind and
+run, and the launches its steps imply. Each phase
 prints one JSON line; any failed check
 raises, so the script exits non-zero. The last three lines are the kernel
 summary, the card's name and power limit as nvidia-smi gives them, and
@@ -86,6 +91,12 @@ KERNEL_SHAPES = [(3, 9, 5, 7), (5, 32, 8, 130), (4, 17, 10, 50),
                  (64, 32, 10, 4096), (256, 32, 10, 4096),
                  (64, 118, 10, 4096), (265, 125, 20, 50),
                  (265, 16, 20, 50)] + GIBBS_SHAPES
+# the measurement twins' main-path shapes (phase bench): nltcs's train
+# batch, bbc's at bs 25, ad's at bs 250 and bench_cmll's Gibbs step (13
+# blocks over 5,000 rows); bf16: bbc at bs 500 and 1,000
+BENCH_SHAPES = [(16, 128, 10, 50), (1058, 25, 20, 50), (1556, 250, 30, 20),
+                (13, 5000, 20, 15)]
+BENCH_BF16_SHAPES = [(1058, 500, 20, 50), (1058, 1000, 20, 50)]
 MAIN_SHAPE = (1058, 32, 20, 50)   # the stage-2 chunk: most main-path launches
 TIE_SPLIT = (64, 32, 10, 4096)    # ties across code tiles and strips
 BF16_MAIN_SHAPE = (1058, 250, 20, 50)
@@ -363,7 +374,8 @@ def phase_kernel(dtype=torch.float32):
     bf16 = dtype == torch.bfloat16
     gen = torch.Generator(device='cuda').manual_seed(SEED)
     rows, max_err = {}, 0.0
-    cases = ([('shape', s) for s in KERNEL_SHAPES]
+    shapes = KERNEL_SHAPES + (BENCH_BF16_SHAPES if bf16 else BENCH_SHAPES)
+    cases = ([('shape', s) for s in shapes]
              + [('tie', (1, 8, 4, 12)), ('tie_tiles', (2, 40, 8, 130)),
                 ('tie_split', TIE_SPLIT), ('tie_strips', TIE_SPLIT)])
     for kind, (n, b, d, k) in cases:
@@ -460,12 +472,16 @@ def phase_kernel_adam(moment_dtype=torch.float32):
         emit(name, shape=list(shape), unaligned=unaligned,
              steps=ADAM_STEPS, bit_equal=True)
 
-    # times over the 20 leaves of the bbc model (section train), and of a
-    # rank's quarter of mesh_bbc's padded model (265 of 1060 networks)
+    # times over the 20 leaves of the bbc model (section train), of a
+    # rank's quarter of mesh_bbc's padded model (265 of 1060 networks), and
+    # of the bench twin's nltcs and ad models
     cfg = vqvae.VqVaeConfig(n_var=1058, units=default_units(1058, 20),
                             dim=20, num_codes=50, fan_mode='per_network')
     row = _adam_times(cfg, gen, moment_dtype, name + '_bbc')
     if not bf16:
+        from pgmvae_tpu_torch import bench
+        _adam_times(bench.NLTCS_CFG, gen, moment_dtype, name + '_nltcs')
+        _adam_times(bench.AD_CFG, gen, moment_dtype, name + '_ad')
         shard = _mesh_bbc_config()
         params, _ = vqvae.init_model(gen, shard)
         params = vqvae.map_params(lambda p: p[:shard.n_var // MESH_BBC[1]]
@@ -913,21 +929,11 @@ def _kdd_like_splits():
     """Synthetic binary data at kdd's shape (64 columns, 180092/19907/34955
     rows), made with numpy from SEED: sparse columns driven by 16 shared
     latent factors with 2% noise, one loading for all three splits
-    (scripts/synth_kdd.py's rows, whose loading is drawn per split), so
-    that training has structure to learn and stage 2 sees it."""
-    from pgmvae_tpu_torch.registry import REGISTRY
-    info = REGISTRY['kdd']
-    rng = np.random.default_rng(SEED)
-    loading = rng.random((16, info.n_var)) < 0.12       # factor -> vars
-
-    def rows(n):
-        z = rng.random((n, 16)) < 0.2                   # active factors
-        y = (z.astype(np.uint8) @ loading.astype(np.uint8)) > 0
-        noise = rng.random((n, info.n_var)) < 0.02
-        return (y ^ noise).astype(np.float32)
-    return {split: rows(n) for split, n in (('train', info.n_train),
-                                            ('valid', info.n_valid),
-                                            ('test', info.n_test))}
+    (`data.synthetic.shared_factor_splits`; scripts/synth_kdd.py draws its
+    loading per split), so that training has structure to learn and stage
+    2 sees it."""
+    from pgmvae_tpu_torch.data.synthetic import shared_factor_splits
+    return shared_factor_splits('kdd', SEED)
 
 
 @contextlib.contextmanager
@@ -2426,6 +2432,155 @@ def phase_native_csv():
          native_s=native_s, numpy_s=numpy_s, equal=True)
 
 
+# the measurement twins' runs: bench_packed at the kdd sweep's shape, one
+# epoch; bench and bench_cmll at their defaults
+BENCH_PACKED_FLAGS = ['-n', 'kdd', '-k', '4096', '-d', '10', '-b', '32',
+                      '-e', '1', '-s', '4']
+LAUNCH_NAMES = ('vq_argmin', 'vq_argmin_bf16', 'adam', 'adam_bf16')
+
+
+def _twin(module, argv: list):
+    """One run of a measurement twin's `main(argv)` in-process, counted:
+    (exit code, the JSON lines it printed, launches, seconds)."""
+    from pgmvae_tpu_torch.ops import cuda_vq, fused_adam
+    out = io.StringIO()
+    # ---- the main path, counted
+    cuda_vq.LAUNCHES = cuda_vq.LAUNCHES_BF16 = 0
+    fused_adam.LAUNCHES = fused_adam.LAUNCHES_BF16 = 0
+    t0 = time.time()
+    with contextlib.redirect_stdout(out):
+        rc = module.main(argv)
+    seconds = time.time() - t0
+    launches = dict(zip(LAUNCH_NAMES, (
+        cuda_vq.LAUNCHES, cuda_vq.LAUNCHES_BF16, fused_adam.LAUNCHES,
+        fused_adam.LAUNCHES_BF16)))
+    # ---- end of the counted run
+    lines = [json.loads(line) for line in out.getvalue().splitlines()
+             if line.startswith('{')]
+    return rc, lines, launches, seconds
+
+
+def _train_launches(cfg, steps: int, adam_impl: str) -> dict:
+    """The launches of `steps` train steps of `cfg`: one nearest-code call
+    a step (the bf16 instance under bf16 compute) and one Adam launch a
+    leaf a step (the bf16-moment variant for fused_bf16)."""
+    want = dict.fromkeys(LAUNCH_NAMES, 0)
+    want['vq_argmin_bf16' if cfg.compute_dtype == 'bf16'
+         else 'vq_argmin'] = steps
+    want['adam_bf16' if adam_impl == 'fused_bf16' else 'adam'] = (
+        steps * 4 * (len(cfg.units) + 1))
+    return want
+
+
+def _sum_launches(*counts) -> dict:
+    return {k: sum(c[k] for c in counts) for k in LAUNCH_NAMES}
+
+
+def phase_bench() -> dict:
+    """The measurement twins' main(argv), each counted: `bench` with no
+    arguments (the nltcs headline and bench.py's eight cells at full
+    width), `bench_packed` at the kdd sweep's shape (S=4, one epoch) and
+    `bench_cmll` at its defaults. Each must exit 0 with its record on the
+    card, every cell measured (no `_error`), MFU at most 100% of the
+    card's peak for its arithmetic, one graph capture per kind and run,
+    and the launches its epochs, batches and Gibbs steps imply."""
+    from pgmvae_tpu_torch import bench, bench_cmll, bench_packed
+    from pgmvae_tpu_torch.models import vqvae
+    from pgmvae_tpu_torch.registry import REGISTRY
+    from pgmvae_tpu_torch.stage2 import Stage2
+    out, total = {}, []
+
+    rc, lines, launches, seconds = _twin(bench, [])
+    assert rc == 0 and len(lines) == 1, (rc, lines)
+    line = lines[0]
+    assert not [k for k in line if k.endswith('_error')], line
+    assert line['platform'] == 'gpu' and line['unit'] == 'samples/sec/chip'
+    head = line['headline']
+    nltcs = REGISTRY['nltcs']
+    steps = 2 * bench.HEADLINE_EPOCHS * -(-nltcs.n_train // 128)
+    assert head['launches'] == _train_launches(bench.NLTCS_CFG, steps,
+                                               'optax'), head['launches']
+    assert head['replays'] == steps - 1, head
+    chunk = Stage2(bench.NLTCS_CFG, device='cuda').chunk
+    chunks = -(-nltcs.n_train // chunk) + -(-nltcs.n_test // chunk)
+    assert head['stage2_launches'] == {**dict.fromkeys(LAUNCH_NAMES, 0),
+                                       'vq_argmin': chunks}, head
+    recorded = [head['launches'], head['stage2_launches']]
+    for cell in bench.CELLS:
+        rec = line[cell.key]
+        rows = (bench.AD_ROWS if cell.data == bench.AD_UNIFORM
+                else REGISTRY[cell.data].n_train)
+        steps = 2 * cell.epochs * -(-rows // cell.batch)
+        want = _train_launches(cell.cfg, steps, cell.adam_impl)
+        assert rec['launches'] == want, (cell.key, rec['launches'], want)
+        assert rec['replays'] == steps - 1, (cell.key, rec)
+        assert rec['samples_per_sec'] > 0, (cell.key, rec)
+        assert 0 < rec['mfu_pct'] <= 100, (cell.key, rec)
+        assert rec['peak_tflops'] == bench.peak_flops(cell.cfg) / 1e12
+        recorded.append(rec['launches'])
+    assert launches == _sum_launches(*recorded), (launches, recorded)
+    total.append(launches)
+    out['bench'] = dict(seconds=seconds, line=line)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        out_file = os.path.join(tmp, 'bench_packed_torch.jsonl')
+        rc, lines, launches, seconds = _twin(
+            bench_packed, BENCH_PACKED_FLAGS + ['--out', out_file])
+        with open(out_file) as f:
+            written = [json.loads(line) for line in f]
+    assert rc == 0 and len(lines) == 1 and written == lines, (rc, lines)
+    rec = lines[0]
+    assert rec['platform'] == 'gpu' and rec['speedup'] > 0, rec
+    args = bench_packed.build_parser().parse_args(BENCH_PACKED_FLAGS)
+    assert rec['steps_per_epoch'] == -(-REGISTRY['kdd'].n_train
+                                       // args.batch), rec
+    steps = args.epochs * rec['steps_per_epoch']
+    # serial: the warm run and S seeds; packed: warm and timed, one
+    # launch a step (and a leaf) for all S seeds
+    want = _train_launches(_kdd_config(), (1 + args.seeds) * steps
+                           + 2 * steps, 'optax')
+    assert launches == rec['launches'] == want, (launches, want)
+    assert rec['graphs']['serial']['replays'] == (
+        (1 + args.seeds) * steps - 1), rec
+    assert rec['graphs']['packed']['replays'] == 2 * steps - 1, rec
+    total.append(launches)
+    out['bench_packed'] = dict(seconds=seconds, record=rec)
+
+    rc, lines, launches, seconds = _twin(bench_cmll, [])
+    assert rc == 0 and len(lines) == 1, (rc, lines)
+    rec = lines[0]
+    assert rec['platform'] == 'gpu', rec
+    assert np.isfinite(rec['cmll']) and rec['cmll'] < 0, rec
+    args = bench_cmll.build_parser().parse_args([])
+    p1 = args.vars // 12
+    assert rec['steps'] == args.num_smp * p1, rec
+    assert rec['blocks'] == -(-args.vars // p1), rec
+    cfg = vqvae.VqVaeConfig(n_var=args.vars, units=(70, 50, 30),
+                            dim=args.dim, num_codes=args.k)
+    # 2 epochs at batch 256, then the two CMLL calls
+    want = _train_launches(cfg, 2 * -(-args.samples // 256), 'optax')
+    want['vq_argmin'] += 2 * rec['steps']      # two CMLL calls
+    assert launches == rec['launches'] == want, (launches, want)
+    assert rec['capture_ms_steady'] is not None, rec
+    total.append(launches)
+    out['bench_cmll'] = dict(seconds=seconds, record=rec)
+    # where a bench_cmll step's time goes: a replayed segment of its chain
+    # from the same model, profiled (a diagnostic, uncounted)
+    from pgmvae_tpu_torch.gibbs import GibbsChain
+    with _uncounted():
+        cfg, st, tr, data, dist = bench_cmll.model(args, torch.device('cuda'))
+        chain = GibbsChain(st.params, tr.codebook(st), cfg, dist, data, p1,
+                           args.burn_in)
+        us = _uniforms(chain, CMLL_SEGMENT, SEED)
+        profile_run('profile_bench_cmll_segment',
+                    lambda: chain.run(0, CMLL_SEGMENT, us.__getitem__),
+                    top=10, watch=VQ_NAMES)
+        chain.release()
+
+    emit('bench', **out)
+    return _sum_launches(*total)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device; nothing was run', file=sys.stderr)
@@ -2460,6 +2615,7 @@ def main() -> int:
     dryrun_launches = phase_mesh_dryrun()
     mesh_bbc_launches = phase_mesh_bbc()
     cli_mesh_launches = phase_cli_mesh()
+    bench_launches = phase_bench()
     main_row = rows[('shape',) + MAIN_SHAPE]
     bf16_row = rows_bf16[('shape',) + BF16_MAIN_SHAPE]
     emit('done', seconds=time.time() - t_start, device_ms_by=DEVICE_TIMER)
@@ -2479,9 +2635,11 @@ def main() -> int:
                 'mesh_nccl': nccl_launches['vq_argmin'],
                 'mesh_dryrun': dryrun_launches['vq_argmin'],
                 'mesh_bbc': mesh_bbc_launches['vq_argmin'],
-                'cli_mesh': cli_mesh_launches['vq_argmin']}
+                'cli_mesh': cli_mesh_launches['vq_argmin'],
+                'bench': bench_launches['vq_argmin']}
     vq_bf16_paths = {'train_bf16': bf16_launches['vq_argmin_bf16'],
-                     'cli': cli_launches['vq_argmin_bf16']}
+                     'cli': cli_launches['vq_argmin_bf16'],
+                     'bench': bench_launches['vq_argmin_bf16']}
     adam_paths = {'serving': 0, 'train': train_launches['adam'],
                   'train_bf16': bf16_launches['adam'],
                   'train_kdd': kdd_launches['adam'], 'stage2_kdd': 0,
@@ -2497,7 +2655,10 @@ def main() -> int:
                   'mesh_nccl': nccl_launches['adam'],
                   'mesh_dryrun': dryrun_launches['adam'],
                   'mesh_bbc': mesh_bbc_launches['adam'],
-                  'cli_mesh': cli_mesh_launches['adam']}
+                  'cli_mesh': cli_mesh_launches['adam'],
+                  'bench': bench_launches['adam']}
+    adam_bf16_paths = {'cli': cli_launches['adam_bf16'],
+                       'bench': bench_launches['adam_bf16']}
     timed = ('ms', 'device_ms', 'plain_ms', 'plain_device_ms',
              'bound_ms', 'bound_by', 'library_ms', 'library_device_ms')
     print(json.dumps({'kernels': [{
@@ -2531,8 +2692,8 @@ def main() -> int:
         'name': 'adam_bf16', 'route': 'cuda',
         'source': 'pgmvae_tpu_torch/ops/csrc/adam.cu',
         'replaces': 'pgmvae_tpu/ops/fused_adam.py:187',
-        'launches': cli_launches['adam_bf16'],
-        'launches_by_path': {'cli': cli_launches['adam_bf16']},
+        'launches': sum(adam_bf16_paths.values()),
+        'launches_by_path': adam_bf16_paths,
         'max_abs_err': 0.0,       # bit-equal to its plain version
         **{key: adam_bf16_row[key] for key in timed},
         'device_ms_by': DEVICE_TIMER,

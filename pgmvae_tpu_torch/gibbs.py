@@ -184,6 +184,16 @@ class GibbsChain:
         progress every SEGMENT_STEPS steps."""
         return self._sample(num_smp, self._filler(uniform), verbose)
 
+    def sample_from(self, num_smp: int, generator: torch.Generator,
+                    verbose: bool = False) -> float:
+        """`sample` with the uniforms drawn from `generator` (on the
+        chain's device): one draw of [G, blocks, B] a sub-segment of G
+        steps (`sub_steps`), not one a step."""
+        def fill(i0: int, g: int) -> None:
+            torch.rand((g, self.blocks, self.x.shape[0]), generator=generator,
+                       out=self.u[:g])
+        return self._sample(num_smp, fill, verbose)
+
     def release(self) -> None:
         """Release the captured step graph and its memory pool."""
         self.graph.release()
@@ -219,11 +229,7 @@ def conditional_marginal_log_likelihood(params, codebook,
                        parents=parents)
     if generator is None:
         generator = torch.Generator(device=chain.device).manual_seed(0)
-
-    def fill(i0: int, g: int) -> None:
-        torch.rand((g, chain.blocks, chain.x.shape[0]), generator=generator,
-                   out=chain.u[:g])
     try:
-        return chain._sample(num_smp, fill, verbose)
+        return chain.sample_from(num_smp, generator, verbose)
     finally:
         chain.release()

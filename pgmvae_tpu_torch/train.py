@@ -167,6 +167,13 @@ def _assign(dst: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
     return dst
 
 
+def copy_state_into(dst: TrainState, src: TrainState) -> TrainState:
+    """Every tensor of `src` copied into the matching tensor of `dst` (one
+    structure and shapes); returns `dst`, which keeps its addresses, so an
+    epoch graph captured over it replays from `src`'s values."""
+    return _map_state(_assign, dst, src)
+
+
 def _state_key(state: TrainState) -> tuple:
     """The addresses, shapes and types of a state's tensors: what a graph
     captured over the state holds."""

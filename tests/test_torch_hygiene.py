@@ -68,7 +68,8 @@ def test_port_imports_without_jax_side():
         'ops._build', 'ops.fused_adam', 'train', 'driver', 'run',
         'utils.logging', 'checkpoint', 'utils.msgpack', 'gibbs',
         'run_pipeline', '_cell_runner', 'graphs', 'parallel',
-        'parallel.mesh', 'data.native', '__graft_entry__')
+        'parallel.mesh', 'data.native', '__graft_entry__', 'bench',
+        'bench_packed', 'bench_cmll', 'data.synthetic')
             } <= set(_port_modules())
 
 
