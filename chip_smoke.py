@@ -6,13 +6,13 @@ Run from the root of a checkout, with no arguments:
     python3 chip_smoke.py
 
 It builds the port's two CUDA kernels (the nearest-code search with its
-bfloat16-input instance, and the Adam update with its bfloat16-moment
-variant; one nvcc each, started together) from the sources in the checkout,
-holds each kernel against its plain PyTorch version at the shapes of the
-main paths (timed by CUDA events over back-to-back calls, `ms`, and by the
-profiler's device time of the kernels alone, `device_ms`, or where the
-profiler sees none by events around calls queued behind a sleep on the
-device), and drives the system's paths, each with the kernels' launch
+bfloat16-input instance, and the Adam update, one launch over a table of
+leaves, with its bfloat16-moment instance; one nvcc each, started
+together) from the sources in the checkout, holds each kernel against its
+plain PyTorch version at the shapes of the main paths (timed by CUDA
+events over back-to-back calls, `ms`, and by the profiler's device time of
+the kernels alone, `device_ms`, or where the profiler sees none by events
+around calls queued behind a sleep on the device), and drives the system's paths, each with the kernels' launch
 counts set to 0 just before it and read just after. Train epochs, streamed
 chunks and Gibbs segments run as replayed CUDA graphs (a replay counts the
 launches it holds), and each graph path is held bit for bit against the
@@ -107,12 +107,19 @@ VQ_NAMES = ('vq_argmin_kernel', 'vq_merge_kernel')   # the kernel's launches
 # the reference's shipped sweep (batch-job.sh:43-52): kdd, K=4096, D=10,
 # batch 32, lr 2e-4, cost 0.35 (the first of its four), seed 5, EMA
 KDD_ROWS, KDD_BATCH, KDD_LR, KDD_COST, KDD_SEED = 6400, 32, 2e-4, 0.35, 5
-# Adam leaves: the shapes of tests/test_fused_adam.py, bbc's three kinds of
-# weight leaf (first/last layer, hidden layer, a bias), and one leaf whose
-# pointer is not 16-byte aligned (the kernel's scalar path)
+# Adam leaves, all in one update: the shapes of tests/test_fused_adam.py,
+# bbc's three kinds of weight leaf (first/last layer, hidden layer, a bias),
+# one leaf whose pointers are not 16-byte aligned (the kernel's scalar path)
+# and one of zero size (left out of the table); then ADAM_MANY ragged
+# leaves (more than one table holds), and a few leaves from a late step
+# count (the nltcs headline's last)
 ADAM_SHAPES = [(7, 9, 5), (7, 5, 5), (3, 4), (11,), (1058, 1058, 111),
                (1058, 111, 111), (1058, 1, 111)]
+ADAM_UNALIGNED, ADAM_EMPTY = (1000, 3), (0, 5)
+ADAM_MANY = 200
+ADAM_LATE_COUNT = 16253
 ADAM_STEPS = 3
+ADAM_KERNEL = 'adam_table_kernel'     # the kernel's name in a profile
 LR, EPS = 0.003, 1e-7
 # Gibbs CMLL: bbc's chain cut to 20 sweeps (burn-in 2) of p1 = 105; the
 # plain-version hold's steps; the segment profiled; kdd's test rows chained
@@ -217,6 +224,32 @@ def device_ms(fn, calls: int = PROFILE_CALLS) -> float:
     return total_us / 1e3 / calls
 
 
+def split_device_ms(fn, match: str, calls: int = PROFILE_CALLS):
+    """(device ms of fn()'s kernels whose name holds `match`, device ms of
+    its other kernels), averaged over `calls` warm calls from one profiler
+    session, as device_ms reads it. Where no session sees device time, or
+    sees none of the matched kernels, (queued_events_ms(fn), None): the
+    whole call, not split."""
+    fn()
+    torch.cuda.synchronize()
+
+    def run():
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    averages = _profile(run)
+    cuda = [e for e in averages or ()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+    mine = sum(e.self_device_time_total for e in cuda if match in e.key)
+    if mine <= 0:
+        DEVICE_TIMER['queued_events'] += 1
+        return queued_events_ms(fn, calls), None
+    DEVICE_TIMER['profiler'] += 1
+    other = sum(e.self_device_time_total for e in cuda
+                if match not in e.key)
+    return mine / 1e3 / calls, other / 1e3 / calls
+
+
 def bound(n: int, b: int, d: int, k: int, bf16: bool = False):
     """Least time (ms) for the argmin's work on an H100 SXM, and its bound:
     z and W read once (4 bytes a value, 2 in bfloat16), the codes written
@@ -317,9 +350,8 @@ def phase_build():
         if m:
             key = '_'.join(m.groups()[1:])
             dpad[key if m.group(1) == 'f' else 'bf16_' + key] = lines
-    # adam_kernel<M, VEC>: by moment type and vector or scalar path
-    adam = {('bf16_' if 'bfloat16' in e else 'f32_')
-            + ('vector' if 'Lb1E' in e else 'scalar'): lines
+    # adam_table_kernel<M>: by moment type
+    adam = {('bf16' if 'bfloat16' in e else 'f32'): lines
             for e, lines in _ptxas(
                 fused_adam.library_path().with_suffix('.log')).items()}
     emit('build', seconds=seconds, wall_seconds=time.time() - t0,
@@ -425,12 +457,20 @@ def _leaf_bytes_bound(numel: int, per_param: float = 28.0) -> float:
     return per_param * numel / HBM_BYTES * 1e3
 
 
-def _adam_pair(shapes, gen, unaligned=False, moment_dtype=torch.float32):
+def _adam_per_step(n_leaves: int) -> int:
+    """Adam kernel launches of a train step over `n_leaves` leaves: one per
+    table of leaves."""
+    from pgmvae_tpu_torch.ops import fused_adam
+    return fused_adam.launches_per_update(n_leaves)
+
+
+def _adam_pair(specs, gen, moment_dtype=torch.float32):
     """Two identical (params, state) sets in the params layout, one leaf
-    per shape."""
+    per (shape, unaligned) of `specs`; an unaligned leaf is a view 4 bytes
+    past an alignment."""
     from pgmvae_tpu_torch.ops import fused_adam
     leaves = []
-    for shape in shapes:
+    for shape, unaligned in specs:
         p = torch.randn(shape, generator=gen, device='cuda') * 0.1
         if unaligned:              # same values, 4 bytes past an alignment
             buf = torch.empty(p.numel() + 1, device='cuda')
@@ -443,45 +483,80 @@ def _adam_pair(shapes, gen, unaligned=False, moment_dtype=torch.float32):
             twin, fused_adam.adam_init(twin, LR, EPS, moment_dtype))
 
 
+def _adam_cases():
+    """(name, [(shape, unaligned)], first count) of the kernel's checks."""
+    rng = np.random.default_rng(SEED)
+    many = [((int(n),), False) for n in rng.integers(0, 12000, ADAM_MANY)]
+    many[7] = ((4099,), True)
+    return [('one_table', [(s, False) for s in ADAM_SHAPES]
+             + [(ADAM_UNALIGNED, True), (ADAM_EMPTY, False)], 0),
+            ('over_capacity', many, 0),
+            ('late_count', [(s, False) for s in ADAM_SHAPES[:4]]
+             + [(ADAM_UNALIGNED, True)], ADAM_LATE_COUNT)]
+
+
 def phase_kernel_adam(moment_dtype=torch.float32):
-    """The Adam kernel (with float32 or, its variant, bfloat16 moments)
-    against `adam_update_plain` on the card, ADAM_STEPS steps from the same
-    state: p, m and v must be bit-equal. Then times at bbc's 20 leaves."""
+    """The one-launch Adam kernel (with float32 or bfloat16 moments) against
+    `adam_update_plain` on the card, ADAM_STEPS updates from the same state
+    on multi-leaf tables (`_adam_cases`): p, m and v must be bit-equal, and
+    each update launches once per table. Then times over the main paths'
+    leaves."""
     from pgmvae_tpu_torch.models import vqvae
     from pgmvae_tpu_torch.ops import fused_adam
     from pgmvae_tpu_torch.registry import default_units
     bf16 = moment_dtype == torch.bfloat16
     name = 'kernel_adam_bf16' if bf16 else 'kernel_adam'
     gen = torch.Generator(device='cuda').manual_seed(SEED)
-    cases = [(s, False) for s in ADAM_SHAPES] + [((1000, 3), True)]
-    for shape, unaligned in cases:
-        params, st, twin, st2 = _adam_pair([shape], gen, unaligned,
-                                           moment_dtype)
+    for case, specs, count in _adam_cases():
+        params, st, twin, st2 = _adam_pair(specs, gen, moment_dtype)
+        st = st._replace(count=st.count + count)
+        st2 = st2._replace(count=st2.count + count)
+        live = sum(1 for shape, _ in specs if np.prod(shape) > 0)
+        launched = (fused_adam.LAUNCHES, fused_adam.LAUNCHES_BF16)
         for _ in range(ADAM_STEPS):
-            g = torch.randn(shape, generator=gen, device='cuda') * 0.01
-            st = fused_adam.adam_update(params, {'enc': [(g,)]}, st)
-            st2 = fused_adam.adam_update_plain(twin, {'enc': [(g.clone(),)]},
-                                               st2)
+            grads = {'enc': [(torch.randn(p.shape, generator=gen,
+                                          device='cuda') * 0.01,)
+                             for (p,) in params['enc']]}
+            st = fused_adam.adam_update(params, grads, st)
+            st2 = fused_adam.adam_update_plain(
+                twin, vqvae.map_params(torch.clone, grads), st2)
         torch.cuda.synchronize()
+        launched = (fused_adam.LAUNCHES - launched[0],
+                    fused_adam.LAUNCHES_BF16 - launched[1])
+        want = ADAM_STEPS * fused_adam.launches_per_update(live)
+        assert launched == ((0, want) if bf16 else (want, 0)), (
+            case, launched, want)
         pairs = [(params, twin), (st.mu, st2.mu), (st.nu, st2.nu)]
-        for (a,), (b,) in ((x['enc'][0], y['enc'][0]) for x, y in pairs):
-            assert torch.equal(a, b), (shape, float((a.float()
-                                                     - b.float()).abs().max()))
+        for x, y in pairs:
+            for i, ((a,), (b,)) in enumerate(zip(x['enc'], y['enc'])):
+                assert torch.equal(a, b), (case, i, tuple(a.shape), float(
+                    (a.float() - b.float()).abs().max()))
         assert st.mu['enc'][0][0].dtype == moment_dtype
-        assert int(st.count) == int(st2.count) == ADAM_STEPS
-        emit(name, shape=list(shape), unaligned=unaligned,
-             steps=ADAM_STEPS, bit_equal=True)
+        assert int(st.count) == int(st2.count) == count + ADAM_STEPS
+        emit(name, case=case, leaves=len(specs), live_leaves=live,
+             params=int(sum(np.prod(s) for s, _ in specs)),
+             unaligned=sum(u for _, u in specs), first_count=count + 1,
+             steps=ADAM_STEPS, launches=sum(launched), bit_equal=True)
 
-    # times over the 20 leaves of the bbc model (section train), of a
-    # rank's quarter of mesh_bbc's padded model (265 of 1060 networks), and
-    # of the bench twin's nltcs and ad models
+    # times over the leaves of the bbc model (section train), the nltcs
+    # headline's, kdd's (alone and packed, S=4), ad's and a rank's quarter
+    # of mesh_bbc's padded model (265 of 1060 networks)
+    from pgmvae_tpu_torch import bench
     cfg = vqvae.VqVaeConfig(n_var=1058, units=default_units(1058, 20),
                             dim=20, num_codes=50, fan_mode='per_network')
-    row = _adam_times(cfg, gen, moment_dtype, name + '_bbc')
+    row = _adam_times(vqvae.init_model(gen, cfg)[0], gen, moment_dtype,
+                      name + '_bbc')
+    nltcs = vqvae.init_model(gen, bench.NLTCS_CFG)[0]
+    _adam_times(nltcs, gen, moment_dtype, name + '_nltcs')
     if not bf16:
-        from pgmvae_tpu_torch import bench
-        _adam_times(bench.NLTCS_CFG, gen, moment_dtype, name + '_nltcs')
-        _adam_times(bench.AD_CFG, gen, moment_dtype, name + '_ad')
+        kdd = vqvae.init_model(gen, _kdd_config())[0]
+        _adam_times(kdd, gen, moment_dtype, name + '_kdd')
+        packed = vqvae.map_params(
+            lambda p: torch.stack([p] * len(PACKED_SEEDS)), kdd)
+        _adam_times(packed, gen, moment_dtype, name + '_packed_kdd')
+        del kdd, packed
+        _adam_times(vqvae.init_model(gen, bench.AD_CFG)[0], gen,
+                    moment_dtype, name + '_ad')
         shard = _mesh_bbc_config()
         params, _ = vqvae.init_model(gen, shard)
         params = vqvae.map_params(lambda p: p[:shard.n_var // MESH_BBC[1]]
@@ -490,15 +565,14 @@ def phase_kernel_adam(moment_dtype=torch.float32):
     return row
 
 
-def _adam_times(cfg, gen, moment_dtype, name):
-    """The Adam kernel, its plain version and (float32 moments) PyTorch's
-    fused Adam timed over the leaves of `cfg`'s model (or the params dict
-    `cfg`); one line `name`."""
+def _adam_times(params, gen, moment_dtype, name):
+    """The one-launch Adam update over the leaves of `params`: the kernel's
+    device time apart from the update's scalar operations (the step count
+    and the powers b^t), the whole update's, CUDA events, the plain version
+    and (float32 moments) PyTorch's fused Adam. One line `name`."""
     from pgmvae_tpu_torch.models import vqvae
     from pgmvae_tpu_torch.ops import fused_adam
     bf16 = moment_dtype == torch.bfloat16
-    params = (cfg if isinstance(cfg, dict)
-              else vqvae.init_model(gen, cfg)[0])
     leaves = vqvae.param_leaves(params)
     grads = vqvae.map_params(
         lambda p: torch.randn(p.shape, generator=gen, device='cuda') * 0.01,
@@ -513,8 +587,13 @@ def _adam_times(cfg, gen, moment_dtype, name):
 
     def plain():
         fused_adam.adam_update_plain(params, grads, state)
-    ms, kernel_dev = cuda_ms(kernel), device_ms(kernel)
+    ms = cuda_ms(kernel)
+    kernel_dev, scalar_dev = split_device_ms(kernel, ADAM_KERNEL)
+    update_dev = device_ms(kernel)
     kernel_queued = queued_events_ms(kernel)
+    tables = fused_adam.leaf_tables(
+        list(zip(leaves, vqvae.param_leaves(state.mu),
+                 vqvae.param_leaves(state.nu), vqvae.param_leaves(grads))))
     plain_ms, plain_dev = cuda_ms(plain), device_ms(plain)
     # timing launches are not counted
     fused_adam.LAUNCHES, fused_adam.LAUNCHES_BF16 = before
@@ -531,14 +610,24 @@ def _adam_times(cfg, gen, moment_dtype, name):
         library_ms, library_dev = cuda_ms(opt.step), device_ms(opt.step)
         del opt, lib_leaves
     bound_ms = _leaf_bytes_bound(numel, per_param)
-    row = dict(leaves=len(leaves), params=numel, launches_per_step=len(
-        leaves), ms=ms, plain_ms=plain_ms, library_ms=library_ms,
-        device_ms=kernel_dev, queued_events_ms=kernel_queued,
-        plain_device_ms=plain_dev,
-        library_device_ms=library_dev, bound_ms=bound_ms, bound_by='bytes',
-        bound_share=bound_ms / kernel_dev, bytes_per_param=per_param,
-        achieved_tb_s=per_param * numel / (ms * 1e-3) / 1e12,
-        shapes=[list(p.shape) for p in leaves])
+    row = dict(leaves=len(leaves), params=numel,
+               launches_per_step=_adam_per_step(
+                   sum(1 for p in leaves if p.numel() > 0)),
+               chunks=[t.chunks for t in tables],
+               ms=ms, plain_ms=plain_ms, library_ms=library_ms,
+               device_ms=kernel_dev, scalar_device_ms=scalar_dev,
+               update_device_ms=update_dev, queued_events_ms=kernel_queued,
+               plain_device_ms=plain_dev, library_device_ms=library_dev,
+               bound_ms=bound_ms, bound_by='bytes',
+               bound_share=bound_ms / kernel_dev,
+               update_bound_share=bound_ms / update_dev,
+               kernel_vs_library=(None if library_dev is None
+                                  else library_dev / kernel_dev),
+               update_vs_library=(None if library_dev is None
+                                  else library_dev / update_dev),
+               bytes_per_param=per_param,
+               achieved_tb_s=per_param * numel / (kernel_dev * 1e-3) / 1e12,
+               shapes=[list(p.shape) for p in leaves])
     emit(name, **row)
     return row
 
@@ -857,7 +946,8 @@ def phase_train():
 
     steps = 2 * tr.steps_per_epoch
     assert tr.steps_per_epoch == 7 and steps == 14, tr.steps_per_epoch
-    assert launches == {'vq_argmin': steps, 'adam': steps * n_leaves} \
+    assert launches == {'vq_argmin': steps,
+                        'adam': steps * _adam_per_step(n_leaves)} \
         and n_leaves == 20, launches
     assert all(np.isfinite(list(m)).all() for m in hist), hist
     assert hist[1].loss < hist[0].loss, hist
@@ -889,7 +979,8 @@ def phase_train():
                              cost=cfg.cost, dead_code_threshold=0.25,
                              fan_mode=cfg.fan_mode, lr=LR, batch=250,
                              adam_impl='pallas'),
-         steps=steps, launches=launches, adam_launches_per_step=n_leaves,
+         steps=steps, launches=launches,
+         adam_launches_per_step=_adam_per_step(n_leaves),
          fit_seconds=fit_seconds, epoch_metrics=[m._asdict() for m in hist],
          warm_epoch_seconds=warm_s,
          warm_steps_per_s=tr.steps_per_epoch / warm_s,
@@ -1068,8 +1159,8 @@ def phase_train_kdd():
     chunks = -(-y.shape[0] // s2.chunk) + -(-y_test.shape[0] // s2.chunk)
     assert steps == 200 and s2.chunk == 118 and chunks == 55 + 297, (
         steps, s2.chunk, chunks)
-    assert launches == {'vq_argmin': steps, 'adam': steps * n_leaves}, \
-        launches
+    assert launches == {'vq_argmin': steps,
+                        'adam': steps * _adam_per_step(n_leaves)}, launches
     assert s2_launches == chunks, (s2_launches, chunks)
     assert all(np.isfinite(list(m)).all() for m in hist), hist
     assert np.isfinite(pll_test) and pll_test < 0, pll_test
@@ -1161,7 +1252,7 @@ def phase_train_bf16(f32: dict):
     memory = _memory_since(mark)
 
     assert launches == {'vq_argmin': 0, 'vq_argmin_bf16': 14,
-                        'adam': 280}, launches
+                        'adam': 14 * _adam_per_step(20)}, launches
     masters = (vqvae.param_leaves(state.params)
                + vqvae.param_leaves(state.opt_state.mu)
                + vqvae.param_leaves(state.opt_state.nu) + list(state.ema[:3]))
@@ -1221,7 +1312,8 @@ def phase_stream_kdd(kdd: dict):
     launches = {'vq_argmin': cuda_vq.LAUNCHES, 'adam': fused_adam.LAUNCHES}
     # ---- end of the counted run
     n_leaves = 4 * (len(core.cfg.units) + 1)
-    assert launches == {'vq_argmin': 200, 'adam': 200 * n_leaves}, launches
+    assert launches == {'vq_argmin': 200,
+                        'adam': 200 * _adam_per_step(n_leaves)}, launches
     leaves = _assert_bit_equal(state, ref, 'streamed vs in-core')
     graph = tr.graph_stats['chunk']
     turns = {'in_core': [], 'streamed': [], 'eager': []}
@@ -1252,7 +1344,7 @@ def phase_packed_kdd(kdd: dict, turns: dict):
     from the same init (every leaf within 1e-6 of its largest magnitude,
     unless a code flips, and then only on a float64-proven near-tie); then
     200 packed steps replayed as a graph, counted (one nearest-code launch
-    and one Adam launch a leaf per step for all four seeds) and held
+    and one Adam launch a step for all four seeds) and held
     bit-equal to the eager loop, and the kdd seed's test PLL within 0.1 nat
     of `train_kdd`'s. Then profiles of one warm eager packed step and of
     one replayed packed epoch."""
@@ -1311,7 +1403,8 @@ def phase_packed_kdd(kdd: dict, turns: dict):
     # ---- end of the counted run
     memory = _memory_since(mark)
     n_leaves = 4 * (len(tr.cfg.units) + 1)
-    assert launches == {'vq_argmin': 200, 'adam': 200 * n_leaves}, launches
+    assert launches == {'vq_argmin': 200,
+                        'adam': 200 * _adam_per_step(n_leaves)}, launches
     assert np.isfinite(ms.loss).all(), ms
     graph = tr.graph_stats['packed']
     hold = _hold_eager(
@@ -1566,7 +1659,8 @@ def phase_checkpoint(kdd: dict):
     assert gap < 1e-6, ('resumed vs in-memory', gap)
     n_leaves = len(vqvae.param_leaves(state.params))
     assert resume == {'vq_argmin': RESUME_STEPS,
-                      'adam': RESUME_STEPS * n_leaves}, resume
+                      'adam': RESUME_STEPS * _adam_per_step(n_leaves)}, \
+        resume
     emit('checkpoint', model='kdd sweep cell (phase train_kdd)',
          file_bytes=nbytes, save_seconds=save_s, load_seconds=load_s,
          leaves=len(pairs), load_bit_equal=True,
@@ -1679,8 +1773,9 @@ def phase_run_epochs(kdd: dict) -> dict:
                           'adam': fused_adam.LAUNCHES}
         # ---- end of the counted run
         tr.release_graphs()
-        assert launches[name] == {'vq_argmin': steps,
-                                  'adam': steps * n_leaves}, launches
+        assert launches[name] == {
+            'vq_argmin': steps,
+            'adam': steps * _adam_per_step(n_leaves)}, launches
         assert ms.shape == ((len(seeds),) if packed else ()) + (
             RUN_EPOCHS, 4), ms.shape
         with _uncounted():
@@ -1739,8 +1834,8 @@ def phase_train_kdd_full(splits: dict) -> dict:
     memory = _memory_since(mark)
     steps = tr.steps_per_epoch
     n_leaves = 4 * (len(cfg.units) + 1)
-    assert steps == 5628 and launches == {'vq_argmin': steps,
-                                          'adam': steps * n_leaves}, (
+    assert steps == 5628 and launches == {
+        'vq_argmin': steps, 'adam': steps * _adam_per_step(n_leaves)}, (
         steps, launches)
     assert np.isfinite(list(hist[0])).all(), hist
     with _uncounted():
@@ -1908,7 +2003,8 @@ def phase_cli():
     # resume; the bfloat16 moments take the variant and only it; bf16
     # compute trains through the bfloat16 instance, stage 2 stays float32
     steps = -(-16181 // 128)
-    n_leaves = 4 * (len(REGISTRY['nltcs'].encoder_units(10)) + 1)
+    adam = _adam_per_step(4 * (len(REGISTRY['nltcs'].encoder_units(10))
+                               + 1))
     vq = {name: r['launches']['vq_argmin'] for name, r in runs.items()}
     assert vq['checkpoint_cmll'] - vq['pallas'] == 3000, vq
     assert vq['pallas'] - vq['resume'] == 2 * steps, vq
@@ -1917,27 +2013,28 @@ def phase_cli():
     assert {name: r['launches']['vq_argmin_bf16']
             for name, r in runs.items()} == {
         name: 3 * steps if name == 'compute_bf16' else 0 for name in runs}
-    # the packed grid: 2 groups of 2 seeds, one launch a step (and a leaf)
-    # for both seeds; stage 2 per seed as in an unpacked cell
+    # the packed grid: 2 groups of 2 seeds, one launch a step (a nearest-
+    # code call, an Adam update) for both seeds; stage 2 per seed as in an
+    # unpacked cell
     stage2 = vq['pallas'] - 3 * steps
     assert sweep['grid']['launches'] == {
         'vq_argmin': 2 * 3 * steps + 4 * stage2, 'vq_argmin_bf16': 0,
-        'adam': 2 * 3 * steps * n_leaves, 'adam_bf16': 0}, sweep
+        'adam': 2 * 3 * steps * adam, 'adam_bf16': 0}, sweep
     # the isolated cell ran on the card in its own process, through both
-    # kernels: one launch a step (and a leaf), and its stage 2
+    # kernels: one launch a step of each, and its stage 2
     iso = sweep['isolate']['cell_process']
     assert iso == {'device': 'cuda:0', 'launches': {
         'vq_argmin': 3 * steps + stage2, 'vq_argmin_bf16': 0,
-        'adam': 3 * steps * n_leaves, 'adam_bf16': 0}}, iso
+        'adam': 3 * steps * adam, 'adam_bf16': 0}}, iso
     for name, r in runs.items():
-        n = (1 if name == 'resume' else 3) * steps * n_leaves
+        n = (1 if name == 'resume' else 3) * steps * adam
         want = ({'adam': 0, 'adam_bf16': n} if name == 'fused_bf16'
                 else {'adam': n, 'adam_bf16': 0})
         got = {k: r['launches'][k] for k in want}
         assert got == want, (name, got, want)
     assert serve_launches == 1, serve_launches
     assert prof_launches == {'vq_argmin': vq['resume'], 'vq_argmin_bf16': 0,
-                             'adam': steps * n_leaves,
+                             'adam': steps * adam,
                              'adam_bf16': 0}, prof_launches
     np.testing.assert_allclose(scores.mean(),
                                runs['checkpoint_cmll']['result']['pll-test'],
@@ -1993,8 +2090,8 @@ def phase_sweep_kdd(kdd: dict, packed_pll: float):
     `run_pipeline -n kdd -k 4096 ... -s 5,6,7,8 --pack-seeds 4`, on
     kdd-shaped splits written to disk (the kdd phase's KDD_ROWS train rows,
     the whole valid and test splits), counted: 200 packed steps (one
-    nearest-code launch a step and one Adam launch a leaf a step for all
-    four seeds), then per seed a stage-2 CPT and the three splits' PLLs; four
+    nearest-code launch a step and one Adam launch a step for all four
+    seeds), then per seed a stage-2 CPT and the three splits' PLLs; four
     pk-4 joblog and result lines; seed 5's test PLL equal to `packed_kdd`'s
     (the same init, data and packed program) within 1e-5 relative, and
     within 0.1 nat of `train_kdd`'s."""
@@ -2027,7 +2124,8 @@ def phase_sweep_kdd(kdd: dict, packed_pll: float):
                  for y in (rows['train'], *rows.values()))
     n_leaves = 4 * (len(tr.cfg.units) + 1)
     assert launches == {'vq_argmin': 200 + 4 * stage2, 'vq_argmin_bf16': 0,
-                        'adam': 200 * n_leaves, 'adam_bf16': 0}, launches
+                        'adam': 200 * _adam_per_step(n_leaves),
+                        'adam_bf16': 0}, launches
     plls = [r['pll_test'] for r in records]
     assert all(np.isfinite(v) and v < 0 for v in plls), plls
     assert abs(plls[0] - packed_pll) <= 1e-5 * abs(packed_pll), (
@@ -2257,7 +2355,7 @@ def phase_mesh_bbc():
     chunks = sum(-(-splits[s].shape[0] // chunk)
                  for s in ('test', 'train', 'test'))
     expect_vq = n_ranks * (1 + steps + chunks)
-    expect_adam = n_ranks * (1 + steps) * 20
+    expect_adam = n_ranks * (1 + steps) * _adam_per_step(20)
     assert launches['vq_argmin'] == expect_vq, (launches, expect_vq)
     assert launches['adam'] == expect_adam, (launches, expect_adam)
     emit('mesh_bbc', mesh=list(MESH_BBC), backend=res[0]['backend'],
@@ -2338,6 +2436,10 @@ def phase_mesh_nccl(kdd: dict):
     bad = [i for i, (a, b) in enumerate(zip(got['leaves'], ref, strict=True))
            if not torch.equal(a.to('cuda'), b)]
     assert not bad, ('NCCL mesh epoch vs unmeshed graph epoch', bad[:8])
+    steps = tr.steps_per_epoch
+    assert {k: ranks[0].launches[k] for k in ('vq_argmin', 'adam')} == {
+        'vq_argmin': steps, 'adam': steps * _adam_per_step(20)}, \
+        ranks[0].launches
     emit('mesh_nccl', backend='nccl', world=1, captured=captured,
          capture_error=error, graph=got['graph'], steps=tr.steps_per_epoch,
          loss=got['loss'], loss_unmeshed=hist[0].loss,
@@ -2463,12 +2565,12 @@ def _twin(module, argv: list):
 def _train_launches(cfg, steps: int, adam_impl: str) -> dict:
     """The launches of `steps` train steps of `cfg`: one nearest-code call
     a step (the bf16 instance under bf16 compute) and one Adam launch a
-    leaf a step (the bf16-moment variant for fused_bf16)."""
+    table of leaves a step (the bf16-moment variant for fused_bf16)."""
     want = dict.fromkeys(LAUNCH_NAMES, 0)
     want['vq_argmin_bf16' if cfg.compute_dtype == 'bf16'
          else 'vq_argmin'] = steps
     want['adam_bf16' if adam_impl == 'fused_bf16' else 'adam'] = (
-        steps * 4 * (len(cfg.units) + 1))
+        steps * _adam_per_step(4 * (len(cfg.units) + 1)))
     return want
 
 
@@ -2536,7 +2638,7 @@ def phase_bench() -> dict:
                                        // args.batch), rec
     steps = args.epochs * rec['steps_per_epoch']
     # serial: the warm run and S seeds; packed: warm and timed, one
-    # launch a step (and a leaf) for all S seeds
+    # launch a step of each kernel for all S seeds
     want = _train_launches(_kdd_config(), (1 + args.seeds) * steps
                            + 2 * steps, 'optax')
     assert launches == rec['launches'] == want, (launches, want)
