@@ -43,7 +43,12 @@ measurement twins in-process: `pgmvae_tpu_torch.bench` (the nltcs
 headline and the JAX `bench.py`'s eight cells at full width),
 `bench_packed` at the kdd sweep's shape (S=4, one epoch) and `bench_cmll`
 at its defaults, each held to its record, one graph capture per kind and
-run, and the launches its steps imply. Each phase
+run, and the launches its steps imply. And the out-of-core twin,
+`bench_streaming`, at its full 4.5 GiB (18,874,368 x 64 rows, past the
+Trainer's 4 GiB `stream_bytes`): its streamed epoch (73,728 steps, the
+data on the host, a device peak below half the data's bytes) held bit for
+bit against an in-core fit of the same steps, and stage 2 over the whole
+split, fed to the card in pinned pieces, counting every row once. Each phase
 prints one JSON line; any failed check
 raises, so the script exits non-zero. The last three lines are the kernel
 summary, the card's name and power limit as nvidia-smi gives them, and
@@ -97,6 +102,9 @@ KERNEL_SHAPES = [(3, 9, 5, 7), (5, 32, 8, 130), (4, 17, 10, 50),
 BENCH_SHAPES = [(16, 128, 10, 50), (1058, 25, 20, 50), (1556, 250, 30, 20),
                 (13, 5000, 20, 15)]
 BENCH_BF16_SHAPES = [(1058, 500, 20, 50), (1058, 1000, 20, 50)]
+# the out-of-core twin's (phase stream_big): a train batch of its 64-variable
+# model (K=64, D=10, bs 256) and a stage-2 chunk (auto_chunk(64, 64) rows)
+STREAM_SHAPES = [(64, 256, 10, 64), (64, 1365, 10, 64)]
 MAIN_SHAPE = (1058, 32, 20, 50)   # the stage-2 chunk: most main-path launches
 TIE_SPLIT = (64, 32, 10, 4096)    # ties across code tiles and strips
 BF16_MAIN_SHAPE = (1058, 250, 20, 50)
@@ -406,7 +414,8 @@ def phase_kernel(dtype=torch.float32):
     bf16 = dtype == torch.bfloat16
     gen = torch.Generator(device='cuda').manual_seed(SEED)
     rows, max_err = {}, 0.0
-    shapes = KERNEL_SHAPES + (BENCH_BF16_SHAPES if bf16 else BENCH_SHAPES)
+    shapes = KERNEL_SHAPES + (BENCH_BF16_SHAPES if bf16
+                              else BENCH_SHAPES + STREAM_SHAPES)
     cases = ([('shape', s) for s in shapes]
              + [('tie', (1, 8, 4, 12)), ('tie_tiles', (2, 40, 8, 130)),
                 ('tie_split', TIE_SPLIT), ('tie_strips', TIE_SPLIT)])
@@ -539,8 +548,9 @@ def phase_kernel_adam(moment_dtype=torch.float32):
              steps=ADAM_STEPS, launches=sum(launched), bit_equal=True)
 
     # times over the leaves of the bbc model (section train), the nltcs
-    # headline's, kdd's (alone and packed, S=4), ad's and a rank's quarter
-    # of mesh_bbc's padded model (265 of 1060 networks)
+    # headline's, kdd's (alone and packed, S=4), ad's, a rank's quarter of
+    # mesh_bbc's padded model (265 of 1060 networks) and the out-of-core
+    # twin's 64-variable model
     from pgmvae_tpu_torch import bench
     cfg = vqvae.VqVaeConfig(n_var=1058, units=default_units(1058, 20),
                             dim=20, num_codes=50, fan_mode='per_network')
@@ -562,6 +572,11 @@ def phase_kernel_adam(moment_dtype=torch.float32):
         params = vqvae.map_params(lambda p: p[:shard.n_var // MESH_BBC[1]]
                                   .contiguous(), params)
         _adam_times(params, gen, moment_dtype, name + '_bbc_shard')
+        from pgmvae_tpu_torch import bench_streaming
+        cfg = bench_streaming.model_config(
+            bench_streaming.build_parser().parse_args([]))
+        _adam_times(vqvae.init_model(gen, cfg)[0], gen, moment_dtype,
+                    name + '_stream_big')
     return row
 
 
@@ -2683,6 +2698,156 @@ def phase_bench() -> dict:
     return _sum_launches(*total)
 
 
+def _largest_cuda_tensors(top: int = 8) -> list:
+    """[shape, dtype, GB] of the largest CUDA tensors alive (a diagnostic
+    of what earlier phases still hold)."""
+    import gc
+    found = {}
+    for obj in gc.get_objects():
+        try:
+            if isinstance(obj, torch.Tensor) and obj.is_cuda:
+                storage = obj.untyped_storage()
+                found[storage.data_ptr()] = (list(obj.shape), str(obj.dtype),
+                                             storage.nbytes() / 1e9)
+        except (ReferenceError, RuntimeError):   # dead proxies, sparse
+            continue
+    return sorted(found.values(), key=lambda t: -t[2])[:top]
+
+
+def phase_stream_big() -> dict:
+    """The out-of-core twin, `bench_streaming`, at its defaults (4.5 GiB:
+    18,874,368 x 64 rows of float32, past the Trainer's 4 GiB
+    `stream_bytes`), counted through `_twin`: exit 0, its record, the
+    launches of the streamed epoch and the in-core comparator's two subset
+    epochs, and a streamed peak of device memory, over what earlier phases
+    still hold, below half the dataset's bytes (the data never went to
+    the card). Then, from the twin's own data and streamed state: an
+    in-core fit of the same steps from the same init and seed (the card
+    holding all 4.5 GiB; uncounted) must be bit-equal leaf by leaf; and
+    stage 2 over the whole split, counted (a CPT and the split's PLL, the
+    split fed in pinned pieces): one nearest-code launch a chunk of each
+    pass, device memory growth below the same bound, every row counted
+    once for every variable, counts equal to those of the split's two
+    halves cut off a chunk boundary, a finite PLL, and the largest count
+    cell against 2^24 (f32 counts are exact below it)."""
+    from pgmvae_tpu_torch import bench_streaming
+    from pgmvae_tpu_torch.ops import cuda_vq, fused_adam
+    from pgmvae_tpu_torch.stage2 import Stage2
+    from pgmvae_tpu_torch.train import Trainer
+
+    args = bench_streaming.build_parser().parse_args([])
+    cfg = bench_streaming.model_config(args)
+    rows = bench_streaming.dataset_rows(args.gib, args.vars)
+    assert rows == 18_874_368, rows
+    kept, measure = [], bench_streaming.measure
+
+    def keep(*a, **k):               # the twin's data and streamed state
+        kept.append(measure(*a, **k))
+        return kept[-1]
+    # the twin's peaks count what earlier phases still hold: its own share
+    # is the growth over this
+    held = _memory_mark()
+    held_gb = held[0] / 1e9
+    with tempfile.TemporaryDirectory() as tmp, \
+            mock.patch.object(bench_streaming, 'measure', keep):
+        out_file = os.path.join(tmp, 'bench_streaming_torch.jsonl')
+        rc, lines, launches, seconds = _twin(bench_streaming,
+                                             ['--out', out_file])
+        with open(out_file) as f:
+            written = [json.loads(line) for line in f]
+    assert rc == 0 and len(lines) == 1 and written == lines, (rc, lines)
+    rec, (_, state, data) = lines[0], kept[0]
+    half_gb = data.nbytes / 2 / 1e9
+    steps = -(-rows // args.batch)
+    sub_steps = -(-min(rows, bench_streaming.SUBSET_ROWS) // args.batch)
+    assert (rec['rows'], rec['platform'], steps) == (rows, 'gpu', 73_728)
+    want = _train_launches(cfg, steps + 2 * sub_steps, 'optax')
+    assert launches == rec['launches'] == want, (launches, want)
+    assert rec['peak_gb_streamed'] - held_gb < half_gb, (held_gb, rec)
+    assert rec['capture_ms'] is not None, rec
+    assert np.isfinite(rec['loss']) and rec['stream_sps'] > 0, rec
+
+    # the in-core fit of the same steps, the card holding the data
+    core = Trainer(cfg, 0.001, args.batch, rows,
+                   stream_bytes=2 * data.nbytes)
+    mark = _memory_mark()
+    with _uncounted():
+        t0 = time.time()
+        ref, _ = core.fit(core.init_state(0), data, 1, seed=1)
+        torch.cuda.synchronize()
+        core_seconds = time.time() - t0
+    core_memory = _memory_since(mark)
+    leaves = _assert_bit_equal(state, ref, 'streamed vs in-core, 4.5 GiB')
+    core_graph = core.graph_stats['epoch']
+    del ref
+    torch.cuda.empty_cache()
+
+    # stage 2 over the whole split, its counts kept for the checks
+    s2 = Stage2(cfg)
+    counted, counts = [], s2.counts
+
+    def keep_counts(*a):
+        counted.append(counts(*a))
+        return counted[-1]
+    s2.counts = keep_counts
+    codebook = core.codebook(state)
+    mark = _memory_mark()
+    # ---- the main path, counted
+    cuda_vq.LAUNCHES = cuda_vq.LAUNCHES_BF16 = 0
+    fused_adam.LAUNCHES = fused_adam.LAUNCHES_BF16 = 0
+    t0 = time.time()
+    dist = s2.cpt(state.params, codebook, data)
+    cpt_seconds = time.time() - t0
+    pll = s2.pseudo_log_likelihood(state.params, codebook, data, dist)
+    stage2_seconds = time.time() - t0
+    s2_launches = dict(zip(LAUNCH_NAMES, (
+        cuda_vq.LAUNCHES, cuda_vq.LAUNCHES_BF16, fused_adam.LAUNCHES,
+        fused_adam.LAUNCHES_BF16)))
+    # ---- end of the counted run
+    s2_memory = _memory_since(mark)
+    chunks = -(-rows // s2.chunk)
+    assert (s2.chunk, chunks) == (1365, 13_828), (s2.chunk, chunks)
+    assert s2_launches == {**dict.fromkeys(LAUNCH_NAMES, 0),
+                           'vq_argmin': 2 * chunks}, s2_launches
+    assert s2_memory['allocated_growth_gb'] < half_gb, s2_memory
+    (n1, n0), again = counted
+    for a, b in zip(again, (n1, n0)):
+        np.testing.assert_array_equal(a, b)
+    np.testing.assert_array_equal((n1 + n0).sum(1),
+                                  np.full(cfg.n_var, float(rows)))
+    assert np.isfinite(pll), pll
+    cut = rows // 2 + s2.chunk // 3
+    assert cut % s2.chunk, cut
+    with _uncounted():
+        low, high = (counts(state.params, codebook, part)
+                     for part in (data[:cut], data[cut:]))
+    np.testing.assert_array_equal(low[0] + high[0], n1)
+    np.testing.assert_array_equal(low[1] + high[1], n0)
+    largest = float(max(n1.max(), n0.max()))
+    del core, state, data, kept
+    torch.cuda.empty_cache()
+    # a call whose plan splits K into strips launches the kernel and a merge
+    strips = cuda_vq.plan(args.vars, args.batch, args.dim, args.k).strips
+    emit('stream_big', seconds=seconds, record=rec,
+         vq_argmin_kernel_launches_per_train_call=1 if strips == 1 else 2,
+         bit_equal_leaves=leaves, in_core_seconds=core_seconds,
+         in_core_memory=core_memory,
+         in_core_capture_ms=core_graph['capture_ms'],
+         in_core_replays=core_graph['replays'],
+         peak_gb_bound=half_gb, held_before_gb=held_gb,
+         held_before_largest=_largest_cuda_tensors(),
+         streamed_growth_gb=rec['peak_gb_streamed'] - held_gb,
+         incore_subset_growth_gb=rec['peak_gb_incore_subset'] - held_gb,
+         stage2=dict(seconds=stage2_seconds, cpt_seconds=cpt_seconds,
+                     chunk=s2.chunk, chunks=chunks, launches=s2_launches,
+                     memory=s2_memory, pll=pll, largest_cell=largest,
+                     largest_cell_vs_2_24=largest / 2 ** 24,
+                     halves_cut=cut, halves_equal=True,
+                     rows_counted_once=True),
+         nvidia_smi=nvidia_smi())
+    return _sum_launches(launches, s2_launches)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device; nothing was run', file=sys.stderr)
@@ -2718,6 +2883,7 @@ def main() -> int:
     mesh_bbc_launches = phase_mesh_bbc()
     cli_mesh_launches = phase_cli_mesh()
     bench_launches = phase_bench()
+    stream_big_launches = phase_stream_big()
     main_row = rows[('shape',) + MAIN_SHAPE]
     bf16_row = rows_bf16[('shape',) + BF16_MAIN_SHAPE]
     emit('done', seconds=time.time() - t_start, device_ms_by=DEVICE_TIMER)
@@ -2738,7 +2904,8 @@ def main() -> int:
                 'mesh_dryrun': dryrun_launches['vq_argmin'],
                 'mesh_bbc': mesh_bbc_launches['vq_argmin'],
                 'cli_mesh': cli_mesh_launches['vq_argmin'],
-                'bench': bench_launches['vq_argmin']}
+                'bench': bench_launches['vq_argmin'],
+                'stream_big': stream_big_launches['vq_argmin']}
     vq_bf16_paths = {'train_bf16': bf16_launches['vq_argmin_bf16'],
                      'cli': cli_launches['vq_argmin_bf16'],
                      'bench': bench_launches['vq_argmin_bf16']}
@@ -2758,7 +2925,8 @@ def main() -> int:
                   'mesh_dryrun': dryrun_launches['adam'],
                   'mesh_bbc': mesh_bbc_launches['adam'],
                   'cli_mesh': cli_mesh_launches['adam'],
-                  'bench': bench_launches['adam']}
+                  'bench': bench_launches['adam'],
+                  'stream_big': stream_big_launches['adam']}
     adam_bf16_paths = {'cli': cli_launches['adam_bf16'],
                        'bench': bench_launches['adam_bf16']}
     timed = ('ms', 'device_ms', 'plain_ms', 'plain_device_ms',

@@ -8,9 +8,14 @@ pseudo-log-likelihood (PLL) — the port of `pgmvae_tpu/stage2.py`.
 
 where `dist` is always the CPT estimated on the train split.
 
-The split is uploaded once, padded to whole fixed-size chunks with weight-0
-rows (exact no-ops in the counts). Each chunk is one encoder pass, one
-nearest-code kernel launch, and a count update: a one-hot `torch.bmm`, or an
+The split goes to the device in pieces of whole fixed-size chunks, at
+most PIECE_BYTES each (one chunk where a chunk is larger), through two
+pinned host buffers (`data.pinned`): the device holds at most two pieces,
+and the host makes no copy of the whole split. Only the ragged last chunk
+is padded, with weight-0 rows (exact no-ops in the counts), and a padded
+variable axis with zero columns; a split that fits in one piece is
+uploaded once. Each chunk is one encoder pass, one nearest-code kernel
+launch, and a count update: a one-hot `torch.bmm`, or an
 `index_add_` past SCATTER_COLS of joint width. Counts are integers < 2^24,
 exact in f32 under any summation order, so they accumulate in f32 on the
 device and are finished in float64 on the host, like the JAX package's.
@@ -30,6 +35,7 @@ import numpy as np
 import torch
 
 from pgmvae_tpu_torch import resolve_device
+from pgmvae_tpu_torch.data.pinned import pinned_pieces
 from pgmvae_tpu_torch.models import vqvae
 from pgmvae_tpu_torch.parallel.mesh import MeshContext
 
@@ -42,6 +48,8 @@ SCATTER_COLS = 8192     # joint table width K * 2^m past which counting
 #                         switches from the one-hot bmm to index_add_: the
 #                         bmm must materialize a [n_var, B, K*2^m] one-hot,
 #                         the scatter touches only the [n_var, B] codes
+PIECE_BYTES = 64 << 20      # host-to-device piece of a split: the
+#                             Trainer's stream_chunk_bytes default
 MAX_COUNT_BYTES = 6 << 30   # refuse joint tables whose TWO [n_var, K*2^m]
 #                             f32 count buffers exceed this
 
@@ -169,26 +177,41 @@ class Stage2:
         [active_vars, K] ([active_vars, K, 2^m] with parents). Accepts
         true-width samples when the model's variable axis is padded."""
         cfg, chunk, mesh = self.cfg, self.chunk, self.mesh
-        y = np.asarray(y_host, np.float32)
-        n = y.shape[0]
-        rows = max(1, -(-n // chunk)) * chunk
-        yp = np.zeros((rows, cfg.n_var), np.float32)
-        yp[:n, :y.shape[1]] = y                 # padded variable axis too
-        wp = np.zeros(rows, np.float32)
-        wp[:n] = 1.0
-        yd = torch.from_numpy(yp).to(self.device)
-        wd = torch.from_numpy(wp).to(self.device)
+        y = np.asarray(y_host)
+        n, width = y.shape
+        chunks = max(1, -(-n // chunk))
+        per_piece = min(chunks, max(1, PIECE_BYTES // (chunk * cfg.n_var
+                                                       * 4)))
+        rows = per_piece * chunk
+
+        def fill(p, buf):
+            """Piece p's rows into buf [rows, n_var]; the ragged last chunk
+            padded with zero rows (the columns past `width` stay zero)."""
+            lo = p * rows
+            m = max(0, min(rows, n - lo))
+            host = buf.numpy()
+            host[:m, :width] = y[lo:lo + m]
+            padded = max(1, -(-m // chunk)) * chunk
+            host[m:padded] = 0.0
+            return buf[:padded]
         cols = self.k * self.n_states
         lo, hi = self.var_range
         n1 = torch.zeros((hi - lo, cols), dtype=torch.float32,
                          device=self.device)
         n0 = torch.zeros_like(n1)
+        pieces = pinned_pieces(-(-chunks // per_piece), (rows, cfg.n_var),
+                               torch.float32, self.device, fill)
         with torch.no_grad():
-            for start in range(0, rows, chunk):
-                # this data rank's rows of the chunk
-                self._count_chunk(params, codebook, n1, n0,
-                                  mesh.local_rows(yd[start:start + chunk]),
-                                  mesh.local_rows(wd[start:start + chunk]))
+            for p, yd in enumerate(pieces):
+                # weight 1 on the split's rows, 0 on the padding
+                wd = (torch.arange(yd.shape[0], device=self.device)
+                      < n - p * rows).to(torch.float32)
+                for start in range(0, yd.shape[0], chunk):
+                    # this data rank's rows of the chunk
+                    self._count_chunk(
+                        params, codebook, n1, n0,
+                        mesh.local_rows(yd[start:start + chunk]),
+                        mesh.local_rows(wd[start:start + chunk]))
             if mesh.mesh is not None:
                 n1, n0 = mesh.all_reduce_many((n1, n0), 'data')
                 n1 = mesh.all_gather(n1, 'model')

@@ -86,6 +86,7 @@ import numpy as np
 import torch
 
 from pgmvae_tpu_torch import graphs, resolve_device
+from pgmvae_tpu_torch.data.pinned import pinned_pieces
 from pgmvae_tpu_torch.models import vqvae
 from pgmvae_tpu_torch.ops import fused_adam
 from pgmvae_tpu_torch.ops import quantizer as q
@@ -643,44 +644,20 @@ class Trainer:
         in-core) gathered on the host from `data`, `_chunk_steps` steps at
         a time, yielded on the device as [chunk, bs, n_var]. Each chunk is
         gathered into one of two pinned buffers and copied on a side
-        stream: the next chunk's gather and copy go ahead of this chunk's
-        steps, the steps wait for their copy by an event, and a buffer is
-        refilled only once its last copy is done."""
+        stream (`data.pinned`): the next chunk's gather and copy go ahead
+        of this chunk's steps, the steps wait for their copy by an event,
+        and a buffer is refilled only once its last copy is done."""
         steps, bs = perm.shape
         chunk = self._chunk_steps(data)
-        cuda = self.device.type == 'cuda'
-        bufs = [torch.empty((chunk, bs, data.shape[1]),
-                            dtype=getattr(torch, self.cfg.dtype),
-                            pin_memory=cuda) for _ in range(2)]
-        copied = [None, None]            # the event of each buffer's copy
-        stream = torch.cuda.Stream(self.device) if cuda else None
 
-        def stage(c):
-            slot = c % 2
-            if copied[slot] is not None:
-                copied[slot].synchronize()
+        def gather(c, buf):
             idx = perm[c * chunk:(c + 1) * chunk]
-            host = bufs[slot][:idx.shape[0]]
+            host = buf[:idx.shape[0]]
             np.take(data, idx, axis=0, out=host.numpy(), mode='clip')
-            if not cuda:
-                return host, None
-            with torch.cuda.stream(stream):
-                dev = host.to(self.device, non_blocking=True)
-                copied[slot] = torch.cuda.Event()
-                copied[slot].record(stream)
-            return dev, copied[slot]
-
-        chunks = -(-steps // chunk)
-        ahead = stage(0)
-        for c in range(chunks):
-            dev, event = ahead
-            if c + 1 < chunks:
-                ahead = stage(c + 1)
-            if event is not None:
-                compute = torch.cuda.current_stream(self.device)
-                compute.wait_event(event)
-                dev.record_stream(compute)
-            yield dev
+            return host
+        return pinned_pieces(-(-steps // chunk), (chunk, bs, data.shape[1]),
+                             getattr(torch, self.cfg.dtype), self.device,
+                             gather)
 
     def _run_epoch_streamed(self, state: TrainState, data: np.ndarray,
                             generator: torch.Generator):

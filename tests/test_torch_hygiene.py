@@ -69,7 +69,8 @@ def test_port_imports_without_jax_side():
         'utils.logging', 'checkpoint', 'utils.msgpack', 'gibbs',
         'run_pipeline', '_cell_runner', 'graphs', 'parallel',
         'parallel.mesh', 'data.native', '__graft_entry__', 'bench',
-        'bench_packed', 'bench_cmll', 'data.synthetic')
+        'bench_packed', 'bench_cmll', 'data.synthetic', 'bench_streaming',
+        'data.pinned')
             } <= set(_port_modules())
 
 
