@@ -48,7 +48,13 @@ run, and the launches its steps imply. And the out-of-core twin,
 Trainer's 4 GiB `stream_bytes`): its streamed epoch (73,728 steps, the
 data on the host, a device peak below half the data's bytes) held bit for
 bit against an in-core fit of the same steps, and stage 2 over the whole
-split, fed to the card in pinned pieces, counting every row once. Each phase
+split, fed to the card in pinned pieces, counting every row once. Then the
+command line on kdd-named CSVs whose train split is those 4.5 GiB of rows
+(`cli_big`: the native parser, a streamed epoch, stage 2 in pieces, the
+result line). Early on, right after the build, the sweep runner's grid
+in-process (`sweep_memory`: eight kdd-shaped cells at K=64, a packed pair
+and a CMLL among them), with the device memory held after each cell and a
+memory snapshot of what stays live. Each phase
 prints one JSON line; any failed check
 raises, so the script exits non-zero. The last three lines are the kernel
 summary, the card's name and power limit as nvidia-smi gives them, and
@@ -105,6 +111,10 @@ BENCH_BF16_SHAPES = [(1058, 500, 20, 50), (1058, 1000, 20, 50)]
 # the out-of-core twin's (phase stream_big): a train batch of its 64-variable
 # model (K=64, D=10, bs 256) and a stage-2 chunk (auto_chunk(64, 64) rows)
 STREAM_SHAPES = [(64, 256, 10, 64), (64, 1365, 10, 64)]
+# phase sweep_memory's own (its cells' train batches and stage-2 chunks are
+# stream_big's shapes, cli_big's too): the packed pair's train batch (S=2)
+# and the CMLL's Gibbs step (p1 = 6 blocks over 1,024 test rows)
+SWEEP_MEMORY_SHAPES = [(128, 256, 10, 64), (6, 1024, 10, 64)]
 MAIN_SHAPE = (1058, 32, 20, 50)   # the stage-2 chunk: most main-path launches
 TIE_SPLIT = (64, 32, 10, 4096)    # ties across code tiles and strips
 BF16_MAIN_SHAPE = (1058, 250, 20, 50)
@@ -415,7 +425,8 @@ def phase_kernel(dtype=torch.float32):
     gen = torch.Generator(device='cuda').manual_seed(SEED)
     rows, max_err = {}, 0.0
     shapes = KERNEL_SHAPES + (BENCH_BF16_SHAPES if bf16
-                              else BENCH_SHAPES + STREAM_SHAPES)
+                              else BENCH_SHAPES + STREAM_SHAPES
+                              + SWEEP_MEMORY_SHAPES)
     cases = ([('shape', s) for s in shapes]
              + [('tie', (1, 8, 4, 12)), ('tie_tiles', (2, 40, 8, 130)),
                 ('tie_split', TIE_SPLIT), ('tie_strips', TIE_SPLIT)])
@@ -2514,6 +2525,21 @@ def phase_cli_mesh():
     return launches
 
 
+def _write_csv(path: str, y: np.ndarray, block: int = 1 << 20) -> int:
+    """Rows of 0/1 values y [N, n] written in the TRW files' single-char
+    CSV layout (2n bytes a row), `block` rows at a time; returns the
+    file's bytes."""
+    with open(path, 'wb') as f:
+        for start in range(0, y.shape[0], block):
+            part = y[start:start + block].astype(np.uint8)
+            text = np.full((part.shape[0], 2 * part.shape[1]), ord(','),
+                           np.uint8)
+            text[:, ::2] = part + ord('0')
+            text[:, -1] = ord('\n')
+            text.tofile(f)
+    return os.path.getsize(path)
+
+
 def phase_native_csv():
     """The port's native CSV parser, built here from native/fastcsv.cpp,
     against the numpy path on a CSV of kdd's train size (180,092 x 64):
@@ -2525,12 +2551,9 @@ def phase_native_csv():
     y = (rng.random((info.n_train, info.n_var)) < 0.1).astype(np.uint8)
     with tempfile.TemporaryDirectory() as tmp:
         path = os.path.join(tmp, 'kdd.train.data')
-        text = np.full((y.shape[0], 2 * info.n_var), ord(','), np.uint8)
-        text[:, ::2] = y + ord('0')
-        text[:, -1] = ord('\n')
-        text.tofile(path)
+        _write_csv(path, y)
         t0 = time.time()
-        assert native.unavailable() is None, native.unavailable()
+        assert native.available(), native.unavailable()
         build_s = time.time() - t0
         before = native.PARSES
         t0 = time.time()
@@ -2547,6 +2570,128 @@ def phase_native_csv():
     emit('native_csv', rows=info.n_train, n_var=info.n_var,
          library=native.library_path().name, build_s=build_s,
          native_s=native_s, numpy_s=numpy_s, equal=True)
+
+
+# sweep_memory: the sweep runner in-process (no --isolate) on kdd-shaped
+# splits (the test split cut to KDD_CMLL_ROWS) at K=64, one epoch a cell:
+# three cells, a packed pair, a cell with --cmll, two more cells
+SWEEP_MEMORY_FLAGS = ['-n', 'kdd', '-k', '64', '-d', '10', '-b', '256',
+                      '-e', '1', '-r', '0.01', '-c', '0.25', '-m',
+                      '--adam-impl', 'pallas']
+SWEEP_MEMORY_GRIDS = (['-s', '1,2,3'], ['-s', '4,5', '--pack-seeds', '2'],
+                      ['-s', '6', '--cmll'], ['-s', '7,8'])
+SWEEP_MEMORY_SLACK = 64 << 20     # bytes the last cell may hold over the first
+
+
+def _live_blocks(snapshot: dict) -> list:
+    """The live blocks of a `torch.cuda.memory._snapshot()`, grouped by
+    their size and the port's frames that allocated them (none: a thread
+    without Python frames, as autograd's), with the streams they are on,
+    the largest groups first."""
+    groups = {}
+    for seg in snapshot['segments']:
+        for blk in seg['blocks']:
+            if blk['state'] != 'active_allocated':
+                continue
+            frames = tuple(
+                f"{os.path.basename(f['filename'])}:{f['line']} {f['name']}"
+                for f in blk.get('frames') or ()
+                if 'pgmvae_tpu_torch' in f['filename'])[:3]
+            groups.setdefault((blk['size'], frames), []).append(seg['stream'])
+    return [{'block_bytes': size, 'blocks': len(streams),
+             'streams': len(set(streams)), 'gb': size * len(streams) / 1e9,
+             'frames': list(frames)}
+            for (size, frames), streams
+            in sorted(groups.items(), key=lambda kv: -kv[0][0] * len(kv[1]))]
+
+
+def phase_sweep_memory() -> dict:
+    """The sweep runner's grid run in-process, as users run one, counted:
+    `run_pipeline` on kdd-shaped splits written to disk (K=64, one epoch):
+    three cells, a packed pair (--pack-seeds 2), a cell with --cmll and two
+    more cells, so that train, packed and Gibbs graphs and stage 2's pinned
+    pieces all run. After each cell (or packed pair) the device memory
+    allocated and reserved; the live blocks after the grid from a memory
+    snapshot (by size and allocating frames, with their streams; the
+    history is recorded over the grid); then the memory that freeing
+    cuBLAS's workspaces gives back. Allocated memory after the last cell
+    must be within SWEEP_MEMORY_SLACK of its value after the first, and the
+    launches those of the cells' steps, stage-2 chunks and Gibbs steps."""
+    import gc
+
+    from pgmvae_tpu_torch import driver, run_pipeline
+    from pgmvae_tpu_torch.registry import REGISTRY
+    from pgmvae_tpu_torch.utils.logging import run_identifier
+    splits = _kdd_like_splits()
+    splits['test'] = splits['test'][:KDD_CMLL_ROWS]
+    cells = []
+    run_one, run_packed = driver.run_experiment, driver.run_packed_experiments
+
+    def after(results):
+        gc.collect()
+        torch.cuda.synchronize()
+        cells.append({'identifiers': [r['identifier'] for r in results],
+                      'allocated_gb': torch.cuda.memory_allocated() / 1e9,
+                      'reserved_gb': torch.cuda.memory_reserved() / 1e9})
+        return results
+
+    def one(*a, **k):
+        return after([run_one(*a, **k)])[0]
+
+    def packed(*a, **k):
+        return after(run_packed(*a, **k))
+    gc.collect()
+    start_gb = torch.cuda.memory_allocated() / 1e9
+    torch.cuda.memory._record_memory_history(max_entries=10_000,
+                                             stacks='python')
+    runs = []
+    with tempfile.TemporaryDirectory() as tmp, \
+            mock.patch.object(driver, 'run_experiment', one), \
+            mock.patch.object(driver, 'run_packed_experiments', packed):
+        for split, y in splits.items():
+            _write_csv(os.path.join(tmp, f'kdd.{split}.data'), y)
+        for grid in SWEEP_MEMORY_GRIDS:
+            rc, lines, launches, seconds = _cli(tmp, grid, run_pipeline,
+                                                SWEEP_MEMORY_FLAGS)
+            runs.append(dict(grid=grid, rc=rc, launches=launches,
+                             seconds=seconds,
+                             identifiers=[l.split(' ', 1)[0]
+                                          for l in lines]))
+    live = _live_blocks(torch.cuda.memory._snapshot())
+    torch.cuda.memory._record_memory_history(enabled=None)
+    held = torch.cuda.memory_allocated()
+    torch._C._cuda_clearCublasWorkspaces()
+    workspaces_gb = (held - torch.cuda.memory_allocated()) / 1e9
+    torch.cuda.empty_cache()
+    growth_gb = cells[-1]['allocated_gb'] - cells[0]['allocated_gb']
+    emit('sweep_memory', command=SWEEP_MEMORY_FLAGS, runs=runs,
+         splits={k: int(v.shape[0]) for k, v in splits.items()},
+         start_allocated_gb=start_gb, cells=cells,
+         last_minus_first_gb=growth_gb, live_after_grid=live,
+         cublas_workspaces_freed_gb=workspaces_gb,
+         after_freeing_gb=torch.cuda.memory_allocated() / 1e9)
+    assert all(r['rc'] == 0 for r in runs), runs
+    want = [[run_identifier('kdd', 64, 10, 256, 1, 0.01, 0.25, True, 0.99,
+                            s, adam_impl='pallas', packed_seeds=pack)
+             for s in seeds]
+            for seeds, pack in (((1, 2, 3), 1), ((4, 5), 2), ((6,), 1),
+                                ((7, 8), 1))]
+    assert [r['identifiers'] for r in runs] == want, runs
+    assert len(cells) == 7, cells
+    assert growth_gb * 1e9 < SWEEP_MEMORY_SLACK, (
+        'device memory grows from cell to cell', cells)
+    # launches: a cell's steps and stage-2 chunks; the pair's steps once
+    # for both seeds; the CMLL's 3000 sweeps of p1 = 6 blocks
+    steps = -(-REGISTRY['kdd'].n_train // 256)
+    v = [r['launches']['vq_argmin'] for r in runs]
+    stage2 = v[0] // 3 - steps
+    adam = steps * _adam_per_step(
+        4 * (len(REGISTRY['kdd'].encoder_units(10)) + 1))
+    assert v == [3 * (steps + stage2), steps + 2 * stage2,
+                 steps + stage2 + 3000 * 6, 2 * (steps + stage2)], v
+    assert [r['launches']['adam'] for r in runs] == [3 * adam, adam, adam,
+                                                     2 * adam], runs
+    return _sum_launches(*(r['launches'] for r in runs))
 
 
 # the measurement twins' runs: bench_packed at the kdd sweep's shape, one
@@ -2848,6 +2993,119 @@ def phase_stream_big() -> dict:
     return _sum_launches(launches, s2_launches)
 
 
+# cli_big: the command line on kdd-named splits whose train split is
+# stream_big's rows (4.5 GiB as float32, past the Trainer's stream_bytes):
+# the reference run's flags cut to kdd's 64 variables, K=64, batch 256 and
+# one epoch; valid and test CLI_BIG_EVAL_ROWS rows of uniform bits
+CLI_BIG_FLAGS = ['-n', 'kdd', '-k', '64', '-d', '10', '-b', '256', '-e', '1',
+                 '--adam-impl', 'pallas']
+CLI_BIG_EVAL_ROWS = 4096
+
+
+def phase_cli_big() -> dict:
+    """The command line end to end on a train split past 4 GiB, counted:
+    `run -n kdd -k 64 -d 10 -b 256 -e 1 ...` on CSVs written to a temporary
+    --data-dir (train: bench_streaming's 18,874,368 x 64 uniform bits from
+    numpy seed 0, about 2.4 GB of text), so the native parser reads each
+    split, `Trainer.fit` streams the train split from the host and stage 2
+    takes it in pinned pieces. It must: parse all three files natively;
+    stream the epoch, with device peak growth below half the split's
+    float32 bytes; count every train row once for all 64 variables (the
+    ones of each column equal to the data's); launch one `vq_argmin` a
+    step and a stage-2 chunk of each pass and one `adam` a step; give a
+    finite PLL on each split and one result line with the JAX package's
+    identifier. The largest count cell is reported against 2^24 (float32
+    counts are exact below it) and must stay under it. The files are
+    deleted at the end."""
+    from pgmvae_tpu_torch import bench_streaming
+    from pgmvae_tpu_torch.data import native
+    from pgmvae_tpu_torch.registry import REGISTRY
+    from pgmvae_tpu_torch.stage2 import Stage2
+    from pgmvae_tpu_torch.train import Trainer
+    from pgmvae_tpu_torch.utils.logging import run_identifier
+    args = bench_streaming.build_parser().parse_args([])
+    rows = bench_streaming.dataset_rows(args.gib, args.vars)
+    assert (rows, args.vars, REGISTRY['kdd'].n_var) == (18_874_368, 64, 64)
+    counted, streamed = [], []
+    counts, run_streamed = Stage2.counts, Trainer._run_epoch_streamed
+
+    def keep_counts(self, params, codebook, y):
+        counted.append((y.shape[0], self.chunk,
+                        counts(self, params, codebook, y)))
+        return counted[-1][2]
+
+    def keep_streamed(self, *a):
+        streamed.append(self.stream_bytes)
+        return run_streamed(self, *a)
+    rng = np.random.default_rng(SEED)
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.time()
+        y = bench_streaming.make_data(rows, args.vars)
+        split_bytes = y.nbytes
+        ones = y.sum(0, dtype=np.float64)
+        csv_bytes = _write_csv(os.path.join(tmp, 'kdd.train.data'), y)
+        del y
+        for split in ('valid', 'test'):
+            _write_csv(os.path.join(tmp, f'kdd.{split}.data'),
+                       rng.integers(0, 2, (CLI_BIG_EVAL_ROWS, args.vars)))
+        write_s = time.time() - t0
+        parses = native.PARSES
+        mark = _memory_mark()
+        with mock.patch.object(Stage2, 'counts', keep_counts), \
+                mock.patch.object(Trainer, '_run_epoch_streamed',
+                                  keep_streamed):
+            rc, lines, launches, seconds = _cli(tmp, CLI_BIG_FLAGS)
+        memory = _memory_since(mark)
+        parsed = native.PARSES - parses
+        assert rc == 0 and len(lines) == 1, (rc, lines)
+        ident = lines[0].split(' ', 1)[0]
+        with open(os.path.join(tmp, 'logs', 'tuning', ident,
+                               'metrics.jsonl')) as f:
+            final = [json.loads(line) for line in f][-1]
+    fields = {k: float(v) for k, v in
+              (kv.split(':') for kv in lines[0].split(' ', 1)[1].split())}
+    expect = run_identifier('kdd', 64, 10, 256, 1, 0.01, 0.25, True, 0.99, 1,
+                            adam_impl='pallas')
+    largest = max(float(c.max()) for n, _, pair in counted if n == rows
+                  for c in pair)
+    emit('cli_big', command=CLI_FLAGS + CLI_BIG_FLAGS,
+         reduced=['kdd-named 64-variable splits (the reference run: '
+                  'nltcs), K=64, batch 256 (there 50, 128): stream_big\'s',
+                  'one epoch (the reference run: 100)',
+                  f'valid and test: {CLI_BIG_EVAL_ROWS} rows each',
+                  'uniform bits, not kdd data'],
+         rows=rows, split_gb=split_bytes / 1e9, csv_gb=csv_bytes / 1e9,
+         write_seconds=write_s, seconds=seconds, native_parses=parsed,
+         streamed_epochs=len(streamed), memory=memory,
+         peak_gb_bound=split_bytes / 2 / 1e9, launches=launches,
+         counts_calls=[(n, chunk) for n, chunk, _ in counted],
+         result=fields, identifier=ident, train_wall=final['train_wall'],
+         eval_wall=final['eval_wall'], largest_cell=largest,
+         largest_cell_vs_2_24=largest / 2 ** 24, nvidia_smi=nvidia_smi())
+    assert parsed == 3, ('the native parser did not take all three', parsed)
+    assert streamed == [4 << 30] and split_bytes > streamed[0], streamed
+    assert memory['allocated_growth_gb'] < split_bytes / 2 / 1e9, memory
+    assert ident == expect, (ident, expect)
+    assert all(np.isfinite(fields[k]) and fields[k] < 0
+               for k in ('pll-train', 'pll-valid', 'pll-test')), fields
+    # stage 2: the CPT and the PLL over train, then valid's and test's PLL
+    assert [n for n, _, _ in counted] == [rows, rows, CLI_BIG_EVAL_ROWS,
+                                          CLI_BIG_EVAL_ROWS], counted
+    for n, _, (n1, n0) in counted[:2]:
+        np.testing.assert_array_equal((n1 + n0).sum(1),
+                                      np.full(args.vars, float(n)))
+        np.testing.assert_array_equal(n1.sum(1), ones)
+    assert largest < 2 ** 24, (
+        'a count cell reached 2^24: float32 counts are no longer exact',
+        largest)
+    steps = -(-rows // 256)
+    chunks = sum(-(-n // chunk) for n, chunk, _ in counted)
+    adam = _adam_per_step(4 * (len(REGISTRY['kdd'].encoder_units(10)) + 1))
+    assert launches == {'vq_argmin': steps + chunks, 'vq_argmin_bf16': 0,
+                        'adam': steps * adam, 'adam_bf16': 0}, launches
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print('chip_smoke: no CUDA device; nothing was run', file=sys.stderr)
@@ -2856,6 +3114,7 @@ def main() -> int:
     smi = phase_device()
     phase_build()
     phase_native_csv()
+    sweep_memory_launches = phase_sweep_memory()
     rows, kernel_err = phase_kernel()
     rows_bf16, kernel_bf16_err = phase_kernel(torch.bfloat16)
     adam_row = phase_kernel_adam()
@@ -2884,6 +3143,7 @@ def main() -> int:
     cli_mesh_launches = phase_cli_mesh()
     bench_launches = phase_bench()
     stream_big_launches = phase_stream_big()
+    cli_big_launches = phase_cli_big()
     main_row = rows[('shape',) + MAIN_SHAPE]
     bf16_row = rows_bf16[('shape',) + BF16_MAIN_SHAPE]
     emit('done', seconds=time.time() - t_start, device_ms_by=DEVICE_TIMER)
@@ -2905,7 +3165,9 @@ def main() -> int:
                 'mesh_bbc': mesh_bbc_launches['vq_argmin'],
                 'cli_mesh': cli_mesh_launches['vq_argmin'],
                 'bench': bench_launches['vq_argmin'],
-                'stream_big': stream_big_launches['vq_argmin']}
+                'stream_big': stream_big_launches['vq_argmin'],
+                'sweep_memory': sweep_memory_launches['vq_argmin'],
+                'cli_big': cli_big_launches['vq_argmin']}
     vq_bf16_paths = {'train_bf16': bf16_launches['vq_argmin_bf16'],
                      'cli': cli_launches['vq_argmin_bf16'],
                      'bench': bench_launches['vq_argmin_bf16']}
@@ -2926,7 +3188,9 @@ def main() -> int:
                   'mesh_bbc': mesh_bbc_launches['adam'],
                   'cli_mesh': cli_mesh_launches['adam'],
                   'bench': bench_launches['adam'],
-                  'stream_big': stream_big_launches['adam']}
+                  'stream_big': stream_big_launches['adam'],
+                  'sweep_memory': sweep_memory_launches['adam'],
+                  'cli_big': cli_big_launches['adam']}
     adam_bf16_paths = {'cli': cli_launches['adam_bf16'],
                        'bench': bench_launches['adam_bf16']}
     timed = ('ms', 'device_ms', 'plain_ms', 'plain_device_ms',

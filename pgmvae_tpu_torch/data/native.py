@@ -8,8 +8,9 @@ source and the flags), written under a temporary name and renamed into
 place, so concurrent first uses never load a half-written file; `native/`
 is left as it is. As in the JAX package the parser is a speed path, never a
 dependency: if it cannot be built or loaded, `parse_binary_csv` returns
-None (`unavailable()` says why) and the loader parses with numpy. `PARSES`
-counts the files it parsed, so a run can show which path it took.
+None (`available()` is False, `unavailable()` says why) and the loader
+parses with numpy. `PARSES` counts the files it parsed, so a run can show
+which path it took.
 """
 
 from __future__ import annotations
@@ -83,6 +84,12 @@ def unavailable() -> Optional[str]:
     """Why the parser cannot run here, or None when it can."""
     _load()
     return _why
+
+
+def available() -> bool:
+    """Whether the parser runs here (builds and loads at first call), as
+    the JAX package's `available()`."""
+    return unavailable() is None
 
 
 def parse_binary_csv(path: str, n_var: int) -> Optional[np.ndarray]:

@@ -14,6 +14,11 @@ the warm-up: it builds and loads the kernels, sets up cuBLAS and autograd,
 and advances the caller's state like any other step. The body is then
 captured on that stream into a `torch.cuda.CUDAGraph` with a private memory
 pool, and every later step is one `replay()` on the current stream. The
+side stream is the device's one capture stream (`capture_stream`), shared
+by every graph: cuBLAS keeps a workspace for each (handle, stream) pair it
+has run a GEMM on, for the life of the process, so a new stream a graph
+would leave two more workspaces behind (the forward's, and the backward's
+on autograd's thread) with every graph captured. The
 graph keeps its pool until `release()`. A failure to capture or replay
 raises; nothing falls back to the eager loop. On the CPU, or with
 `capture=False` (the eager reference the graphs are held against on the
@@ -66,6 +71,20 @@ def _set_launch_counts(counts: Sequence[int]) -> None:
         setattr(module, name, n)
 
 
+_CAPTURE_STREAMS = {}      # CUDA device index -> its capture stream
+
+
+def capture_stream(device) -> torch.cuda.Stream:
+    """The side stream on which every StepGraph of `device` warms up and
+    captures: one a device, made at first use (see the module doc)."""
+    index = torch.device(device).index
+    if index is None:
+        index = torch.cuda.current_device()
+    if index not in _CAPTURE_STREAMS:
+        _CAPTURE_STREAMS[index] = torch.cuda.Stream(index)
+    return _CAPTURE_STREAMS[index]
+
+
 def tensor_key(*tensors) -> tuple:
     """What a captured graph holds of tensors: address, shape and type."""
     return tuple((t.data_ptr(), tuple(t.shape), t.dtype) for t in tensors)
@@ -86,7 +105,6 @@ class StepGraph:
         self.generators = [torch.Generator(device=self.device)
                            for _ in range(n_generators)]
         self.graph = None
-        self.stream: Optional[torch.cuda.Stream] = None
         self.launches = (0,) * len(COUNTERS)   # captured, per replay
         self.capture_ms: Optional[float] = None
         self.replays = 0
@@ -137,15 +155,15 @@ class StepGraph:
 
     @contextlib.contextmanager
     def _side_stream(self):
-        """The capture stream as the current stream, ordered after the work
-        queued so far and before the work queued after."""
-        if self.stream is None:
-            self.stream = torch.cuda.Stream(self.device)
+        """The device's capture stream as the current stream (yielded),
+        ordered after the work queued so far and before the work queued
+        after."""
+        stream = capture_stream(self.device)
         current = torch.cuda.current_stream(self.device)
-        self.stream.wait_stream(current)
-        with torch.cuda.stream(self.stream):
-            yield
-        current.wait_stream(self.stream)
+        stream.wait_stream(current)
+        with torch.cuda.stream(stream):
+            yield stream
+        current.wait_stream(stream)
 
     def _record(self):
         """The body captured on the side stream into a CUDA graph with its
@@ -153,8 +171,8 @@ class StepGraph:
         graph = torch.cuda.CUDAGraph()
         for gen in self.generators:
             graph.register_generator_state(gen)
-        with self._side_stream(), torch.cuda.graph(graph,
-                                                   stream=self.stream):
+        with self._side_stream() as stream, torch.cuda.graph(graph,
+                                                             stream=stream):
             self.body(self.generators)
         return graph
 

@@ -105,33 +105,32 @@ def build_parser() -> argparse.ArgumentParser:
                         'kernel_regularizer hook, core/dense.py:50)')
     p.add_argument('--vq-impl', choices=['xla', 'pallas', 'auto'],
                    default='auto',
-                   help='nearest-codebook search implementation: xla '
-                        '(fastest when the [n,B,K] distance tensor fits), '
-                        'pallas (fused VMEM kernel, no materialized '
-                        'distances), auto (xla below 4 GiB distances, '
-                        'pallas above — measured table in docs/design.md)')
+                   help='nearest-codebook search: every choice runs the one '
+                        'CUDA kernel (ops/cuda_vq.py), which plans its '
+                        'launch for each shape and never builds the [n,B,K] '
+                        'distances; the choices are the JAX package\'s')
     p.add_argument('--precision', choices=['default', 'float32', 'highest'],
                    default='default',
-                   help='matmul precision (default = bf16-input f32-accum '
-                        'on TPU; highest = full f32)')
+                   help='matmul precision: every choice runs IEEE float32 '
+                        'matmuls (TF32 stays off); a choice other than '
+                        'default is recorded in the identifier as prc-...')
     p.add_argument('--first-layer', choices=['masked', 'rank1', 'auto'],
                    default='masked',
-                   help='first encoder layer: masked (bit-compatible '
-                        'default; measured fastest at every benchmarked '
-                        'shape — XLA fuses the leave-one-out mask into the '
-                        'matmul operand read), rank1 (same math, one shared '
-                        'full-width matmul + diagonal correction; the '
-                        'out-of-memory fallback for huge n_var*batch), '
-                        'auto (rank1 only when the [n,B,n] buffer would '
-                        'exceed ~4 GiB of HBM)')
+                   help='first encoder layer: masked (default; each '
+                        'network\'s batched matmul reads the inputs with its '
+                        'own variable masked out), rank1 (same math, one '
+                        'shared full-width matmul + diagonal correction, '
+                        'for huge n_var*batch), auto (rank1 only when the '
+                        'masked [n,B,n] float32 buffer would exceed 4 GiB)')
     p.add_argument('--adam-impl', choices=['optax', 'fused', 'pallas', 'fused_bf16'],
                    default='optax',
-                   help='Adam update implementation: optax (bit-compatible '
-                        'default), fused (single-pass HBM update, same math '
-                        'but ~1 ULP/step XLA-fusion drift — recorded in the '
-                        'identifier as ad-fused), pallas (explicit kernel), '
-                        'fused_bf16 (bfloat16 moments, the kernel\'s '
-                        'bfloat16 variant; recorded as ad-fused_bf16)')
+                   help='Adam update implementation: optax (default), fused '
+                        'and pallas all run the one CUDA Adam kernel '
+                        '(ops/csrc/adam.cu), bit for bit the same update; '
+                        'fused and pallas are recorded in the identifier as '
+                        'ad-fused and ad-pallas. fused_bf16 keeps the '
+                        'moments in bfloat16 (the kernel\'s bfloat16 '
+                        'variant; recorded as ad-fused_bf16)')
     p.add_argument('--compute-dtype', choices=['f32', 'bf16'], default='f32',
                    help='forward/backward compute dtype. bf16 halves the '
                         'weight/activation/cotangent HBM streams (master '

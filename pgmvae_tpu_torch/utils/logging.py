@@ -78,9 +78,9 @@ def run_identifier(name, k, d, bs, epochs, lr, beta, ema, gamma, seed,
         # numerically distinct trajectory (ExperimentConfig.packed_seeds)
         ext.append(f'pk-{packed_seeds}')
     if adam_impl != 'optax':
-        # fused/pallas Adam (ops/fused_adam.py): same math, different XLA
-        # fusion shape -> ~1 ULP/step drift vs optax, so it is part of the
-        # cell's numeric identity
+        # recorded as the JAX package records it (there fused/pallas Adam
+        # drift ~1 ULP a step from optax); the port runs one kernel for
+        # all three
         ext.append(f'ad-{adam_impl}')
     if compute_dtype != 'f32':
         # bf16 forward/backward (VqVaeConfig.compute_dtype): a genuinely

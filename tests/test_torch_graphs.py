@@ -338,3 +338,35 @@ def test_trainer_recaptures_on_a_new_state_or_data(counters, monkeypatch):
                                                             'packed'}
     tr.fit(b, y.numpy(), 1, seed=3)
     assert tr._graphs == {}
+
+
+def test_graphs_share_one_capture_stream_a_device(monkeypatch):
+    """Every StepGraph of a device warms up and captures on the device's
+    one capture stream (cuBLAS keeps a workspace a (handle, stream) pair
+    for the life of the process); another device gets its own. CUDA's
+    streams are stand-ins here."""
+    made = []
+
+    class Stream:
+        def __init__(self, device=None):
+            made.append(device)
+
+        def wait_stream(self, other):
+            pass
+    current = Stream()
+    made.clear()
+    monkeypatch.setattr(graphs, '_CAPTURE_STREAMS', {})
+    monkeypatch.setattr(torch.cuda, 'Stream', Stream)
+    monkeypatch.setattr(torch.cuda, 'current_device', lambda: 0)
+    monkeypatch.setattr(torch.cuda, 'current_stream', lambda device: current)
+    monkeypatch.setattr(torch.cuda, 'stream',
+                        lambda stream: contextlib.nullcontext())
+    streams = []
+    for device in ('cuda', 'cuda:0', 'cuda:0', 'cuda:1'):
+        g = graphs.StepGraph(lambda gens: None, device, capture=True)
+        with g._side_stream() as stream:
+            streams.append(stream)
+    assert streams[0] is streams[1] is streams[2]
+    assert streams[3] is not streams[0]
+    assert made == [0, 1]
+    assert graphs.capture_stream('cuda:1') is streams[3]
