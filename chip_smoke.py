@@ -5,10 +5,11 @@ Run from the root of a checkout, with no arguments:
 
     python3 chip_smoke.py
 
-It builds the port's two CUDA kernels (the nearest-code search with its
-bfloat16-input instance, and the Adam update, one launch over a table of
-leaves, with its bfloat16-moment instance; one nvcc each, started
-together) from the sources in the checkout, holds each kernel against its
+It builds the port's two CUDA kernels (the nearest-code search, with a
+bfloat16 kernel of its own on the tensor cores whose SASS must hold HMMA,
+and the Adam update, one launch over a table of leaves, with its
+bfloat16-moment instance; one nvcc each, started together) from the
+sources in the checkout, holds each kernel against its
 plain PyTorch version at the shapes of the main paths (timed by CUDA
 events over back-to-back calls, `ms`, and by the profiler's device time of
 the kernels alone, `device_ms`, or where the profiler sees none by events
@@ -24,8 +25,9 @@ the width of the kdd sweep (K=4096) 200 train steps, a stage-2 CPT and the
 test split's PLL, a checkpoint's round trip (save, load, serve, resume)
 and `driver.py`'s own CMLL (18,000 steps), the same 200 steps streamed
 from the host (bit-equal to in-core) and packed with three more seeds
-(S=4), the sweep runner's packed command on those seeds and rows on disk,
-`run_epochs`/`run_epochs_packed` over 3 epochs (bit-equal to
+(S=4), the sweep runner's packed command on those seeds and rows on disk
+and the same in bf16 compute (then `fit_packed` in bf16, bit-equal to its
+eager loop), `run_epochs`/`run_epochs_packed` over 3 epochs (bit-equal to
 `fit`/`fit_packed`) and one full kdd epoch (5,628 steps); bf16 compute at
 bbc width (14 steps); then the command line end to end on nltcs-shaped
 data, with a checkpoint, CMLL, a resume, bfloat16 Adam moments, bf16
@@ -68,6 +70,7 @@ from __future__ import annotations
 import contextlib
 import io
 import json
+import math
 import os
 import re
 import subprocess
@@ -108,6 +111,18 @@ KERNEL_SHAPES = [(3, 9, 5, 7), (5, 32, 8, 130), (4, 17, 10, 50),
 BENCH_SHAPES = [(16, 128, 10, 50), (1058, 25, 20, 50), (1556, 250, 30, 20),
                 (13, 5000, 20, 15)]
 BENCH_BF16_SHAPES = [(1058, 500, 20, 50), (1058, 1000, 20, 50)]
+# the command line's bf16 compute run (phase cli): nltcs's train batch
+CLI_BF16_SHAPES = [(16, 128, 10, 50)]
+# the bfloat16 kernel's ragged edges, checked and not timed: D = 5, 8, 30,
+# 33 and 128 (padded to 16, 16, 32, 64, 128 with zeros), K = 7 and 15 (odd:
+# plain loads), B not a multiple of 16, and K or D whose copies go by 4
+# bytes (K or D even but not a multiple of 8)
+BF16_RAGGED = [(5, 37, 5, 64), (4, 50, 8, 200), (6, 45, 30, 100),
+               (3, 29, 33, 96), (2, 21, 128, 300), (13, 100, 20, 15),
+               (7, 70, 10, 7), (9, 33, 12, 58)]
+# z and W as views 2 bytes past an alignment (a bf16 value): every copy
+# takes the plain-load path though K % 8 == 0
+BF16_UNALIGNED = [(16, 40, 10, 256), (64, 32, 10, 4096)]
 # the out-of-core twin's (phase stream_big): a train batch of its 64-variable
 # model (K=64, D=10, bs 256) and a stage-2 chunk (auto_chunk(64, 64) rows)
 STREAM_SHAPES = [(64, 256, 10, 64), (64, 1365, 10, 64)]
@@ -121,7 +136,11 @@ BF16_MAIN_SHAPE = (1058, 250, 20, 50)
 PROFILE_CALLS = 20                # calls averaged by device_ms
 PROFILER_TRIES = 3                # profiler sessions before giving up
 DEVICE_TIMER = {'profiler': 0, 'queued_events': 0}   # device_ms calls
-VQ_NAMES = ('vq_argmin_kernel', 'vq_merge_kernel')   # the kernel's launches
+# the nearest-code kernels' launches in a profile: float32, bfloat16, merge
+VQ_NAMES = ('vq_argmin_kernel', 'vq_argmin_bf16_kernel', 'vq_merge_kernel')
+# vq_argmin_bf16_kernel<KS, MT>: 16-deep k-steps, 16-row tiles a warp
+BF16_INSTANCES = ('bf16_1_1', 'bf16_2_1', 'bf16_4_1', 'bf16_8_1',
+                  'bf16_1_2', 'bf16_2_2', 'bf16_4_2')
 # the reference's shipped sweep (batch-job.sh:43-52): kdd, K=4096, D=10,
 # batch 32, lr 2e-4, cost 0.35 (the first of its four), seed 5, EMA
 KDD_ROWS, KDD_BATCH, KDD_LR, KDD_COST, KDD_SEED = 6400, 32, 2e-4, 0.35, 5
@@ -177,19 +196,21 @@ def cuda_ms(fn, target_s: float = 0.25) -> float:
     return start.elapsed_time(end) / reps
 
 
-def _profile(run):
+def _profile(run, min_kernels: int = 1):
     """torch.profiler's key averages of run() (which ends in a synchronize),
-    from the first of PROFILER_TRIES sessions that saw device time: a
-    session can come back without any device events. None if none saw
-    any."""
+    from the first of PROFILER_TRIES sessions that saw device time in at
+    least `min_kernels` kernels: a session can come back without any
+    device events, or with some of them dropped. None if none saw
+    enough."""
     from torch.profiler import ProfilerActivity, profile
     for _ in range(PROFILER_TRIES):
         with profile(activities=[ProfilerActivity.CPU,
                                  ProfilerActivity.CUDA]) as prof:
             run()
         averages = prof.key_averages()
-        if any(e.device_type == torch.autograd.DeviceType.CUDA
-               and e.self_device_time_total > 0 for e in averages):
+        if sum(e.count for e in averages
+               if e.device_type == torch.autograd.DeviceType.CUDA
+               and e.self_device_time_total > 0) >= min_kernels:
             return averages
     return None
 
@@ -223,8 +244,8 @@ def device_ms(fn, calls: int = PROFILE_CALLS) -> float:
     """Device time of fn() in ms: the sum of its CUDA kernels' device time
     (torch.profiler, as profile_run reads it), averaged over `calls` warm
     calls. Unlike cuda_ms it leaves out the host's dispatch between calls.
-    Where no profiler session sees device time, queued_events_ms stands in
-    (DEVICE_TIMER counts the calls each way)."""
+    Where no profiler session sees a kernel a call, queued_events_ms
+    stands in (DEVICE_TIMER counts the calls each way)."""
     fn()
     torch.cuda.synchronize()
 
@@ -232,7 +253,7 @@ def device_ms(fn, calls: int = PROFILE_CALLS) -> float:
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    averages = _profile(run)
+    averages = _profile(run, calls)
     if averages is None:
         DEVICE_TIMER['queued_events'] += 1
         return queued_events_ms(fn, calls)
@@ -245,8 +266,8 @@ def device_ms(fn, calls: int = PROFILE_CALLS) -> float:
 def split_device_ms(fn, match: str, calls: int = PROFILE_CALLS):
     """(device ms of fn()'s kernels whose name holds `match`, device ms of
     its other kernels), averaged over `calls` warm calls from one profiler
-    session, as device_ms reads it. Where no session sees device time, or
-    sees none of the matched kernels, (queued_events_ms(fn), None): the
+    session, as device_ms reads it. Where no session sees a kernel a call,
+    or sees none of the matched kernels, (queued_events_ms(fn), None): the
     whole call, not split."""
     fn()
     torch.cuda.synchronize()
@@ -255,7 +276,7 @@ def split_device_ms(fn, match: str, calls: int = PROFILE_CALLS):
         for _ in range(calls):
             fn()
         torch.cuda.synchronize()
-    averages = _profile(run)
+    averages = _profile(run, calls)
     cuda = [e for e in averages or ()
             if e.device_type == torch.autograd.DeviceType.CUDA]
     mine = sum(e.self_device_time_total for e in cuda if match in e.key)
@@ -345,8 +366,28 @@ def _ptxas(log_path) -> dict:
     return out
 
 
+def _sass_hmma(lib_path) -> dict:
+    """Tensor-core instructions (HMMA) in the SASS of each instantiation of
+    the bfloat16 kernel in a built library, by `cuobjdump -sass`."""
+    from pgmvae_tpu_torch.ops import _build
+    tool = os.path.join(os.path.dirname(_build.find_nvcc('vq_argmin')),
+                        'cuobjdump')
+    sass = subprocess.run([tool, '-sass', str(lib_path)], check=True,
+                          capture_output=True, text=True,
+                          timeout=300).stdout
+    out = {}
+    for part in sass.split('Function : ')[1:]:
+        name, body = part.split('\n', 1)
+        m = re.search(r'vq_argmin_bf16_kernelILi(\d+)ELi(\d+)E', name)
+        if m:
+            out['bf16_%s_%s' % m.groups()] = body.count('HMMA')
+    return out
+
+
 def phase_build():
-    """Both kernels' builds, one nvcc each, started together."""
+    """Both kernels' builds, one nvcc each, started together. The bfloat16
+    nearest-code kernel must run on the tensor cores: every instantiation's
+    SASS holds HMMA."""
     from pgmvae_tpu_torch.ops import cuda_vq, fused_adam
 
     def timed(module):
@@ -360,14 +401,19 @@ def phase_build():
                    (('vq_argmin', cuda_vq), ('adam', fused_adam))}
         seconds = {name: f.result() for name, f in futures.items()}
     vq = _ptxas(cuda_vq.library_path().with_suffix('.log'))
-    # by template arguments: vq_argmin_kernel<T, DPAD, RB, SUB> ->
-    # 'DPAD_RB_SUB' (float) or 'bf16_DPAD_RB_SUB' (the bfloat16 words)
+    # by template arguments: vq_argmin_kernel<float, DPAD, RB, SUB> ->
+    # 'DPAD_RB_SUB'; vq_argmin_bf16_kernel<KS, MT> -> 'bf16_KS_MT'
     dpad = {}
     for e, lines in vq.items():
-        m = re.search(r'vq_argmin_kernelI([ft])Li(\d+)ELi(\d+)ELi(\d+)E', e)
+        m = re.search(r'vq_argmin_kernelIfLi(\d+)ELi(\d+)ELi(\d+)E', e)
         if m:
-            key = '_'.join(m.groups()[1:])
-            dpad[key if m.group(1) == 'f' else 'bf16_' + key] = lines
+            dpad['_'.join(m.groups())] = lines
+        m = re.search(r'vq_argmin_bf16_kernelILi(\d+)ELi(\d+)E', e)
+        if m:
+            dpad['bf16_%s_%s' % m.groups()] = lines
+    hmma = _sass_hmma(cuda_vq.library_path())
+    assert sorted(hmma) == sorted(BF16_INSTANCES) and all(
+        hmma.values()), ('bf16 kernel without tensor-core SASS', hmma)
     # adam_table_kernel<M>: by moment type
     adam = {('bf16' if 'bfloat16' in e else 'f32'): lines
             for e, lines in _ptxas(
@@ -376,26 +422,32 @@ def phase_build():
          libraries=[cuda_vq.library_path().name,
                     fused_adam.library_path().name],
          ptxas_vq={key: dpad.get(key) for key in (
-             '16_4_1', '16_4_4', '24_8_1', '24_8_4', '128_4_1',
-             'bf16_16_4_4', 'bf16_24_8_1', 'bf16_24_8_4')},
-         ptxas_adam=adam)
+             '16_4_1', '16_4_4', '24_8_1', '24_8_4', '128_4_1')
+             + BF16_INSTANCES},
+         sass_hmma_bf16=hmma, ptxas_adam=adam)
 
 
-def _tie_edges():
+def _tie_edges(bf16: bool = False):
     """Code ranges (first copy, repeat) that straddle the kernel's code tile
     edge inside a strip and its strip edge between blocks at TIE_SPLIT,
-    16 codes each side of the edge."""
+    16 codes each side of the edge, by the float32 plan or the bfloat16
+    one."""
     from pgmvae_tpu_torch.ops import cuda_vq
-    p = cuda_vq.plan(*TIE_SPLIT)
+    p = (cuda_vq.plan_bf16 if bf16 else cuda_vq.plan)(*TIE_SPLIT)
     assert p.strips > 1 and p.strip_k > p.tk, p
     return [(range(e - 16, e), range(e, e + 16)) for e in (p.tk, p.strip_k)]
 
 
-def _kernel_case(kind, n, b, d, k, gen):
-    """Inputs (z, w) of one kernel case on the card."""
-    if kind == 'shape':
+def _kernel_case(kind, n, b, d, k, gen, dtype=torch.float32):
+    """Inputs (z, w) of one kernel case on the card, of `dtype`."""
+    if kind in ('shape', 'ragged'):
         return (torch.randn((n, b, d), generator=gen, device='cuda'),
-                torch.randn((n, d, k), generator=gen, device='cuda'))
+                torch.randn((n, d, k), generator=gen,
+                            device='cuda'))
+    if kind == 'unaligned':        # one value past the allocation's start
+        return tuple(torch.randn(math.prod(shape) + 1, generator=gen,
+                                 device='cuda').to(dtype)[1:].view(shape)
+                     for shape in ((n, b, d), (n, d, k)))
     if kind in ('tie', 'tie_split'):     # every code identical
         return (torch.zeros((n, b, d), device='cuda'),
                 torch.ones((n, d, k), device='cuda'))
@@ -406,7 +458,7 @@ def _kernel_case(kind, n, b, d, k, gen):
     # tie_strips: repeated codes across the tile and the strip edge, each
     # sample placed next to one first copy, so the pair is its nearest
     src = []
-    for first, repeat in _tie_edges():
+    for first, repeat in _tie_edges(dtype == torch.bfloat16):
         w[:, :, repeat.start:repeat.stop] = w[:, :, first.start:first.stop]
         src.extend(first)
     src = torch.tensor(src, device='cuda')[torch.arange(b) % len(src)]
@@ -424,14 +476,20 @@ def phase_kernel(dtype=torch.float32):
     bf16 = dtype == torch.bfloat16
     gen = torch.Generator(device='cuda').manual_seed(SEED)
     rows, max_err = {}, 0.0
-    shapes = KERNEL_SHAPES + (BENCH_BF16_SHAPES if bf16
+    shapes = KERNEL_SHAPES + (BENCH_BF16_SHAPES + CLI_BF16_SHAPES if bf16
                               else BENCH_SHAPES + STREAM_SHAPES
                               + SWEEP_MEMORY_SHAPES)
     cases = ([('shape', s) for s in shapes]
              + [('tie', (1, 8, 4, 12)), ('tie_tiles', (2, 40, 8, 130)),
                 ('tie_split', TIE_SPLIT), ('tie_strips', TIE_SPLIT)])
+    if bf16:
+        cases += ([('ragged', s) for s in BF16_RAGGED]
+                  + [('unaligned', s) for s in BF16_UNALIGNED])
     for kind, (n, b, d, k) in cases:
-        z, w = (t.to(dtype) for t in _kernel_case(kind, n, b, d, k, gen))
+        z, w = (t.to(dtype) for t in _kernel_case(kind, n, b, d, k, gen,
+                                                  dtype))
+        if kind == 'unaligned':
+            assert z.data_ptr() % 4 == w.data_ptr() % 4 == 2, kind
         got = cuda_vq.vq_codes_fused(z, w)
         ref = cuda_vq.vq_codes_plain(z, w)
         torch.cuda.synchronize()
@@ -442,7 +500,7 @@ def phase_kernel(dtype=torch.float32):
         elif kind == 'tie_tiles':
             assert not bool(((got >= 64) & (got < 128)).any()), kind
         elif kind == 'tie_strips':
-            for _, repeat in _tie_edges():
+            for _, repeat in _tie_edges(bf16):
                 assert not bool(((got >= repeat.start)
                                  & (got < repeat.stop)).any()), kind
         mism, gap = near_ties(z, w, got, ref)
@@ -1465,7 +1523,7 @@ def phase_packed_kdd(kdd: dict, turns: dict):
          capture_ms=graph['capture_ms'], memory_graphs=memory, **hold,
          busy_share_eager_step=step.get('busy_share'),
          busy_share_graph=replayed.get('busy_share'))
-    return launches, flip_gap, pll
+    return launches, flip_gap, pll, ms.loss[:, -1].tolist()
 
 
 def _state_leaves(st) -> list:
@@ -1910,6 +1968,10 @@ ISOLATE_FLAGS = ['-n', 'nltcs', '-k', '8', '-d', '10', '-b', '128', '-e',
 SWEEP_KDD_FLAGS = ['-n', 'kdd', '-k', '4096', '-d', '10', '-b', '32', '-e',
                    '1', '-r', '2e-4', '-c', '0.35', '-m', '-s', '5,6,7,8',
                    '--pack-seeds', '4', '--adam-impl', 'pallas']
+# the JAX package's bf16 kdd sweep (ROADMAP, slice 5), cut to one epoch
+PACKED_BF16_FLAGS = ['-n', 'kdd', '-k', '4096', '-d', '10', '-b', '32', '-e',
+                     '1', '-r', '2e-4', '-c', '0.35', '-m', '-s', '5,6,7,8',
+                     '--pack-seeds', '4', '--compute-dtype', 'bf16']
 
 
 def _cli(tmp: str, flags: list, module=None, base=CLI_FLAGS):
@@ -2111,6 +2173,19 @@ def _sweep(tmp: str) -> dict:
     return out
 
 
+def _write_kdd_csvs(tmp: str, kdd: dict) -> tuple:
+    """The kdd phase's KDD_ROWS train rows and the whole valid and test
+    splits as kdd's CSVs in `tmp`: (rows by split, seconds)."""
+    splits = kdd['splits']
+    rows = {'train': kdd['y'], 'valid': splits['valid'],
+            'test': splits['test']}
+    t0 = time.time()
+    for split, y in rows.items():
+        np.savetxt(os.path.join(tmp, f'kdd.{split}.data'),
+                   y.astype(np.uint8), fmt='%d', delimiter=',')
+    return rows, time.time() - t0
+
+
 def phase_sweep_kdd(kdd: dict, packed_pll: float):
     """The sweep runner's main path at the kdd sweep's width:
     `run_pipeline -n kdd -k 4096 ... -s 5,6,7,8 --pack-seeds 4`, on
@@ -2124,15 +2199,9 @@ def phase_sweep_kdd(kdd: dict, packed_pll: float):
     from pgmvae_tpu_torch import run_pipeline
     from pgmvae_tpu_torch.stage2 import Stage2
     from pgmvae_tpu_torch.utils.logging import run_identifier
-    tr, splits = kdd['tr'], kdd['splits']
-    rows = {'train': kdd['y'], 'valid': splits['valid'],
-            'test': splits['test']}
+    tr = kdd['tr']
     with tempfile.TemporaryDirectory() as tmp:
-        t0 = time.time()
-        for split, y in rows.items():
-            np.savetxt(os.path.join(tmp, f'kdd.{split}.data'),
-                       y.astype(np.uint8), fmt='%d', delimiter=',')
-        write_s = time.time() - t0
+        rows, write_s = _write_kdd_csvs(tmp, kdd)
         rc, lines, launches, seconds = _cli(tmp, [], run_pipeline,
                                             SWEEP_KDD_FLAGS)
         with open(os.path.join(tmp, 'logs', 'sweep-joblog.jsonl')) as f:
@@ -2170,6 +2239,112 @@ def phase_sweep_kdd(kdd: dict, packed_pll: float):
          samples_per_sec_packed=records[0]['samples_per_sec_packed'],
          train_wall=records[0]['train_wall'])
     return launches
+
+
+def phase_packed_kdd_bf16(kdd: dict, f32_losses: list):
+    """The JAX package's bf16 kdd sweep at full width, cut to one epoch:
+    `run_pipeline -n kdd -k 4096 -d 10 -b 32 -e 1 -r 2e-4 -c 0.35 -m -s
+    5,6,7,8 --pack-seeds 4 --compute-dtype bf16` on the kdd phase's rows
+    written as CSVs, counted: 200 packed bf16 steps (one launch a step of
+    the nearest-code kernel's bfloat16 instance, at (256, 32, 10, 4096),
+    and of Adam, for all four seeds), then per seed a float32 stage-2 CPT
+    and the three splits' PLLs (the float32 instance only); four pk-4
+    cd-bf16 lines with the JAX identifiers and finite PLLs. Then the same
+    seeds and rows through `Trainer.fit_packed` with compute_dtype='bf16',
+    counted: the replayed epoch bit-equal to the eager loop, masters,
+    moments and EMA state float32, each seed's final loss within 10% of
+    the float32 packed run's (the JAX package's sanity band,
+    tests/test_compute_dtype.py). Last, a profile of one replayed packed
+    bf16 epoch and the kernel's share of its device time."""
+    from pgmvae_tpu_torch import run_pipeline
+    from pgmvae_tpu_torch.models import vqvae
+    from pgmvae_tpu_torch.ops import cuda_vq, fused_adam
+    from pgmvae_tpu_torch.stage2 import Stage2
+    from pgmvae_tpu_torch.train import Trainer
+    from pgmvae_tpu_torch.utils.logging import run_identifier
+    seeds, y = list(PACKED_SEEDS), kdd['y']
+    cfg = kdd['tr'].cfg._replace(compute_dtype='bf16')
+    with tempfile.TemporaryDirectory() as tmp:
+        rows, write_s = _write_kdd_csvs(tmp, kdd)
+        rc, lines, cli_launches, cli_s = _cli(tmp, [], run_pipeline,
+                                              PACKED_BF16_FLAGS)
+        with open(os.path.join(tmp, 'logs', 'sweep-joblog.jsonl')) as f:
+            records = [json.loads(line) for line in f]
+    idents = [run_identifier('kdd', 4096, 10, KDD_BATCH, 1, KDD_LR, KDD_COST,
+                             True, 0.99, s, packed_seeds=4,
+                             compute_dtype='bf16') for s in seeds]
+    assert rc == 0 and [l.split(' ', 1)[0] for l in lines] == idents, (
+        rc, lines)
+    assert [r['identifier'] for r in records] == idents and all(
+        r['ok'] and r['platform'] == 'gpu' for r in records), records
+    chunk = Stage2(cfg).chunk
+    stage2 = sum(-(-v.shape[0] // chunk) for v in (rows['train'],
+                                                  *rows.values()))
+    n_leaves = 4 * (len(cfg.units) + 1)
+    per_step = _adam_per_step(n_leaves)
+    assert cli_launches == {'vq_argmin': 4 * stage2, 'vq_argmin_bf16': 200,
+                            'adam': 200 * per_step, 'adam_bf16': 0}, (
+        cli_launches)
+    plls = {k: [r[k] for r in records]
+            for k in ('pll_train', 'pll_valid', 'pll_test')}
+    assert all(np.isfinite(v) and v < 0 for vs in plls.values()
+               for v in vs), plls
+
+    tr = Trainer(cfg, KDD_LR, KDD_BATCH, y.shape[0], adam_impl='pallas')
+    states = tr.init_states_packed(seeds)
+    mark = _memory_mark()
+    # ---- the main path, counted
+    cuda_vq.LAUNCHES = cuda_vq.LAUNCHES_BF16 = fused_adam.LAUNCHES = 0
+    t0 = time.time()
+    states, ms = tr.fit_packed(states, y, 1, seeds)
+    torch.cuda.synchronize()
+    seconds = time.time() - t0
+    launches = {'vq_argmin': cuda_vq.LAUNCHES,
+                'vq_argmin_bf16': cuda_vq.LAUNCHES_BF16,
+                'adam': fused_adam.LAUNCHES}
+    # ---- end of the counted run
+    memory = _memory_since(mark)
+    assert launches == {'vq_argmin': 0, 'vq_argmin_bf16': 200,
+                        'adam': 200 * per_step}, launches
+    masters = (vqvae.param_leaves(states.params)
+               + vqvae.param_leaves(states.opt_state.mu)
+               + vqvae.param_leaves(states.opt_state.nu)
+               + list(states.ema[:3]))
+    assert all(t.dtype == torch.float32 for t in masters)
+    losses = ms.loss[:, -1].tolist()
+    rel = [abs(a - b) / abs(b) for a, b in zip(losses, f32_losses,
+                                                strict=True)]
+    assert np.isfinite(losses).all() and max(rel) < 0.1, (losses,
+                                                          f32_losses)
+    graph = tr.graph_stats['packed']
+    hold = _hold_eager(
+        tr, lambda t: t.init_states_packed(seeds),
+        lambda t, st: t.fit_packed(st, y, 1, seeds)[0], states,
+        'packed bf16')
+    replayed = _profile_epoch_graph('profile_packed_kdd_bf16_epoch_graph',
+                                    tr, states, y, seeds)
+    kernel_ms = None
+    if 'watched' in replayed:
+        kernel_ms = (replayed['watched']['vq_argmin_bf16_kernel'][0]
+                     + replayed['watched']['vq_merge_kernel'][0])
+    emit('packed_kdd_bf16', command=PACKED_BF16_FLAGS, seeds=seeds,
+         steps=200, splits={k: int(v.shape[0]) for k, v in rows.items()},
+         reduced=[f'one epoch over the first {KDD_ROWS} train rows (the '
+                  f'sweep: 200 epochs over 180092)',
+                  'synthetic shared-factor columns, not kdd data'],
+         identifiers=idents, cli_launches=cli_launches,
+         stage2_launches_per_seed=stage2, write_splits_seconds=write_s,
+         cli_seconds=cli_s, plls_by_seed=plls, launches=launches,
+         seconds=seconds, samples_per_s_packed=len(seeds) * y.shape[0]
+         / seconds, final_loss_by_seed=losses,
+         final_loss_f32_by_seed=f32_losses, final_loss_rel_gap=rel,
+         capture_ms=graph['capture_ms'], memory_graphs=memory, **hold,
+         epoch_device_ms=replayed.get('device_ms'),
+         kernel_device_ms=kernel_ms,
+         kernel_share=None if kernel_ms is None
+         else kernel_ms / replayed['device_ms'],
+         busy_share_graph=replayed.get('busy_share'))
+    return {'cli': cli_launches, 'fit': launches}
 
 
 # --------------------------------------------------------- the mesh --
@@ -3129,8 +3304,10 @@ def main() -> int:
     ckpt_launches = phase_checkpoint(kdd)
     cmll_kdd_launches = phase_cmll_kdd(kdd)
     stream_launches, turns = phase_stream_kdd(kdd)
-    packed_launches, packed_gap, packed_pll = phase_packed_kdd(kdd, turns)
+    packed_launches, packed_gap, packed_pll, packed_losses = \
+        phase_packed_kdd(kdd, turns)
     sweep_kdd_launches = phase_sweep_kdd(kdd, packed_pll)
+    packed_bf16 = phase_packed_kdd_bf16(kdd, packed_losses)
     epochs_launches = phase_run_epochs(kdd)
     nccl_launches = phase_mesh_nccl(kdd)
     splits = kdd['splits']
@@ -3155,6 +3332,7 @@ def main() -> int:
                 'stream_kdd': stream_launches['vq_argmin'],
                 'packed_kdd': packed_launches['vq_argmin'],
                 'sweep_kdd': sweep_kdd_launches['vq_argmin'],
+                'packed_kdd_bf16': packed_bf16['cli']['vq_argmin'],
                 'run_epochs': epochs_launches['run_epochs']['vq_argmin'],
                 'run_epochs_packed':
                     epochs_launches['run_epochs_packed']['vq_argmin'],
@@ -3169,6 +3347,10 @@ def main() -> int:
                 'sweep_memory': sweep_memory_launches['vq_argmin'],
                 'cli_big': cli_big_launches['vq_argmin']}
     vq_bf16_paths = {'train_bf16': bf16_launches['vq_argmin_bf16'],
+                     'packed_kdd_bf16':
+                         packed_bf16['cli']['vq_argmin_bf16'],
+                     'packed_kdd_bf16_fit':
+                         packed_bf16['fit']['vq_argmin_bf16'],
                      'cli': cli_launches['vq_argmin_bf16'],
                      'bench': bench_launches['vq_argmin_bf16']}
     adam_paths = {'serving': 0, 'train': train_launches['adam'],
@@ -3178,6 +3360,8 @@ def main() -> int:
                   'stream_kdd': stream_launches['adam'],
                   'packed_kdd': packed_launches['adam'],
                   'sweep_kdd': sweep_kdd_launches['adam'],
+                  'packed_kdd_bf16': packed_bf16['cli']['adam'],
+                  'packed_kdd_bf16_fit': packed_bf16['fit']['adam'],
                   'run_epochs': epochs_launches['run_epochs']['adam'],
                   'run_epochs_packed':
                       epochs_launches['run_epochs_packed']['adam'],

@@ -8,13 +8,14 @@
 // with
 //   out[v, b] = argmin_k (|W[v,:,k]|^2 - 2 z[v,b,:].W[v,:,k]).
 // |z|^2 is left out: it does not move the argmin. Ties go to the lowest
-// index, as with jnp.argmin. The [n, B, K] score tensor is never built. Each
-// score is a = fmaf chain of z[d]*W[d,k] over d = 0..D-1 in order, |W_k|^2 =
-// fmaf chain of W[d,k]^2 in the same order, s = |W_k|^2 - 2a: fp32 FMAs on
-// the SIMT units, as TF32 tensor-core products would round z and W to 10
-// mantissa bits and move codes.
+// index, as with jnp.argmin. The [n, B, K] score tensor is never built. In
+// the float32 instance each score is a = fmaf chain of z[d]*W[d,k] over d =
+// 0..D-1 in order, |W_k|^2 = fmaf chain of W[d,k]^2 in the same order, s =
+// |W_k|^2 - 2a: fp32 FMAs on the SIMT units, as TF32 tensor-core products
+// would round z and W to 10 mantissa bits and move codes. The bfloat16
+// instance is noted at its own kernel below.
 //
-// What bounds it. 2*n*B*D*K fp32 flops against 4*n*(B*D + D*K + B) bytes
+// What bounds the float32 instance. 2*n*B*D*K fp32 flops against 4*n*(B*D + D*K + B) bytes
 // (each input read once, the output written once). On an H100 (67 TFLOP/s
 // fp32 outside the tensor cores, 3.35 TB/s) the ridge is 20 flops a byte:
 // stage-2 chunks (B=32, D=20, K=50) sit near 10 and are bound by bytes;
@@ -22,7 +23,7 @@
 // Either way the card has to be full: many variables with few codes (bbc)
 // and few variables with many codes (the kdd sweep, n=64, K=4096) both.
 //
-// Design (the launch is planned in Python, `cuda_vq.plan`, and checked
+// Its design (the launch is planned in Python, `cuda_vq.plan`, and checked
 // here). A design of one thread per sample over all K codes gets no
 // parallelism from K: at the kdd sweep's (64, 32, 10, 4096) it runs 64
 // one-warp blocks on 132 SMs. So:
@@ -58,21 +59,58 @@
 // - Small K packs variables. Where K fits two sub-tiles and a block would
 //   be under 128 threads, VPB variables share a block (bbc's stage-2 chunk:
 //   two).
-// - bfloat16 inputs (`vq_argmin_bf16`, the Pallas kernel's f32-accumulated
-//   dot on bf16 operands under bf16 compute). Each value is widened to
-//   float32 on its way into shared memory: the widening is exact and a
-//   product of two widened values is exact in float32, so the shared-memory
-//   tiles, the scoring, the tie order, the strips and the merge are those of
-//   the float32 instance, and `cuda_vq.plan`'s shared-memory arithmetic holds
-//   as it is. Only the global reads halve: a thread reads its 4 codes as one
-//   8-byte load (K a multiple of 4, W 8-byte aligned; else 4 scalar loads)
-//   and stores them widened. These are plain loads, not cp.async (which
-//   copies bytes and cannot widen), so a bf16 code tile is loaded when its
-//   ring slot is filled and its latency is not hidden behind the scoring.
 // What still bounds it (H100, PERF.md): instruction slots and latency, not
 // FMAs or bytes. A good share of a thread's instructions are not the scores'
 // FMAs (|W_k|^2, the compare-and-select per score, loads, loop), and the
 // barriers and tile waits of short blocks are not all hidden.
+//
+// The bfloat16 instance (`vq_argmin_bf16`, the same Pallas kernel's
+// f32-accumulated dot on bf16 operands under bf16 compute, its
+// `preferred_element_type=jnp.float32` dot) is a kernel of its own, on the
+// tensor cores (`vq_argmin_bf16_kernel`).
+// - What bounds it. The products are exact in f32, so the bf16 tensor-core
+//   rate (989 TFLOP/s) may take them: 2nBDK operations there against
+//   2n(BD + DK) + 4nB bytes, a ridge near 300 operations a byte, and every
+//   shape of the port (D <= 30) sits below it: the bound is bytes. What
+//   the card spends is otherwise: mma.sync m16n8k16 takes about 18 cycles
+//   an HMMA per scheduler on the H100 (a build without the epilogue keeps
+//   70% of the kernel's 0.43 ms at (1058, 256, 20, 4096); PERF.md), D pads
+//   to 16 or 32, and every score is compared and selected on the SIMT
+//   units (3 instructions). bbc's shapes (K = 50) are bound by the latency
+//   of each block's loads.
+// - Tensor cores for z.W: mma.sync m16n8k16 (bf16 in, f32 accumulate). A
+//   block of wm warps holds wm * MT 16-row tiles of z; each warp keeps its
+//   A fragments in registers for the whole block (read once from the z
+//   tile, which is copied as one run of values) and walks every code of a
+//   ring tile 16 at a time, B fragments by ldmatrix.trans from the code
+//   tile [DP][TK + 8] (W's own layout). D is padded to DP, a multiple of 16,
+//   with zeros in both operands: z's columns past D are zeroed in the A
+//   registers, the code tiles' rows past D once in shared memory, so the
+//   padding adds exact zeros. The + 8 pad puts the 8 rows an ldmatrix phase
+//   reads on 8 different 16-byte bank groups.
+// - |W_k|^2 once per code tile, into shared memory, by the float32
+//   instance's in-order fmaf chain on the widened values, and the
+//   accumulator starts at -|W_k|^2 / 2 (exact): the tensor core leaves
+//   acc = z.W_k - |W_k|^2 / 2 = -s_k / 2, and the argmin of s is the argmax
+//   of acc, with no arithmetic on a score before its compare. Codes past the
+//   strip's end start at -inf and are never taken.
+// - Raw bf16 tiles by cp.async: the code ring (two stages) is filled with
+//   16-byte .cg copies where K % 8 == 0 and W is 16-byte aligned, 4-byte .ca
+//   copies where K is even and W 4-byte aligned, else plain loads (odd K);
+//   the z tile likewise by B * D. Tile t + 1 loads while tile t is scored.
+// - Epilogue and merge: a thread keeps a running (max, index) for each of
+//   its fragment rows (g, g + 8), replaced on a strict > while its columns
+//   walk upward, then merged over the quad by shuffles by (value, then
+//   lowest index). Small grids split K into strips of two ring tiles or
+//   more (`cuda_vq.plan_bf16`: kdd's batch 16 one-warp strips), whose
+//   partials (-acc = s / 2, in the float32 instance's order) go through the
+//   same merge launch. The result does not depend on block order.
+// - Why its codes may differ from the float32 instance's on the same widened
+//   values only on near-ties: the products are the same exact values, but
+//   the tensor core sums them (and -|W_k|^2 / 2) in its own order and
+//   rounding where the fmaf chain sums them one by one, so two scores apart
+//   by a few float32 roundings may swap. Two identical code columns get the
+//   same accumulator wherever they sit, so the lowest index wins every tie.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -143,9 +181,8 @@ __host__ __device__ __forceinline__ int smem_floats(int D, int tb, int tk,
 // Fills code tile [k0, k0 + tk) of rows [row0, row0 + rows) of W viewed as
 // [n*D][K] into dst [rows][tk] (float32). Thread t takes 4 codes, column
 // chunk t % (tk/4), of every (threads / (tk/4))-th row; rows past n*D and
-// codes past K are zero-filled. float32 W: cp.async copies, in flight until
-// the caller waits for their group. bfloat16 W: loads widened and stored
-// before it returns.
+// codes past K are zero-filled. The copies are cp.async, in flight until
+// the caller waits for their group.
 template <typename T>
 __device__ __forceinline__ void load_tile(float* dst, const T* w,
                                           const Shape& s, int row0, int rows,
@@ -159,34 +196,15 @@ __device__ __forceinline__ void load_tile(float* dst, const T* w,
     const int gr = row0 + r;
     const T* src = w + (size_t)gr * s.K + k;
     float* d = dst + r * tk + c;
-    if constexpr (sizeof(T) == 4) {
-      if (s.vec) {
-        const bool valid = gr < nrows && k < s.K;
-        cp_async16(d, valid ? src : w, valid);
-      } else {
-#pragma unroll
-        for (int j = 0; j < 4; ++j) {
-          const bool valid = gr < nrows && k + j < s.K;
-          cp_async4(d + j, valid ? src + j : w, valid);
-        }
-      }
+    if (s.vec) {
+      const bool valid = gr < nrows && k < s.K;
+      cp_async16(d, valid ? src : w, valid);
     } else {
-      float4 f = make_float4(0.0f, 0.0f, 0.0f, 0.0f);
-      if (s.vec) {
-        if (gr < nrows && k < s.K) {
-          const uint2 raw = __ldg(reinterpret_cast<const uint2*>(src));
-          f = make_float4(__uint_as_float(raw.x << 16),
-                          __uint_as_float(raw.x & 0xffff0000u),
-                          __uint_as_float(raw.y << 16),
-                          __uint_as_float(raw.y & 0xffff0000u));
-        }
-      } else if (gr < nrows) {
-        f.x = k < s.K ? widen(src[0]) : 0.0f;
-        f.y = k + 1 < s.K ? widen(src[1]) : 0.0f;
-        f.z = k + 2 < s.K ? widen(src[2]) : 0.0f;
-        f.w = k + 3 < s.K ? widen(src[3]) : 0.0f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const bool valid = gr < nrows && k + j < s.K;
+        cp_async4(d + j, valid ? src + j : w, valid);
       }
-      *reinterpret_cast<float4*>(d) = f;
     }
   }
 }
@@ -416,6 +434,306 @@ __global__ void vq_merge_kernel(const float* __restrict__ part_v,
   out[i] = best_k == NO_CODE ? 0 : best_k;
 }
 
+// ---- the bfloat16 instance: mma.sync on the tensor cores ----
+
+constexpr int BF_STAGES = 2;       // code tiles in the ring
+constexpr int BF_PAD = 8;          // bf16 pad of a code-tile row
+constexpr int BF_MAX_WARPS = MAX_THREADS / 32;
+
+struct ShapeBf16 {
+  int n, B, D, K;
+  int wm, nt, strip_k;      // warps over rows, 8-code tiles a ring tile
+  int zcopy, wcopy;         // bytes a copy of z and W: 16, 4 (cp.async), 2
+};
+
+// Shared memory of a block, in bytes: the z tile [tb * d] (bf16, rounded up
+// to 16 bytes), the ring [BF_STAGES][dp][tk + 8] (bf16) and -|W_k|^2 / 2 of
+// a tile [tk].
+__host__ __device__ __forceinline__ int bf16_smem_bytes(int d, int dp, int tb,
+                                                        int tk) {
+  return (2 * tb * d + 15) / 16 * 16 + BF_STAGES * 2 * dp * (tk + BF_PAD)
+         + 4 * tk;
+}
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// one cp.async of `bytes` (16: .cg, 4: .ca; the helpers take addresses
+// only), zero-filled where !valid, or for 2 bytes a plain load and store
+__device__ __forceinline__ void copy_one(bf16* dst, const bf16* src,
+                                        bool valid, int bytes) {
+  if (bytes == 16) {
+    cp_async16(reinterpret_cast<float*>(dst),
+               reinterpret_cast<const float*>(src), valid);
+  } else if (bytes == 4) {
+    cp_async4(reinterpret_cast<float*>(dst),
+              reinterpret_cast<const float*>(src), valid);
+  } else {
+    *dst = valid ? *src : bf16(0);
+  }
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  const bf16* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+// d = A (16 x 16, row) * B (16 x 8, col) + c, bf16 in, f32 accumulate;
+// c apart from d, so that the first k-step reads -|W_k|^2 / 2 where it is
+__device__ __forceinline__ void mma_bf16(float (&d)[4],
+                                         const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1, float c0, float c1,
+                                         float c2, float c3) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
+      "{%10, %11, %12, %13};\n"
+      : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1),
+        "f"(c0), "f"(c1), "f"(c2), "f"(c3));
+}
+
+__device__ __forceinline__ float neg_inf() {
+  return __int_as_float(0xff800000);
+}
+
+// (value, index) order of the bf16 instance's accumulators: the higher
+// value, then the lower index
+__device__ __forceinline__ bool better_max(float v, int i, float bv, int bi) {
+  return v > bv || (v == bv && i < bi);
+}
+
+// Code tile [k0, k0 + tk) of a variable's W [D][K] into dst [D][tk + 8]:
+// copies of s.wcopy bytes, a power of two of them a row, so a thread's row
+// and column come by shifts; codes past K are zero-filled. cp.async copies
+// are in flight until the caller waits for their group.
+__device__ __forceinline__ void load_codes(bf16* dst, const bf16* wv,
+                                           const ShapeBf16& s, int k0,
+                                           int tk, int threads) {
+  const int per = s.wcopy / 2;                  // values a copy
+  const int cpr = tk / per;                     // copies a row: a power of 2
+  const int sh = __ffs(cpr) - 1;
+  for (int i = threadIdx.x; i < s.D * cpr; i += threads) {
+    const int r = i >> sh;
+    const int c = (i & (cpr - 1)) * per;
+    const bool valid = k0 + c < s.K;   // copies hold whole codes (K % per)
+    copy_one(dst + r * (tk + BF_PAD) + c,
+             valid ? wv + (size_t)r * s.K + k0 + c : wv, valid, s.wcopy);
+  }
+}
+
+// grid (sample tiles, variables, strips); block 32 * wm threads. Warp wm
+// scores sample rows [wm * MT * 16, (wm + 1) * MT * 16) of the tile against
+// every code of each ring tile.
+template <int KS, int MT>
+__global__ void __launch_bounds__(MAX_THREADS, 2)
+vq_argmin_bf16_kernel(const bf16* __restrict__ z, const bf16* __restrict__ w,
+                      int32_t* __restrict__ out, float* __restrict__ part_v,
+                      int32_t* __restrict__ part_i, ShapeBf16 s) {
+  constexpr int DP = 16 * KS;
+  extern __shared__ float4 smem4[];
+  const int tb = s.wm * MT * 16;
+  const int tk = 8 * s.nt;
+  const int wld = tk + BF_PAD;
+  const int threads = 32 * s.wm;
+  bf16* zs = reinterpret_cast<bf16*>(smem4);              // [tb * D]
+  bf16* ring = zs + (tb * s.D + 7) / 8 * 8;               // [STAGES][DP][wld]
+  const int stage = DP * wld;
+  float* w2s = reinterpret_cast<float*>(ring + BF_STAGES * stage);  // [tk]
+
+  const int lane = threadIdx.x & 31;
+  const int wm = threadIdx.x >> 5;
+  const int g = lane >> 2;                   // fragment row (and row + 8)
+  const int t4 = lane & 3;                   // fragment column pair
+  const int v = blockIdx.y;
+  const int b0 = blockIdx.x * tb;
+  const int ks = blockIdx.z * s.strip_k;
+  const int ke = min(ks + s.strip_k, s.K);
+  const int ntiles = (ke - ks + tk - 1) / tk;
+  const bf16* wv = w + (size_t)v * s.D * s.K;
+
+  // the z tile, rows b0.. of the variable: one contiguous run of values
+  // (rows past B are left as they are: a row's scores depend on its own
+  // row only and are not written), and code tile 0, one group
+  {
+    const bf16* zv = z + ((size_t)v * s.B + b0) * s.D;
+    const int per = s.zcopy / 2;
+    const int count = min(tb, s.B - b0) * s.D;
+    for (int i = threadIdx.x * per; i < count; i += threads * per) {
+      copy_one(zs + i, zv + i, true, s.zcopy);
+    }
+  }
+  load_codes(ring, wv, s, ks, tk, threads);
+  cp_async_commit();
+  // the ring's pad rows D..DP-1 are zero for the whole block
+  for (int st = 0; st < BF_STAGES; ++st) {
+    uint4* pad = reinterpret_cast<uint4*>(ring + st * stage + s.D * wld);
+    for (int i = threadIdx.x; i < (DP - s.D) * wld / 8; i += threads) {
+      pad[i] = make_uint4(0u, 0u, 0u, 0u);
+    }
+  }
+
+  float best[MT][2];
+  int best_k[MT][2];
+#pragma unroll
+  for (int mi = 0; mi < MT; ++mi) {
+    best[mi][0] = best[mi][1] = neg_inf();
+    best_k[mi][0] = best_k[mi][1] = NO_CODE;
+  }
+  uint32_t a[MT][KS][4];
+
+  for (int t = 0; t < ntiles; ++t) {
+    cp_async_wait<0>();
+    __syncthreads();   // tile t is in; every warp is done with tile t - 1
+    if (t == 0) {
+      // A fragments for the whole block: register q holds row g (q even)
+      // or g + 8 (q odd), columns c = kk * 16 + (q >> 1) * 8 + 2 t4 and
+      // c + 1 in its low and high half; columns past D are zero
+#pragma unroll
+      for (int mi = 0; mi < MT; ++mi) {
+#pragma unroll
+        for (int kk = 0; kk < KS; ++kk) {
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            const bf16* zr =
+                zs + (wm * MT * 16 + mi * 16 + (q & 1) * 8 + g) * s.D;
+            const int c = kk * 16 + (q >> 1) * 8 + 2 * t4;
+            const uint32_t lo = c < s.D ? zr[c] : 0u;
+            const uint32_t hi = c + 1 < s.D ? zr[c + 1] : 0u;
+            a[mi][kk][q] = lo | hi << 16;
+          }
+        }
+      }
+    }
+    const int k0 = ks + t * tk;
+    if (t + 1 < ntiles) {      // tile t + 1 loads while tile t is scored
+      load_codes(ring + ((t + 1) & 1) * stage, wv, s, k0 + tk, tk, threads);
+    }
+    cp_async_commit();
+    const bf16* tile = ring + (t & 1) * stage;
+    // -|W_k|^2 / 2 by the float32 instance's in-order fmaf chain; -inf past
+    // the strip. The loads are unrolled ahead of the chain.
+    for (int j = threadIdx.x; j < tk; j += threads) {
+      float x[DP];
+#pragma unroll
+      for (int d = 0; d < DP; ++d) {
+        x[d] = d < s.D ? widen(tile[d * wld + j]) : 0.0f;
+      }
+      float acc = 0.0f;
+#pragma unroll
+      for (int d = 0; d < DP; ++d) {
+        if (d < s.D) acc = fmaf(x[d], x[d], acc);
+      }
+      w2s[j] = k0 + j < ke ? -0.5f * acc : neg_inf();
+    }
+    __syncthreads();
+
+    // the tile's 16-code groups that start before the strip's end (one
+    // group's registers at a time: two would lower the blocks an SM)
+    const int c_end = min(tk, ke - k0);
+#pragma unroll 1
+    for (int c0 = 0; c0 < c_end; c0 += 16) {
+      // C = -|W_k|^2 / 2 of this thread's columns 2 t4, 2 t4 + 1 of the two
+      // 8-code tiles, for both of its rows
+      const float2 h0 = *reinterpret_cast<const float2*>(w2s + c0 + 2 * t4);
+      const float2 h1 =
+          *reinterpret_cast<const float2*>(w2s + c0 + 8 + 2 * t4);
+      float acc[MT][2][4];
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk) {
+        uint32_t b[4];     // k rows 0-7, 8-15 of codes c0..+7, c0+8..+15
+        ldmatrix_x4_trans(b, tile + (kk * 16 + (lane & 15)) * wld + c0
+                                 + (lane >> 4) * 8);
+#pragma unroll
+        for (int mi = 0; mi < MT; ++mi) {
+          float(&d0)[4] = acc[mi][0];
+          float(&d1)[4] = acc[mi][1];
+          if (kk == 0) {
+            mma_bf16(d0, a[mi][kk], b[0], b[1], h0.x, h0.y, h0.x, h0.y);
+            mma_bf16(d1, a[mi][kk], b[2], b[3], h1.x, h1.y, h1.x, h1.y);
+          } else {
+            mma_bf16(d0, a[mi][kk], b[0], b[1], d0[0], d0[1], d0[2], d0[3]);
+            mma_bf16(d1, a[mi][kk], b[2], b[3], d1[0], d1[1], d1[2], d1[3]);
+          }
+        }
+      }
+      // strict > while this thread's columns walk upward: the lowest index
+      // keeps a tie
+      const int kc = k0 + c0 + 2 * t4;
+#pragma unroll
+      for (int mi = 0; mi < MT; ++mi) {
+#pragma unroll
+        for (int ni = 0; ni < 2; ++ni) {
+#pragma unroll
+          for (int q = 0; q < 4; ++q) {
+            const int r = q >> 1;
+            if (acc[mi][ni][q] > best[mi][r]) {
+              best[mi][r] = acc[mi][ni][q];
+              best_k[mi][r] = kc + ni * 8 + (q & 1);
+            }
+          }
+        }
+      }
+    }
+  }
+
+  // over the quad (the 4 lanes of a row)
+#pragma unroll
+  for (int mi = 0; mi < MT; ++mi) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+#pragma unroll
+      for (int off = 1; off < 4; off <<= 1) {
+        const float ov = __shfl_xor_sync(0xffffffffu, best[mi][r], off);
+        const int ok = __shfl_xor_sync(0xffffffffu, best_k[mi][r], off);
+        if (better_max(ov, ok, best[mi][r], best_k[mi][r])) {
+          best[mi][r] = ov;
+          best_k[mi][r] = ok;
+        }
+      }
+    }
+  }
+  if (t4 != 0) return;
+#pragma unroll
+  for (int mi = 0; mi < MT; ++mi) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int b = b0 + wm * MT * 16 + mi * 16 + r * 8 + g;
+      if (b >= s.B) continue;
+      const size_t o = (size_t)v * s.B + b;
+      if (gridDim.z == 1) {
+        out[o] = best_k[mi][r] == NO_CODE ? 0 : best_k[mi][r];
+      } else {   // s / 2 = -acc: the merge launch orders by (min, index)
+        const size_t pi = (size_t)blockIdx.z * s.n * s.B + o;
+        part_v[pi] = -best[mi][r];
+        part_i[pi] = best_k[mi][r];
+      }
+    }
+  }
+}
+
+template <int KS, int MT>
+cudaError_t launch_bf16(const bf16* z, const bf16* w, int32_t* out,
+                        float* part_v, int32_t* part_i, const ShapeBf16& s,
+                        int strips, cudaStream_t stream) {
+  const int tb = s.wm * MT * 16;
+  const dim3 grid((s.B + tb - 1) / tb, s.n, strips);
+  const size_t smem = bf16_smem_bytes(s.D, 16 * KS, tb, 8 * s.nt);
+  vq_argmin_bf16_kernel<KS, MT>
+      <<<grid, 32 * s.wm, smem, stream>>>(z, w, out, part_v, part_i, s);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess || strips == 1) return err;
+  const int64_t nb = (int64_t)s.n * s.B;
+  vq_merge_kernel<<<(unsigned)((nb + 255) / 256), 256, 0, stream>>>(
+      part_v, part_i, out, nb, strips);
+  return cudaGetLastError();
+}
+
 template <typename T, int DPAD, int RB, int SUB>
 cudaError_t launch(const T* z, const T* w, int32_t* out,
                    float* part_v, int32_t* part_i, const Shape& s,
@@ -496,16 +814,61 @@ int run(const T* z, const T* w, int32_t* out, float* part_v, int32_t* part_i,
   return (int)err;
 }
 
+// the widest copy (bytes) that runs of `values` bf16 values from p allow
+int copy_bytes(const bf16* p, long long values) {
+  const uintptr_t a = reinterpret_cast<uintptr_t>(p);
+  if (values % 8 == 0 && a % 16 == 0) return 16;
+  if (values % 2 == 0 && a % 4 == 0) return 4;
+  return 2;
+}
+
+// KS = 16-deep k-steps (D padded to 16, 32, 64 or 128), MT = 16-row tiles a
+// warp (1, or 2 up to D = 64)
+int run_bf16(const bf16* z, const bf16* w, int32_t* out, float* part_v,
+             int32_t* part_i, int n, int B, int D, int K, int mt, int wm,
+             int wn, int nt, int vpb, int strip_k, int strips, void* stream) {
+  const int ks = D <= 16 ? 1 : D <= 32 ? 2 : D <= 64 ? 4 : 8;
+  const int tb = wm * mt * 16;
+  const int tk = 8 * nt;
+  if (n < 1 || B < 1 || D < 1 || D > MAX_D || K < 1
+      || !(mt == 1 || (mt == 2 && ks <= 4)) || !pow2(wm)
+      || wm > BF_MAX_WARPS || !pow2(nt) || nt < 2 || wn != 1 || vpb != 1
+      || strip_k < tk || strip_k % tk != 0
+      || strips != (K + strip_k - 1) / strip_k
+      || (strips > 1 && (part_v == nullptr || part_i == nullptr))
+      || n > 65535 || strips > 65535
+      || bf16_smem_bytes(D, 16 * ks, tb, tk) > SMEM_BYTES) {
+    return (int)cudaErrorInvalidValue;
+  }
+  // a block copies z in one run from (v * B + b0) * D (b0 a multiple of
+  // 16) and W in rows from (v * D + d) * K + k0 (k0 a multiple of 16)
+  const ShapeBf16 s{n, B, D, K, wm, nt, strip_k,
+                    copy_bytes(z, (long long)B * D), copy_bytes(w, K)};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+#define VQ_BF16(KS, MT) \
+  launch_bf16<KS, MT>(z, w, out, part_v, part_i, s, strips, st)
+  if (mt == 1) {
+    err = ks == 1 ? VQ_BF16(1, 1) : ks == 2 ? VQ_BF16(2, 1)
+          : ks == 4 ? VQ_BF16(4, 1) : VQ_BF16(8, 1);
+  } else {
+    err = ks == 1 ? VQ_BF16(1, 2) : ks == 2 ? VQ_BF16(2, 2) : VQ_BF16(4, 2);
+  }
+#undef VQ_BF16
+  return (int)err;
+}
+
 }  // namespace
 
-// Launches the search for z [n, B, D] and W [n, D, K] with the launch plan
-// (rb, wy, wk, sub, vpb, strip_k, strips) of `cuda_vq.plan` on `stream` of the
-// current CUDA device. With strips > 1, part_v and part_i hold
-// strips * n * B floats and ints of scratch, and a second launch merges
-// them. Returns the launch's cudaError_t (0 on success); a plan the kernel
-// does not take returns cudaErrorInvalidValue and launches nothing. It does
-// not synchronise. `vq_argmin` takes float32 z and W, `vq_argmin_bf16`
-// bfloat16 ones (as their 16-bit words); the plan is the same for both.
+// Launches the search for z [n, B, D] and W [n, D, K] on `stream` of the
+// current CUDA device: `vq_argmin` (float32) with the launch plan (rb, wy,
+// wk, sub, vpb, strip_k, strips) of `cuda_vq.plan`, `vq_argmin_bf16`
+// (bfloat16, as their 16-bit words) with `cuda_vq.plan_bf16`'s (mt, wm, wn,
+// nt, 1, strip_k, strips) in the same places. With strips > 1, part_v and
+// part_i hold strips * n * B floats and ints of scratch, and a second launch
+// merges them. Returns the launch's cudaError_t (0 on success); a plan the
+// kernel does not take returns cudaErrorInvalidValue and launches nothing. It
+// does not synchronise.
 extern "C" int vq_argmin(const float* z, const float* w, int32_t* out,
                          float* part_v, int32_t* part_i, int n, int B, int D,
                          int K, int rb, int wy, int wk, int sub, int vpb,
@@ -516,11 +879,11 @@ extern "C" int vq_argmin(const float* z, const float* w, int32_t* out,
 
 extern "C" int vq_argmin_bf16(const bf16* z, const bf16* w, int32_t* out,
                               float* part_v, int32_t* part_i, int n, int B,
-                              int D, int K, int rb, int wy, int wk, int sub,
+                              int D, int K, int mt, int wm, int wn, int nt,
                               int vpb, int strip_k, int strips,
                               void* stream) {
-  return run(z, w, out, part_v, part_i, n, B, D, K, rb, wy, wk, sub, vpb,
-             strip_k, strips, stream);
+  return run_bf16(z, w, out, part_v, part_i, n, B, D, K, mt, wm, wn, nt, vpb,
+                  strip_k, strips, stream);
 }
 
 extern "C" const char* vq_argmin_error_string(int err) {

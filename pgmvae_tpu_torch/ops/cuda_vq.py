@@ -6,19 +6,22 @@
 launches the kernel in `csrc/vq_argmin.cu` (design and bound are noted
 there) or raises; on a CPU tensor it returns `vq_codes_plain`, the same
 arithmetic in plain PyTorch. z and the codebook are both float32 or both
-bfloat16 (bf16 compute): the bfloat16 instance widens each value to float32
-exactly and then scores as the float32 one does.
+bfloat16 (bf16 compute), and each type has a kernel of its own: float32
+scores by fmaf chains on the SIMT units; bfloat16 takes z.W_k on the
+tensor cores (mma.sync, exact bf16 products summed in float32), so its codes
+may differ from the float32 arithmetic on the widened values only on
+near-ties.
 
 The kernel is compiled with nvcc for sm_90a into a shared library with a
 plain C entry point, at first use, by `ops/_build.py`, and bound with
 ctypes.
 
-`plan(n, B, D, K)` chooses the launch (tile sizes, variables a block, code
-strips), and the C entry point checks it; the plan holds for both input
-types, as the shared-memory tiles are float32 either way. `LAUNCHES` and
-`LAUNCHES_BF16` count calls that launched the float32 and the bfloat16
-instance (one launch or, when K is split into strips, two), so a run can
-show that its path went through them.
+`plan(n, B, D, K)` chooses the float32 launch (tile sizes, variables a
+block, code strips) and `plan_bf16(n, B, D, K)` the bfloat16 one (16-row
+and 8-code tensor-core tiles, code strips); the C entry points check them.
+`LAUNCHES` and `LAUNCHES_BF16` count calls that launched the float32 and
+the bfloat16 instance (one launch or, when K is split into strips, two), so
+a run can show that its path went through them.
 
 The wrapper is safe to capture into a CUDA graph (`graphs.StepGraph`): it
 launches on `torch.cuda.current_stream()`, which is the capture stream
@@ -116,6 +119,12 @@ class Plan(NamedTuple):
     def tk(self) -> int:
         return self.sub * self.wk * TX * RK
 
+    @property
+    def args(self) -> Tuple[int, ...]:
+        """The C entry point's plan arguments, in its order."""
+        return (self.rb, self.wy, self.wk, self.sub, self.vpb, self.strip_k,
+                self.strips)
+
 
 def _pow2_at_least(x: int) -> int:
     return 1 << max(0, (int(x) - 1).bit_length())
@@ -182,6 +191,98 @@ def plan(n: int, b: int, d: int, k: int) -> Plan:
                 32 * wy * wk * vpb, _smem_bytes(d, rb, wy, wk, vpb, sub))
 
 
+BF16_MAX_WARPS = MAX_THREADS // 32
+BF16_MAX_TK = 128         # codes a ring tile of the bfloat16 instance
+BF16_PAD = 8              # bf16 pad of its code-tile rows
+BF16_STAGES = 2           # code tiles in its ring
+BF16_MIN_WARPS = 16 * SMS     # fewer warps than this split K across blocks
+
+
+class PlanBf16(NamedTuple):
+    """One launch of the bfloat16 instance. A block of wm warps holds a
+    sample tile of `tb` = wm * mt * 16 rows (each warp mt 16-row
+    tensor-core tiles) against ring tiles of `tk` = nt * 8 codes, which
+    every warp scores 16 at a time; D is padded to `dp` = 16 * ks in the
+    tensor-core operands. Codes are cut into `strips` strips of `strip_k`
+    codes, one block each; with more than one strip a second launch merges
+    the strips' partial minima."""
+    mt: int
+    wm: int
+    nt: int
+    ks: int
+    strip_k: int
+    strips: int
+    grid: Tuple[int, int, int]    # (sample tiles, variables, strips)
+    threads: int
+    smem_bytes: int
+
+    @property
+    def tb(self) -> int:
+        return self.wm * self.mt * 16
+
+    @property
+    def tk(self) -> int:
+        return self.nt * 8
+
+    @property
+    def dp(self) -> int:
+        return 16 * self.ks
+
+    @property
+    def args(self) -> Tuple[int, ...]:
+        """The C entry point's plan arguments, in its order (the float32
+        entry's places: rb, wy, wk = 1, sub, vpb = 1)."""
+        return (self.mt, self.wm, 1, self.nt, 1, self.strip_k, self.strips)
+
+
+def _bf16_smem_bytes(d: int, ks: int, tb: int, tk: int) -> int:
+    """Shared memory of a bfloat16 block (csrc/vq_argmin.cu
+    `bf16_smem_bytes`): the z tile's tb * d values (rounded up to 16 bytes)
+    and a ring of BF16_STAGES code tiles [dp][tk + 8] in bf16, and
+    -|W_k|^2 / 2 of a tile [tk]."""
+    dp = 16 * ks
+    return (-(-2 * tb * d // 16) * 16
+            + BF16_STAGES * 2 * dp * (tk + BF16_PAD) + 4 * tk)
+
+
+def _pow2_at_most(x: int) -> int:
+    return 1 << (max(1, int(x)).bit_length() - 1)
+
+
+@functools.lru_cache(maxsize=1024)
+def plan_bf16(n: int, b: int, d: int, k: int) -> PlanBf16:
+    """The bfloat16 launch for z [n, b, d] and codebook [n, d, k] (pure:
+    the CPU tests check it). Raises ValueError on what the kernel does not
+    take."""
+    if min(n, b, d, k) < 1:
+        raise ValueError(f'empty shape {(n, b, d, k)}')
+    if d > MAX_D:
+        raise ValueError(f'the vq_argmin kernel takes D <= {MAX_D}, got {d}')
+    ks = _pow2_at_least(-(-d // 16))          # 16-deep k-steps: 1, 2, 4, 8
+    mt = 2 if b > 16 and ks <= 4 else 1       # A fragments held in registers
+    wm = min(BF16_MAX_WARPS, _pow2_at_least(-(-b // (16 * mt))))
+    nt = min(BF16_MAX_TK // 8, 2 * _pow2_at_least(-(-k // 16)))
+    while _bf16_smem_bytes(d, ks, 16 * mt * wm, 8 * nt) > SMEM_BYTES:
+        if nt > 2:
+            nt //= 2
+        else:
+            wm //= 2
+    tb, tk = 16 * mt * wm, 8 * nt
+    ktiles, btiles = -(-k // tk), -(-b // tb)
+    # few warps: cut K into strips of two ring tiles or more, up to
+    # BF16_MIN_WARPS warps in all
+    strips, warps = 1, n * btiles * wm
+    if warps < BF16_MIN_WARPS and ktiles > 1:
+        strips = min(ktiles // 2, _pow2_at_most(BF16_MIN_WARPS // warps))
+    strip_k = -(-ktiles // strips) * tk
+    strips = -(-k // strip_k)
+    grid = (btiles, n, strips)
+    if n > MAX_GRID_Y or strips > MAX_GRID_Y or btiles >= 2 ** 31:
+        raise ValueError(f'shape {(n, b, d, k)} is past the kernel\'s grid')
+    return PlanBf16(mt, wm, nt, ks, strip_k, strips, grid, 32 * wm,
+                    _bf16_smem_bytes(d, ks, tb, tk))
+
+
 def _check(z: torch.Tensor, codebook: torch.Tensor) -> None:
     if z.dim() != 3 or codebook.dim() != 3:
         raise ValueError(f'z must be [n, B, D] and codebook [n, D, K]; got '
@@ -202,7 +303,9 @@ def _check(z: torch.Tensor, codebook: torch.Tensor) -> None:
 def vq_codes_plain(z: torch.Tensor, codebook: torch.Tensor) -> torch.Tensor:
     """The kernel's arithmetic in plain PyTorch: argmin over the [n, B, K]
     scores |W_k|^2 - 2 z.W_k (first index on ties), int32 [n, B]. bfloat16
-    operands are widened to float32 first."""
+    operands are widened to float32 first (exact), and their scores taken
+    in float32 as the float32 instance's are: the bfloat16 kernel's sums
+    differ from these only in order and rounding."""
     z, codebook = z.float(), codebook.float()
     w2 = torch.sum(codebook * codebook, dim=1, keepdim=True)         # [n,1,K]
     scores = w2 - 2.0 * torch.bmm(z, codebook)                       # [n,B,K]
@@ -212,8 +315,9 @@ def vq_codes_plain(z: torch.Tensor, codebook: torch.Tensor) -> torch.Tensor:
 def vq_codes_fused(z: torch.Tensor, codebook: torch.Tensor) -> torch.Tensor:
     """Nearest-codebook indices [n, B] int32. z [n, B, D] and codebook
     [n, D, K], both float32 or both bfloat16, on one device: CUDA launches
-    the kernel's instance for that type, CPU runs `vq_codes_plain`; any
-    other device raises."""
+    the kernel for that type (float32: `plan`; bfloat16: the tensor-core
+    kernel, `plan_bf16`), CPU runs `vq_codes_plain`; any other device
+    raises."""
     global LAUNCHES, LAUNCHES_BF16
     _check(z, codebook)
     if z.device.type == 'cpu':
@@ -229,12 +333,12 @@ def vq_codes_fused(z: torch.Tensor, codebook: torch.Tensor) -> torch.Tensor:
     out = torch.empty((n, b), dtype=torch.int32, device=z.device)
     if n == 0 or b == 0:
         return out
-    p = plan(n, b, d, k)
+    bf16 = z.dtype == torch.bfloat16
+    p = plan_bf16(n, b, d, k) if bf16 else plan(n, b, d, k)
     if _lib is None and torch.cuda.is_current_stream_capturing():
         raise RuntimeError('vq_argmin: build() must run before a CUDA graph '
                            'capture')
     lib = build()
-    bf16 = z.dtype == torch.bfloat16
     fn = lib.vq_argmin_bf16 if bf16 else lib.vq_argmin
     with torch.cuda.device(z.device):
         part_v = part_i = None
@@ -246,9 +350,8 @@ def vq_codes_fused(z: torch.Tensor, codebook: torch.Tensor) -> torch.Tensor:
         err = fn(
             z.data_ptr(), codebook.data_ptr(), out.data_ptr(),
             None if part_v is None else part_v.data_ptr(),
-            None if part_i is None else part_i.data_ptr(), n, b, d, k, p.rb,
-            p.wy, p.wk, p.sub, p.vpb, p.strip_k, p.strips,
-            torch.cuda.current_stream().cuda_stream)
+            None if part_i is None else part_i.data_ptr(), n, b, d, k,
+            *p.args, torch.cuda.current_stream().cuda_stream)
     if err != 0:
         msg = lib.vq_argmin_error_string(err).decode()
         raise RuntimeError(f'vq_argmin launch failed: CUDA error {err} '

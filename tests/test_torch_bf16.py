@@ -60,7 +60,12 @@ def _gaps(z, w, codes):
 
 
 @pytest.mark.parametrize('shape', [(4, 33, 6, 70), (3, 64, 10, 512),
-                                   (8, 16, 20, 50)])
+                                   (8, 16, 20, 50),
+                                   # the bfloat16 kernel's ragged edges
+                                   # (chip_smoke.BF16_RAGGED): D = 5, 33,
+                                   # K = 15, codes across its tile edge
+                                   (5, 37, 5, 64), (3, 29, 33, 96),
+                                   (13, 100, 20, 15), (2, 40, 8, 130)])
 def test_bf16_codes_are_the_widened_argmin_and_near_jax(shape):
     n, b, d, k = shape
     rng = np.random.default_rng(sum(shape))
