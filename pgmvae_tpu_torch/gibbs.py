@@ -43,6 +43,7 @@ import torch
 
 from pgmvae_tpu_torch import graphs as pgraphs
 from pgmvae_tpu_torch.models import vqvae
+from pgmvae_tpu_torch.trace import span
 
 LOG_EPS = 1e-5          # reference core/model.py:148
 SEGMENT_STEPS = 8192    # steps between progress lines (the JAX package's
@@ -141,13 +142,15 @@ class GibbsChain:
     def _run(self, start: int, steps: int, fill) -> None:
         """Steps start .. start+steps-1, in sub-segments of at most G steps:
         `fill(i0, g)` writes the uniforms of steps i0 .. i0+g-1 into
-        u[:g], then the body runs g times."""
-        with torch.no_grad():
+        u[:g], then the body runs g times. Host spans: `gibbs.run`, and in
+        it `gibbs.fill` a sub-segment."""
+        with span('gibbs.run'), torch.no_grad():
             self.i.fill_(start)
             done = 0
             while done < steps:
                 g = min(self.sub_steps, steps - done)
-                fill(start + done, g)
+                with span('gibbs.fill'):
+                    fill(start + done, g)
                 self.j.zero_()
                 self.graph.run(g)
                 done += g

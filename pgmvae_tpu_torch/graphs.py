@@ -48,6 +48,7 @@ from typing import Callable, Optional, Sequence
 
 import torch
 
+from pgmvae_tpu_torch import trace
 from pgmvae_tpu_torch.ops import cuda_vq, fused_adam
 
 # (module, attribute) of every kernel launch counter
@@ -119,6 +120,10 @@ class StepGraph:
                              f'generators, got {len(generators)}')
         if steps <= 0:
             return
+        with trace.span('graph.run'):
+            self._run(steps, generators)
+
+    def _run(self, steps: int, generators) -> None:
         if not self.capture:
             for _ in range(steps):
                 self.body(generators)
@@ -140,18 +145,25 @@ class StepGraph:
     def _capture(self, generators) -> None:
         """The warm-up step (eager, on the side stream, counted as it
         launches), then the capture of the body, whose counted launches
-        become the graph's per replay."""
-        with self._side_stream():
-            self.body(generators)
-        before = launch_counts()
-        try:
+        become the graph's per replay. `capture_ms` is the record, which
+        begins with the device synchronisation `torch.cuda.graph` makes on
+        entry (the wait for the warm-up); the counter `graph.capture_s`
+        takes the warm-up and the record."""
+        with trace.span('graph.capture'):
             t0 = time.perf_counter()
-            self.graph = self._record()
-            self.capture_ms = (time.perf_counter() - t0) * 1e3
-        finally:
-            self.launches = tuple(a - b for a, b in
-                                  zip(launch_counts(), before))
-            _set_launch_counts(before)
+            with self._side_stream():
+                self.body(generators)
+            before = launch_counts()
+            try:
+                t1 = time.perf_counter()
+                self.graph = self._record()
+                t2 = time.perf_counter()
+            finally:
+                self.launches = tuple(a - b for a, b in
+                                      zip(launch_counts(), before))
+                _set_launch_counts(before)
+        self.capture_ms = (t2 - t1) * 1e3
+        trace.add('graph.capture', t2 - t0)
 
     @contextlib.contextmanager
     def _side_stream(self):

@@ -24,6 +24,7 @@ from pgmvae_tpu_torch import resolve_device
 from pgmvae_tpu_torch.gibbs import get_probability
 from pgmvae_tpu_torch.models import vqvae
 from pgmvae_tpu_torch.stage2 import LOG_EPS
+from pgmvae_tpu_torch.trace import span
 
 
 class PgmModel:
@@ -76,22 +77,29 @@ class PgmModel:
     def score(self, y) -> np.ndarray:
         """Per-sample PLL [B] float32 (sum over variables of
         log p(y_v | code)). The mean over a split equals
-        stage2.pseudo_log_likelihood to float tolerance."""
-        y = self._tensor(y)
-        with torch.no_grad():
-            codes = self._codes(y).long()                     # [n, B]
-            dist = self._dist32
-            if self.parents is not None:
-                vals = y[:, self.parents].long()              # [B, n, m]
-                pw = 1 << torch.arange(self.parents.shape[1],
-                                       device=self.device)
-                codes = codes * dist.shape[-1] + (vals * pw).sum(-1).T
-                dist = dist.reshape(dist.shape[0], -1)
-            p1 = torch.gather(dist, 1, codes)                 # [n, B]
-            yt = y.T
-            ll = (yt * torch.log(p1 + LOG_EPS)
-                  + (1.0 - yt) * torch.log(1.0 - p1 + LOG_EPS))
-            return ll.sum(0).cpu().numpy()                    # [B]
+        stage2.pseudo_log_likelihood to float tolerance. Host spans: the
+        request `serve.score`, and in it `serve.to_device` (the rows'
+        copy), `serve.encode` (the code search), `serve.lookup` (the CPT
+        gather and log-likelihood) and `serve.to_host`."""
+        with span('serve.score'), torch.no_grad():
+            with span('serve.to_device'):
+                y = self._tensor(y)
+            with span('serve.encode'):
+                codes = self._codes(y).long()                 # [n, B]
+            with span('serve.lookup'):
+                dist = self._dist32
+                if self.parents is not None:
+                    vals = y[:, self.parents].long()          # [B, n, m]
+                    pw = 1 << torch.arange(self.parents.shape[1],
+                                           device=self.device)
+                    codes = codes * dist.shape[-1] + (vals * pw).sum(-1).T
+                    dist = dist.reshape(dist.shape[0], -1)
+                p1 = torch.gather(dist, 1, codes)             # [n, B]
+                yt = y.T
+                ll = (yt * torch.log(p1 + LOG_EPS)
+                      + (1.0 - yt) * torch.log(1.0 - p1 + LOG_EPS)).sum(0)
+            with span('serve.to_host'):
+                return ll.cpu().numpy()                       # [B]
 
     def conditional_probability(self, y, fts) -> np.ndarray:
         """p(y_v=1 | y_{-v}) for variables `fts` [F], given full-width

@@ -38,6 +38,7 @@ from pgmvae_tpu_torch import resolve_device
 from pgmvae_tpu_torch.data.pinned import pinned_pieces
 from pgmvae_tpu_torch.models import vqvae
 from pgmvae_tpu_torch.parallel.mesh import MeshContext
+from pgmvae_tpu_torch.trace import span, timed
 
 SMOOTHING = 0.8     # reference core/model.py:88
 LOG_EPS = 1e-5      # reference core/model.py:93-94
@@ -208,10 +209,11 @@ class Stage2:
                       < n - p * rows).to(torch.float32)
                 for start in range(0, yd.shape[0], chunk):
                     # this data rank's rows of the chunk
-                    self._count_chunk(
-                        params, codebook, n1, n0,
-                        mesh.local_rows(yd[start:start + chunk]),
-                        mesh.local_rows(wd[start:start + chunk]))
+                    with span('stage2.chunk'):
+                        self._count_chunk(
+                            params, codebook, n1, n0,
+                            mesh.local_rows(yd[start:start + chunk]),
+                            mesh.local_rows(wd[start:start + chunk]))
             if mesh.mesh is not None:
                 n1, n0 = mesh.all_reduce_many((n1, n0), 'data')
                 n1 = mesh.all_gather(n1, 'model')
@@ -226,9 +228,11 @@ class Stage2:
 
     def cpt(self, params, codebook, y_train: np.ndarray) -> np.ndarray:
         """Smoothed conditional probability table p(y_v=1 | code=k),
-        float64 [n_var, K]."""
-        n1, n0 = self.counts(params, codebook, y_train)
-        return (n1 + SMOOTHING) / (n1 + n0 + 2 * SMOOTHING)
+        float64 [n_var, K]. Host span and counter: `stage2.cpt`
+        (`trace.timed`), with a `stage2.chunk` span a chunk."""
+        with timed('stage2.cpt'):
+            n1, n0 = self.counts(params, codebook, y_train)
+            return (n1 + SMOOTHING) / (n1 + n0 + 2 * SMOOTHING)
 
     def pseudo_log_likelihood(self, params, codebook, y_host: np.ndarray,
                               dist: np.ndarray) -> float:

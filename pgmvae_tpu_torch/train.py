@@ -91,6 +91,7 @@ from pgmvae_tpu_torch.models import vqvae
 from pgmvae_tpu_torch.ops import fused_adam
 from pgmvae_tpu_torch.ops import quantizer as q
 from pgmvae_tpu_torch.parallel.mesh import MeshContext, shard_leading_axis
+from pgmvae_tpu_torch.trace import span
 
 # Largest code space for which the per-step usage histogram is computed;
 # beyond it (naive quantizer, dim > 16) perplexity is reported as 0.
@@ -595,18 +596,22 @@ class Trainer:
         """One epoch over the device-resident data [N, n_var]; returns
         (state, sample-weighted epoch metrics [4] on the device). The state
         is updated in place: the returned one holds the same tensors. On
-        CUDA the step is a captured graph, replayed once a step."""
-        return self._run_epoch_core('epoch', state, data,
-                                    self._padded_perm(generator),
-                                    [generator], None)
+        CUDA the step is a captured graph, replayed once a step. Host
+        span: `train.epoch`, as for every epoch."""
+        with span('train.epoch'):
+            return self._run_epoch_core('epoch', state, data,
+                                        self._padded_perm(generator),
+                                        [generator], None)
 
     def run_epoch_packed(self, states: TrainState, data: torch.Tensor,
                          generators: Sequence[torch.Generator]):
         """One epoch of S packed seeds over the device-resident data, seed s
         drawing from generators[s]; returns (states, metrics [S, 4])."""
-        perms = torch.stack([self._padded_perm(g) for g in generators], 1)
-        return self._run_epoch_core('packed', states, data, perms,
-                                    generators, len(generators))
+        with span('train.epoch'):
+            perms = torch.stack([self._padded_perm(g) for g in generators],
+                                1)
+            return self._run_epoch_core('packed', states, data, perms,
+                                        generators, len(generators))
 
     def run_epochs(self, state: TrainState, data: torch.Tensor, seed: int,
                    start_epoch: int, num_epochs: int):
@@ -666,26 +671,30 @@ class Trainer:
         static device chunk buffer, and the body takes row j of it (a
         second counter, reset every chunk), so that one graph serves every
         chunk, the ragged last one included."""
-        perm = self._padded_perm(generator)
-        restart = [generator] if self.cfg.dead_code_threshold > 0 else []
-        shape = (self._chunk_steps(data), self.batch_size, data.shape[1])
-        key = ('chunk', _state_key(state), shape)
+        with span('train.epoch'):
+            perm = self._padded_perm(generator)
+            restart = ([generator] if self.cfg.dead_code_threshold > 0
+                       else [])
+            shape = (self._chunk_steps(data), self.batch_size,
+                     data.shape[1])
+            key = ('chunk', _state_key(state), shape)
 
-        def make(ep):
-            def body(gens):
-                idx = ep.perm.index_select(0, ep.i)[0]
-                w = (idx >= 0).to(ep.chunk.dtype)
-                yb = ep.chunk.index_select(0, ep.j)[0]
-                ep.j.add_(1)
-                self._advance(state, yb, w, gens, None, ep)
-            return body
-        g = self._epoch_graph('chunk', key, perm, make, len(restart), shape)
-        ep = g.buffers
-        for dev in self._host_chunks(data, perm.cpu().numpy()):
-            ep.chunk[:dev.shape[0]].copy_(dev)
-            ep.j.zero_()
-            g.run(dev.shape[0], restart)
-        return state, ep.total / ep.wtot
+            def make(ep):
+                def body(gens):
+                    idx = ep.perm.index_select(0, ep.i)[0]
+                    w = (idx >= 0).to(ep.chunk.dtype)
+                    yb = ep.chunk.index_select(0, ep.j)[0]
+                    ep.j.add_(1)
+                    self._advance(state, yb, w, gens, None, ep)
+                return body
+            g = self._epoch_graph('chunk', key, perm, make, len(restart),
+                                  shape)
+            ep = g.buffers
+            for dev in self._host_chunks(data, perm.cpu().numpy()):
+                ep.chunk[:dev.shape[0]].copy_(dev)
+                ep.j.zero_()
+                g.run(dev.shape[0], restart)
+            return state, ep.total / ep.wtot
 
     # -------------------------------------------------------------- fit --
     def _padded_data(self, data_host) -> np.ndarray:
