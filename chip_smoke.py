@@ -5,11 +5,12 @@ Run from the root of a checkout, with no arguments:
 
     python3 chip_smoke.py
 
-It builds the port's two CUDA kernels (the nearest-code search, with a
+It builds the port's three CUDA kernels (the nearest-code search, with a
 bfloat16 kernel of its own on the tensor cores whose SASS must hold HMMA,
-and the Adam update, one launch over a table of leaves, with its
-bfloat16-moment instance; one nvcc each, started together) from the
-sources in the checkout, holds each kernel against its
+the Adam update, one launch over a table of leaves, with its
+bfloat16-moment instance, and the EMA codebook step; one nvcc each,
+started together) from the sources in the checkout, holds each kernel
+against its
 plain PyTorch version at the shapes of the main paths (timed by CUDA
 events over back-to-back calls, `ms`, and by the profiler's device time of
 the kernels alone, `device_ms`, or where the profiler sees none by events
@@ -385,10 +386,10 @@ def _sass_hmma(lib_path) -> dict:
 
 
 def phase_build():
-    """Both kernels' builds, one nvcc each, started together. The bfloat16
+    """The kernels' builds, one nvcc each, started together. The bfloat16
     nearest-code kernel must run on the tensor cores: every instantiation's
     SASS holds HMMA."""
-    from pgmvae_tpu_torch.ops import cuda_vq, fused_adam
+    from pgmvae_tpu_torch.ops import cuda_ema, cuda_vq, fused_adam
 
     def timed(module):
         t0 = time.time()
@@ -396,9 +397,10 @@ def phase_build():
         return time.time() - t0
 
     t0 = time.time()
-    with ThreadPoolExecutor(max_workers=2) as pool:
+    with ThreadPoolExecutor(max_workers=3) as pool:
         futures = {name: pool.submit(timed, module) for name, module in
-                   (('vq_argmin', cuda_vq), ('adam', fused_adam))}
+                   (('vq_argmin', cuda_vq), ('adam', fused_adam),
+                    ('ema', cuda_ema))}
         seconds = {name: f.result() for name, f in futures.items()}
     vq = _ptxas(cuda_vq.library_path().with_suffix('.log'))
     # by template arguments: vq_argmin_kernel<float, DPAD, RB, SUB> ->
@@ -420,7 +422,9 @@ def phase_build():
                 fused_adam.library_path().with_suffix('.log')).items()}
     emit('build', seconds=seconds, wall_seconds=time.time() - t0,
          libraries=[cuda_vq.library_path().name,
-                    fused_adam.library_path().name],
+                    fused_adam.library_path().name,
+                    cuda_ema.library_path().name],
+         ptxas_ema=_ptxas(cuda_ema.library_path().with_suffix('.log')),
          ptxas_vq={key: dpad.get(key) for key in (
              '16_4_1', '16_4_4', '24_8_1', '24_8_4', '128_4_1')
              + BF16_INSTANCES},
@@ -716,6 +720,130 @@ def _adam_times(params, gen, moment_dtype, name):
     return row
 
 
+# the EMA kernel's shapes (n, B, D, K): every main path's (the packed kdd
+# sweep's train batch (S=4) and the kdd cell's alone, bbc's quality recipe
+# and its bs 250, ad's at bs 250, nltcs's headline, stream_big's (and
+# cli_big's and sweep_memory's)); one of odd D * K (one value at a time);
+# K past one chunk, a block an SM and two; and a batch whose tables do not
+# fit in shared memory. Its cases: a fresh state (step 1), a late step, the
+# ragged last batch (0/1 weights), every row on one code, and zero_debias
+# off at step 1 and late. The first two shapes (the training cells') are
+# timed.
+EMA_SHAPES = [(256, 32, 10, 4096), (1058, 25, 20, 50), (64, 32, 10, 4096),
+              (1058, 250, 20, 50), (1556, 250, 30, 20), (16, 128, 10, 50),
+              (64, 256, 10, 64), (40, 100, 7, 33), (16, 256, 20, 65536),
+              (160, 64, 10, 65536), (4, 8192, 20, 8192)]
+EMA_TIMED = 2
+EMA_CASES = ('step1', 'late', 'ragged', 'one_code', 'no_debias',
+             'no_debias_late')
+EMA_LATE_STEP = 5627
+EMA_KERNEL = 'ema_update_kernel'      # the kernel's name in a profile
+
+
+def _ema_case(case, n, b, d, k, gen):
+    """(state, z, codes, weights, zero_debias) of one EMA case on the
+    card."""
+    from pgmvae_tpu_torch.ops import quantizer as q
+    zero_debias = not case.startswith('no_debias')
+    cb = torch.randn((n, d, k), generator=gen, device='cuda')
+    state = q.ema_init(cb, zero_debias)
+    if case in ('late', 'ragged', 'one_code', 'no_debias_late'):
+        state = q.EmaState(
+            cb, 2 * torch.rand((n, k), generator=gen, device='cuda'),
+            torch.randn((n, d, k), generator=gen, device='cuda'),
+            torch.tensor(EMA_LATE_STEP, dtype=torch.int32, device='cuda'))
+    z = torch.randn((n, b, d), generator=gen, device='cuda')
+    idx = torch.randint(0, k, (n, b), generator=gen, device='cuda',
+                        dtype=torch.int32)
+    if case == 'one_code':
+        idx.fill_(k // 2)
+    w = torch.ones(b, device='cuda')
+    if case == 'ragged':
+        w[b - b // 3:] = 0.0
+    return state, z, idx, w, zero_debias
+
+
+def _net_rel(a: torch.Tensor, b: torch.Tensor) -> float:
+    """The worst network's max |a - b| over its max |b| (axis 0 is the
+    network)."""
+    a, b = a.flatten(1), b.flatten(1)
+    return float(((a - b).abs().amax(1)
+                  / b.abs().amax(1).clamp(min=1e-30)).max())
+
+
+def phase_kernel_ema():
+    """The EMA codebook step's kernel against `ema_update_plain` on the card
+    at EMA_SHAPES, each of EMA_CASES from the same state: the batch counts
+    and the new counts must be bit-equal, dw and the codebook within 1e-6
+    relative (the worst network's largest difference over its largest
+    value; the largest elementwise gap is reported beside it), the step one
+    more, and the state's own tensors written, one launch a call. Then
+    times at the first EMA_TIMED shapes: the kernel's device time apart
+    from the debias factor's scalar operations, the whole step's, CUDA
+    events, the plain version, and the bound."""
+    from pgmvae_tpu_torch.ops import cuda_ema
+    from pgmvae_tpu_torch.ops import quantizer as q
+    gen = torch.Generator(device='cuda').manual_seed(SEED)
+    rows = {}
+    launched = cuda_ema.LAUNCHES
+    for shape in EMA_SHAPES:
+        n, b, d, k = shape
+        worst = {}
+        for case in EMA_CASES:
+            state, z, idx, w, zd = _ema_case(case, *shape, gen)
+            mine = q.EmaState(*(t.clone() for t in state))
+            before = cuda_ema.LAUNCHES
+            got, counts = cuda_ema.ema_update_fused(mine, z, idx, w, 0.9,
+                                                    1e-5, zd)
+            want, want_counts = cuda_ema.ema_update_plain(state, z, idx, w,
+                                                          0.9, 1e-5, zd)
+            torch.cuda.synchronize()
+            assert cuda_ema.LAUNCHES == before + 1, case
+            assert all(a is b for a, b in zip(got[:3], mine[:3])), case
+            assert torch.equal(counts, want_counts), (shape, case)
+            assert torch.equal(got.counts, want.counts), (shape, case)
+            assert int(got.step) == int(want.step) == int(state.step) + 1
+            rel = {name: _net_rel(getattr(got, name), getattr(want, name))
+                   for name in ('dw', 'codebook')}
+            elem = {name: _max_rel(getattr(got, name), getattr(want, name))
+                    for name in ('dw', 'codebook')}
+            assert max(rel.values()) <= 1e-6, (shape, case, rel, elem)
+            worst[case] = {'rel': rel, 'elementwise_rel': elem,
+                           'dw_bit_equal': torch.equal(got.dw, want.dw),
+                           'codebook_bit_equal':
+                               torch.equal(got.codebook, want.codebook)}
+            del state, z, idx, w, mine, got, want, counts, want_counts
+        row = dict(shape=list(shape), cases=worst,
+                   plan=cuda_ema.plan(*shape)._asdict())
+        rows[shape] = row
+        if len(rows) > EMA_TIMED:
+            emit('kernel_ema', **row)
+            continue
+        state, z, idx, w, zd = _ema_case('late', *shape, gen)
+
+        def kernel():
+            cuda_ema.ema_update_fused(state, z, idx, w, 0.9, 1e-5, True)
+
+        def plain():
+            cuda_ema.ema_update_plain(state, z, idx, w, 0.9, 1e-5, True)
+        ms = cuda_ms(kernel)
+        kernel_dev, scalar_dev = split_device_ms(kernel, EMA_KERNEL)
+        step_dev = device_ms(kernel)
+        plain_ms, plain_dev = cuda_ms(plain), device_ms(plain)
+        nbytes = 4.0 * n * (3 * d * k + 2 * k)
+        bound_ms = nbytes / HBM_BYTES * 1e3
+        row.update(ms=ms, device_ms=kernel_dev, scalar_device_ms=scalar_dev,
+                   step_device_ms=step_dev, plain_ms=plain_ms,
+                   plain_device_ms=plain_dev, library_ms=None,
+                   library_device_ms=None, bound_ms=bound_ms,
+                   bound_by='bytes', bound_share=bound_ms / kernel_dev,
+                   achieved_tb_s=nbytes / (kernel_dev * 1e-3) / 1e12)
+        emit('kernel_ema', **row)
+        del state, z, idx, w
+    cuda_ema.LAUNCHES = launched       # comparison and timing only
+    return rows
+
+
 def _bbc_like_splits(n_var: int):
     """Synthetic binary data at bbc's split sizes: independent columns with
     sparse, word-frequency-like rates, made with numpy from SEED."""
@@ -954,7 +1082,7 @@ def _kernel_vs_plain_step(tr, state, yb, w):
     of the Adam-only comparison, max relative difference of the all-plain
     one, code flips, flip gap)."""
     from pgmvae_tpu_torch.models import vqvae
-    from pgmvae_tpu_torch.ops import cuda_vq, fused_adam
+    from pgmvae_tpu_torch.ops import cuda_ema, cuda_vq, fused_adam
     from pgmvae_tpu_torch.train import copy_state
 
     def leaves(st):
@@ -972,7 +1100,7 @@ def _kernel_vs_plain_step(tr, state, yb, w):
         cb = tr.codebook(state)
         flips, gap = near_ties(z, cb, cuda_vq.vq_codes_fused(z, cb),
                                cuda_vq.vq_codes_plain(z, cb))
-    launches = (cuda_vq.LAUNCHES, fused_adam.LAUNCHES)
+    launches = (cuda_vq.LAUNCHES, fused_adam.LAUNCHES, cuda_ema.LAUNCHES)
     ker, _ = tr.train_step(copy_state(state), yb, w)
     with mock.patch.object(fused_adam, 'adam_update',
                            fused_adam.adam_update_plain):
@@ -980,7 +1108,8 @@ def _kernel_vs_plain_step(tr, state, yb, w):
         with mock.patch.object(cuda_vq, 'vq_codes_fused',
                                cuda_vq.vq_codes_plain):
             all_plain, _ = tr.train_step(copy_state(state), yb, w)
-    cuda_vq.LAUNCHES, fused_adam.LAUNCHES = launches   # comparison only
+    # comparison only
+    cuda_vq.LAUNCHES, fused_adam.LAUNCHES, cuda_ema.LAUNCHES = launches
     torch.cuda.synchronize()
     adam_abs, adam_rel = compare(ker, adam_plain)
     assert adam_rel <= 1e-6, ('Adam kernel step vs plain', adam_rel)
@@ -1002,7 +1131,7 @@ def phase_train():
     plain step; stage-2 PLLs of the trained model; profiles of one warm
     eager step and of one replayed epoch."""
     from pgmvae_tpu_torch.models import vqvae
-    from pgmvae_tpu_torch.ops import cuda_vq, fused_adam
+    from pgmvae_tpu_torch.ops import cuda_ema, cuda_vq, fused_adam
     from pgmvae_tpu_torch.stage2 import Stage2
     from pgmvae_tpu_torch.train import Trainer
 
@@ -1019,20 +1148,21 @@ def phase_train():
         ends.append(time.time())
 
     # ---- the main path, counted: every kernel launch from here to the read
-    cuda_vq.LAUNCHES = fused_adam.LAUNCHES = 0
+    cuda_vq.LAUNCHES = fused_adam.LAUNCHES = cuda_ema.LAUNCHES = 0
     t0 = time.time()
     state, hist = tr.fit(state, y, 2, seed=SEED, log_fn=log_fn)
     torch.cuda.synchronize()
     fit_seconds = time.time() - t0
-    launches = {'vq_argmin': cuda_vq.LAUNCHES, 'adam': fused_adam.LAUNCHES}
+    launches = {'vq_argmin': cuda_vq.LAUNCHES, 'adam': fused_adam.LAUNCHES,
+                'ema': cuda_ema.LAUNCHES}
     # ---- end of the counted run
     memory = _memory_since(mark)
 
     steps = 2 * tr.steps_per_epoch
     assert tr.steps_per_epoch == 7 and steps == 14, tr.steps_per_epoch
     assert launches == {'vq_argmin': steps,
-                        'adam': steps * _adam_per_step(n_leaves)} \
-        and n_leaves == 20, launches
+                        'adam': steps * _adam_per_step(n_leaves),
+                        'ema': steps} and n_leaves == 20, launches
     assert all(np.isfinite(list(m)).all() for m in hist), hist
     assert hist[1].loss < hist[0].loss, hist
     graph = tr.graph_stats['epoch']
@@ -1203,7 +1333,7 @@ def phase_train_kdd():
     plain step, the test PLL against a run through the plain version, and
     profiles of one warm eager step and of one replayed epoch."""
     from pgmvae_tpu_torch.models import vqvae
-    from pgmvae_tpu_torch.ops import cuda_vq, fused_adam
+    from pgmvae_tpu_torch.ops import cuda_ema, cuda_vq, fused_adam
     from pgmvae_tpu_torch.stage2 import Stage2
     from pgmvae_tpu_torch.train import Trainer, copy_state
 
@@ -1222,12 +1352,13 @@ def phase_train_kdd():
     mark = _memory_mark()
 
     # ---- the training path, counted
-    cuda_vq.LAUNCHES = fused_adam.LAUNCHES = 0
+    cuda_vq.LAUNCHES = fused_adam.LAUNCHES = cuda_ema.LAUNCHES = 0
     t0 = time.time()
     state, hist = tr.fit(state, y, 1, seed=KDD_SEED)
     torch.cuda.synchronize()
     fit_seconds = time.time() - t0
-    launches = {'vq_argmin': cuda_vq.LAUNCHES, 'adam': fused_adam.LAUNCHES}
+    launches = {'vq_argmin': cuda_vq.LAUNCHES, 'adam': fused_adam.LAUNCHES,
+                'ema': cuda_ema.LAUNCHES}
     # ---- the stage-2 path, counted
     cb = tr.codebook(state)
     cuda_vq.LAUNCHES = 0
@@ -1244,7 +1375,8 @@ def phase_train_kdd():
     assert steps == 200 and s2.chunk == 118 and chunks == 55 + 297, (
         steps, s2.chunk, chunks)
     assert launches == {'vq_argmin': steps,
-                        'adam': steps * _adam_per_step(n_leaves)}, launches
+                        'adam': steps * _adam_per_step(n_leaves),
+                        'ema': steps}, launches
     assert s2_launches == chunks, (s2_launches, chunks)
     assert all(np.isfinite(list(m)).all() for m in hist), hist
     assert np.isfinite(pll_test) and pll_test < 0, pll_test
@@ -1297,7 +1429,8 @@ def phase_train_kdd():
                 lambda: tr.train_step(state, yb, w), top=10, watch=VQ_NAMES)
     _profile_epoch_graph('profile_train_kdd_epoch_graph', tr, state, y)
     return ({'train': launches['vq_argmin'], 'stage2': s2_launches,
-             'adam': launches['adam']}, max(gap, s2_gap), adam_abs, trained)
+             'adam': launches['adam'], 'ema': launches['ema']},
+            max(gap, s2_gap), adam_abs, trained)
 
 
 def phase_train_bf16(f32: dict):
@@ -1310,7 +1443,7 @@ def phase_train_bf16(f32: dict):
     tests/test_compute_dtype.py). Then profiles of one warm eager step and
     of one replayed epoch."""
     from pgmvae_tpu_torch.models import vqvae
-    from pgmvae_tpu_torch.ops import cuda_vq, fused_adam
+    from pgmvae_tpu_torch.ops import cuda_ema, cuda_vq, fused_adam
     from pgmvae_tpu_torch.train import Trainer
 
     cfg = _bbc_train_config()._replace(compute_dtype='bf16')
@@ -1325,18 +1458,19 @@ def phase_train_bf16(f32: dict):
 
     # ---- the main path, counted
     cuda_vq.LAUNCHES = cuda_vq.LAUNCHES_BF16 = fused_adam.LAUNCHES = 0
+    cuda_ema.LAUNCHES = 0
     t0 = time.time()
     state, hist = tr.fit(state, y, 2, seed=SEED, log_fn=log_fn)
     torch.cuda.synchronize()
     fit_seconds = time.time() - t0
     launches = {'vq_argmin': cuda_vq.LAUNCHES,
                 'vq_argmin_bf16': cuda_vq.LAUNCHES_BF16,
-                'adam': fused_adam.LAUNCHES}
+                'adam': fused_adam.LAUNCHES, 'ema': cuda_ema.LAUNCHES}
     # ---- end of the counted run
     memory = _memory_since(mark)
 
     assert launches == {'vq_argmin': 0, 'vq_argmin_bf16': 14,
-                        'adam': 14 * _adam_per_step(20)}, launches
+                        'adam': 14 * _adam_per_step(20), 'ema': 14}, launches
     masters = (vqvae.param_leaves(state.params)
                + vqvae.param_leaves(state.opt_state.mu)
                + vqvae.param_leaves(state.opt_state.nu) + list(state.ema[:3]))
@@ -1377,7 +1511,7 @@ def phase_stream_kdd(kdd: dict):
     counted: params, EMA state and moments must be bit-equal to the in-core
     `train_kdd` result. Then in-core, streamed and eager fits in turns for
     steps/s."""
-    from pgmvae_tpu_torch.ops import cuda_vq, fused_adam
+    from pgmvae_tpu_torch.ops import cuda_ema, cuda_vq, fused_adam
     from pgmvae_tpu_torch.train import Trainer
 
     core, ref, y = kdd['tr'], kdd['state'], kdd['y']
@@ -1388,16 +1522,18 @@ def phase_stream_kdd(kdd: dict):
     state = _kdd_init(tr)
     torch.cuda.synchronize()
     # ---- the main path, counted
-    cuda_vq.LAUNCHES = fused_adam.LAUNCHES = 0
+    cuda_vq.LAUNCHES = fused_adam.LAUNCHES = cuda_ema.LAUNCHES = 0
     t0 = time.time()
     state, _ = tr.fit(state, y, 1, seed=KDD_SEED)
     torch.cuda.synchronize()
     seconds = time.time() - t0
-    launches = {'vq_argmin': cuda_vq.LAUNCHES, 'adam': fused_adam.LAUNCHES}
+    launches = {'vq_argmin': cuda_vq.LAUNCHES, 'adam': fused_adam.LAUNCHES,
+                'ema': cuda_ema.LAUNCHES}
     # ---- end of the counted run
     n_leaves = 4 * (len(core.cfg.units) + 1)
     assert launches == {'vq_argmin': 200,
-                        'adam': 200 * _adam_per_step(n_leaves)}, launches
+                        'adam': 200 * _adam_per_step(n_leaves),
+                        'ema': 200}, launches
     leaves = _assert_bit_equal(state, ref, 'streamed vs in-core')
     graph = tr.graph_stats['chunk']
     turns = {'in_core': [], 'streamed': [], 'eager': []}
@@ -1433,7 +1569,7 @@ def phase_packed_kdd(kdd: dict, turns: dict):
     of `train_kdd`'s. Then profiles of one warm eager packed step and of
     one replayed packed epoch."""
     from pgmvae_tpu_torch.models import vqvae
-    from pgmvae_tpu_torch.ops import cuda_vq, fused_adam
+    from pgmvae_tpu_torch.ops import cuda_ema, cuda_vq, fused_adam
     from pgmvae_tpu_torch.stage2 import Stage2
     from pgmvae_tpu_torch.train import copy_state
 
@@ -1447,7 +1583,7 @@ def phase_packed_kdd(kdd: dict, turns: dict):
     yb = torch.from_numpy(y[:n_seeds * KDD_BATCH]).cuda().view(
         n_seeds, KDD_BATCH, -1)
     w = torch.ones(KDD_BATCH, device='cuda')
-    counts = (cuda_vq.LAUNCHES, fused_adam.LAUNCHES)
+    counts = (cuda_vq.LAUNCHES, fused_adam.LAUNCHES, cuda_ema.LAUNCHES)
     with torch.no_grad():              # the first step's codes, packed
         z_packed = vqvae.encode(tr._step_layout(states, n_seeds).params, yb,
                                 seeds=n_seeds)
@@ -1473,22 +1609,25 @@ def phase_packed_kdd(kdd: dict, turns: dict):
         flip_gap = max(flip_gap, g)
         step_gaps.append(gap)
         del unpacked1
-    cuda_vq.LAUNCHES, fused_adam.LAUNCHES = counts     # comparison only
+    cuda_vq.LAUNCHES, fused_adam.LAUNCHES, cuda_ema.LAUNCHES = counts
     del packed1, z_packed
 
     states = init()
     mark = _memory_mark()
     # ---- the main path, counted
     cuda_vq.LAUNCHES = cuda_vq.LAUNCHES_BF16 = fused_adam.LAUNCHES = 0
+    cuda_ema.LAUNCHES = 0
     t0 = time.time()
     states, ms = tr.fit_packed(states, y, 1, seeds)     # reads the metrics
     seconds = time.time() - t0
-    launches = {'vq_argmin': cuda_vq.LAUNCHES, 'adam': fused_adam.LAUNCHES}
+    launches = {'vq_argmin': cuda_vq.LAUNCHES, 'adam': fused_adam.LAUNCHES,
+                'ema': cuda_ema.LAUNCHES}
     # ---- end of the counted run
     memory = _memory_since(mark)
     n_leaves = 4 * (len(tr.cfg.units) + 1)
     assert launches == {'vq_argmin': 200,
-                        'adam': 200 * _adam_per_step(n_leaves)}, launches
+                        'adam': 200 * _adam_per_step(n_leaves),
+                        'ema': 200}, launches
     assert np.isfinite(ms.loss).all(), ms
     graph = tr.graph_stats['packed']
     hold = _hold_eager(
@@ -1679,7 +1818,7 @@ def phase_checkpoint(kdd: dict):
     copy must give the same state bit for bit."""
     from pgmvae_tpu_torch import checkpoint as ckpt
     from pgmvae_tpu_torch.models import vqvae
-    from pgmvae_tpu_torch.ops import cuda_vq, fused_adam
+    from pgmvae_tpu_torch.ops import cuda_ema, cuda_vq, fused_adam
     from pgmvae_tpu_torch.serving import PgmModel
     from pgmvae_tpu_torch.train import copy_state
 
@@ -1725,16 +1864,17 @@ def phase_checkpoint(kdd: dict):
     mem = copy_state(state)
     torch.cuda.synchronize()
     # ---- resumed training from the file, counted
-    cuda_vq.LAUNCHES = fused_adam.LAUNCHES = 0
+    cuda_vq.LAUNCHES = fused_adam.LAUNCHES = cuda_ema.LAUNCHES = 0
     for yb in batches:
         loaded, _ = tr.train_step(loaded, yb, w)
     torch.cuda.synchronize()
-    resume = {'vq_argmin': cuda_vq.LAUNCHES, 'adam': fused_adam.LAUNCHES}
+    resume = {'vq_argmin': cuda_vq.LAUNCHES, 'adam': fused_adam.LAUNCHES,
+              'ema': cuda_ema.LAUNCHES}
     # ---- end of the counted run; the in-memory twin is the comparison
     for yb in batches:
         mem, _ = tr.train_step(mem, yb, w)
-    cuda_vq.LAUNCHES, fused_adam.LAUNCHES = resume['vq_argmin'], \
-        resume['adam']
+    cuda_vq.LAUNCHES, fused_adam.LAUNCHES, cuda_ema.LAUNCHES = (
+        resume['vq_argmin'], resume['adam'], resume['ema'])
     torch.cuda.synchronize()
     pairs = list(zip(_state_leaves(loaded), _state_leaves(mem)))
     bit_equal = all(torch.equal(a, b) for a, b in pairs)
@@ -1743,8 +1883,8 @@ def phase_checkpoint(kdd: dict):
     assert gap < 1e-6, ('resumed vs in-memory', gap)
     n_leaves = len(vqvae.param_leaves(state.params))
     assert resume == {'vq_argmin': RESUME_STEPS,
-                      'adam': RESUME_STEPS * _adam_per_step(n_leaves)}, \
-        resume
+                      'adam': RESUME_STEPS * _adam_per_step(n_leaves),
+                      'ema': RESUME_STEPS}, resume
     emit('checkpoint', model='kdd sweep cell (phase train_kdd)',
          file_bytes=nbytes, save_seconds=save_s, load_seconds=load_s,
          leaves=len(pairs), load_bit_equal=True,
@@ -1754,7 +1894,7 @@ def phase_checkpoint(kdd: dict):
          resume_launches=resume, resume_bit_equal=bit_equal,
          resume_max_rel_gap=gap)
     return ({'vq_argmin': serve_launches + resume['vq_argmin'],
-             'adam': resume['adam']})
+             'adam': resume['adam'], 'ema': resume['ema']})
 
 
 def phase_cmll_kdd(kdd: dict):
@@ -1832,7 +1972,7 @@ def phase_run_epochs(kdd: dict) -> dict:
     data, each counted, with its metrics read once ([E, 4] and [S, E, 4]);
     held bit-equal (state and metrics) to `fit` and `fit_packed` from the
     same init, which are not counted."""
-    from pgmvae_tpu_torch.ops import cuda_vq, fused_adam
+    from pgmvae_tpu_torch.ops import cuda_ema, cuda_vq, fused_adam
     tr, y = kdd['tr'], kdd['y']
     seeds = list(PACKED_SEEDS)
     data = torch.as_tensor(y, device='cuda')
@@ -1844,7 +1984,7 @@ def phase_run_epochs(kdd: dict) -> dict:
         state = tr.init_states_packed(seeds) if packed else _kdd_init(tr)
         torch.cuda.synchronize()
         # ---- the main path, counted
-        cuda_vq.LAUNCHES = fused_adam.LAUNCHES = 0
+        cuda_vq.LAUNCHES = fused_adam.LAUNCHES = cuda_ema.LAUNCHES = 0
         t0 = time.time()
         if packed:
             state, ms = tr.run_epochs_packed(state, data, seeds, 0,
@@ -1854,12 +1994,13 @@ def phase_run_epochs(kdd: dict) -> dict:
         ms = ms.cpu().numpy()
         seconds = time.time() - t0
         launches[name] = {'vq_argmin': cuda_vq.LAUNCHES,
-                          'adam': fused_adam.LAUNCHES}
+                          'adam': fused_adam.LAUNCHES,
+                          'ema': cuda_ema.LAUNCHES}
         # ---- end of the counted run
         tr.release_graphs()
         assert launches[name] == {
             'vq_argmin': steps,
-            'adam': steps * _adam_per_step(n_leaves)}, launches
+            'adam': steps * _adam_per_step(n_leaves), 'ema': steps}, launches
         assert ms.shape == ((len(seeds),) if packed else ()) + (
             RUN_EPOCHS, 4), ms.shape
         with _uncounted():
@@ -1891,7 +2032,7 @@ def phase_train_kdd_full(splits: dict) -> dict:
     graph path, counted, on the shared-factor splits; its wall time and
     steps/s, and the test PLL's move from the initial model's (stage 2 on
     the whole train split, uncounted)."""
-    from pgmvae_tpu_torch.ops import cuda_vq, fused_adam
+    from pgmvae_tpu_torch.ops import cuda_ema, cuda_vq, fused_adam
     from pgmvae_tpu_torch.stage2 import Stage2
     from pgmvae_tpu_torch.train import Trainer
     cfg = _kdd_config()
@@ -1908,19 +2049,20 @@ def phase_train_kdd_full(splits: dict) -> dict:
         pll_init = pll()
     mark = _memory_mark()
     # ---- the main path, counted
-    cuda_vq.LAUNCHES = fused_adam.LAUNCHES = 0
+    cuda_vq.LAUNCHES = fused_adam.LAUNCHES = cuda_ema.LAUNCHES = 0
     t0 = time.time()
     state, hist = tr.fit(state, y, 1, seed=KDD_SEED)
     torch.cuda.synchronize()
     seconds = time.time() - t0
-    launches = {'vq_argmin': cuda_vq.LAUNCHES, 'adam': fused_adam.LAUNCHES}
+    launches = {'vq_argmin': cuda_vq.LAUNCHES, 'adam': fused_adam.LAUNCHES,
+                'ema': cuda_ema.LAUNCHES}
     # ---- end of the counted run
     memory = _memory_since(mark)
     steps = tr.steps_per_epoch
     n_leaves = 4 * (len(cfg.units) + 1)
     assert steps == 5628 and launches == {
-        'vq_argmin': steps, 'adam': steps * _adam_per_step(n_leaves)}, (
-        steps, launches)
+        'vq_argmin': steps, 'adam': steps * _adam_per_step(n_leaves),
+        'ema': steps}, (steps, launches)
     assert np.isfinite(list(hist[0])).all(), hist
     with _uncounted():
         t1 = time.time()
@@ -1978,8 +2120,7 @@ def _cli(tmp: str, flags: list, module=None, base=CLI_FLAGS):
     """One run of a command line (`run`, or `module`'s main) in `tmp` (its
     logs, joblog and result.txt land there), counted: (exit code, its
     result lines, launches, seconds)."""
-    from pgmvae_tpu_torch import run
-    from pgmvae_tpu_torch.ops import cuda_vq, fused_adam
+    from pgmvae_tpu_torch import graphs, run
     module = module or run
     result = os.path.join(tmp, 'result.txt')
     seen = 0
@@ -1989,18 +2130,14 @@ def _cli(tmp: str, flags: list, module=None, base=CLI_FLAGS):
     cwd = os.getcwd()
     os.chdir(tmp)
     # ---- the main path, counted
-    cuda_vq.LAUNCHES = cuda_vq.LAUNCHES_BF16 = 0
-    fused_adam.LAUNCHES = fused_adam.LAUNCHES_BF16 = 0
+    graphs._set_launch_counts((0,) * len(graphs.COUNTERS))
     try:
         t0 = time.time()
         rc = module.main(base + flags + ['--data-dir', tmp])
         seconds = time.time() - t0
     finally:
         os.chdir(cwd)
-    launches = {'vq_argmin': cuda_vq.LAUNCHES,
-                'vq_argmin_bf16': cuda_vq.LAUNCHES_BF16,
-                'adam': fused_adam.LAUNCHES,
-                'adam_bf16': fused_adam.LAUNCHES_BF16}
+    launches = graphs.named_launch_counts()
     # ---- end of the counted run
     lines = []
     if os.path.exists(result):
@@ -2019,6 +2156,7 @@ def phase_cli():
     PgmModel.from_checkpoint serves the file, and the sweep runner
     runs a packed 2x2 grid (pk-2 lines), the same command again (no cell
     runs) and one --isolate cell (in its own process on the card)."""
+    from pgmvae_tpu_torch import graphs
     from pgmvae_tpu_torch.data.loader import load_split
     from pgmvae_tpu_torch.ops import cuda_vq
     from pgmvae_tpu_torch.registry import REGISTRY
@@ -2107,23 +2245,25 @@ def phase_cli():
     stage2 = vq['pallas'] - 3 * steps
     assert sweep['grid']['launches'] == {
         'vq_argmin': 2 * 3 * steps + 4 * stage2, 'vq_argmin_bf16': 0,
-        'adam': 2 * 3 * steps * adam, 'adam_bf16': 0}, sweep
-    # the isolated cell ran on the card in its own process, through both
-    # kernels: one launch a step of each, and its stage 2
+        'adam': 2 * 3 * steps * adam, 'adam_bf16': 0,
+        'ema': 2 * 3 * steps}, sweep
+    # the isolated cell ran on the card in its own process, through the
+    # three kernels: one launch a step of each, and its stage 2
     iso = sweep['isolate']['cell_process']
     assert iso == {'device': 'cuda:0', 'launches': {
         'vq_argmin': 3 * steps + stage2, 'vq_argmin_bf16': 0,
-        'adam': 3 * steps * adam, 'adam_bf16': 0}}, iso
+        'adam': 3 * steps * adam, 'adam_bf16': 0, 'ema': 3 * steps}}, iso
     for name, r in runs.items():
-        n = (1 if name == 'resume' else 3) * steps * adam
-        want = ({'adam': 0, 'adam_bf16': n} if name == 'fused_bf16'
-                else {'adam': n, 'adam_bf16': 0})
+        n = (1 if name == 'resume' else 3) * steps
+        want = ({'adam': 0, 'adam_bf16': n * adam} if name == 'fused_bf16'
+                else {'adam': n * adam, 'adam_bf16': 0})
+        want['ema'] = n
         got = {k: r['launches'][k] for k in want}
         assert got == want, (name, got, want)
     assert serve_launches == 1, serve_launches
     assert prof_launches == {'vq_argmin': vq['resume'], 'vq_argmin_bf16': 0,
-                             'adam': steps * adam,
-                             'adam_bf16': 0}, prof_launches
+                             'adam': steps * adam, 'adam_bf16': 0,
+                             'ema': steps}, prof_launches
     np.testing.assert_allclose(scores.mean(),
                                runs['checkpoint_cmll']['result']['pll-test'],
                                rtol=1e-5)
@@ -2133,7 +2273,7 @@ def phase_cli():
     total = {k: sum(r['launches'][k] for r in runs.values())
              + sweep['grid']['launches'][k] + iso['launches'][k]
              + prof_launches[k]
-             for k in ('vq_argmin', 'vq_argmin_bf16', 'adam', 'adam_bf16')}
+             for k in graphs.LAUNCH_NAMES}
     total['vq_argmin'] += serve_launches
     return total
 
@@ -2220,7 +2360,7 @@ def phase_sweep_kdd(kdd: dict, packed_pll: float):
     n_leaves = 4 * (len(tr.cfg.units) + 1)
     assert launches == {'vq_argmin': 200 + 4 * stage2, 'vq_argmin_bf16': 0,
                         'adam': 200 * _adam_per_step(n_leaves),
-                        'adam_bf16': 0}, launches
+                        'adam_bf16': 0, 'ema': 200}, launches
     plls = [r['pll_test'] for r in records]
     assert all(np.isfinite(v) and v < 0 for v in plls), plls
     assert abs(plls[0] - packed_pll) <= 1e-5 * abs(packed_pll), (
@@ -2258,7 +2398,7 @@ def phase_packed_kdd_bf16(kdd: dict, f32_losses: list):
     bf16 epoch and the kernel's share of its device time."""
     from pgmvae_tpu_torch import run_pipeline
     from pgmvae_tpu_torch.models import vqvae
-    from pgmvae_tpu_torch.ops import cuda_vq, fused_adam
+    from pgmvae_tpu_torch.ops import cuda_ema, cuda_vq, fused_adam
     from pgmvae_tpu_torch.stage2 import Stage2
     from pgmvae_tpu_torch.train import Trainer
     from pgmvae_tpu_torch.utils.logging import run_identifier
@@ -2283,8 +2423,8 @@ def phase_packed_kdd_bf16(kdd: dict, f32_losses: list):
     n_leaves = 4 * (len(cfg.units) + 1)
     per_step = _adam_per_step(n_leaves)
     assert cli_launches == {'vq_argmin': 4 * stage2, 'vq_argmin_bf16': 200,
-                            'adam': 200 * per_step, 'adam_bf16': 0}, (
-        cli_launches)
+                            'adam': 200 * per_step, 'adam_bf16': 0,
+                            'ema': 200}, cli_launches
     plls = {k: [r[k] for r in records]
             for k in ('pll_train', 'pll_valid', 'pll_test')}
     assert all(np.isfinite(v) and v < 0 for vs in plls.values()
@@ -2295,17 +2435,18 @@ def phase_packed_kdd_bf16(kdd: dict, f32_losses: list):
     mark = _memory_mark()
     # ---- the main path, counted
     cuda_vq.LAUNCHES = cuda_vq.LAUNCHES_BF16 = fused_adam.LAUNCHES = 0
+    cuda_ema.LAUNCHES = 0
     t0 = time.time()
     states, ms = tr.fit_packed(states, y, 1, seeds)
     torch.cuda.synchronize()
     seconds = time.time() - t0
     launches = {'vq_argmin': cuda_vq.LAUNCHES,
                 'vq_argmin_bf16': cuda_vq.LAUNCHES_BF16,
-                'adam': fused_adam.LAUNCHES}
+                'adam': fused_adam.LAUNCHES, 'ema': cuda_ema.LAUNCHES}
     # ---- end of the counted run
     memory = _memory_since(mark)
     assert launches == {'vq_argmin': 0, 'vq_argmin_bf16': 200,
-                        'adam': 200 * per_step}, launches
+                        'adam': 200 * per_step, 'ema': 200}, launches
     masters = (vqvae.param_leaves(states.params)
                + vqvae.param_leaves(states.opt_state.mu)
                + vqvae.param_leaves(states.opt_state.nu)
@@ -2559,6 +2700,8 @@ def phase_mesh_bbc():
     expect_adam = n_ranks * (1 + steps) * _adam_per_step(20)
     assert launches['vq_argmin'] == expect_vq, (launches, expect_vq)
     assert launches['adam'] == expect_adam, (launches, expect_adam)
+    # two 'data' ranks: the EMA step is the dense one, all-reduced
+    assert launches['ema'] == 0, launches
     emit('mesh_bbc', mesh=list(MESH_BBC), backend=res[0]['backend'],
          timed_as=SHARED, n_var=cfg.n_var, n_active=cfg.n_active,
          units=list(cfg.units), launches=launches,
@@ -2572,7 +2715,7 @@ def phase_mesh_bbc():
          mesh_step_ms=1e3 * max(r['fit_s'] for r in res) / steps,
          one_device_step_ms=1e3 * one_fit_s / steps, world_s=world_s,
          rank_peak_gb=[r['peak_gb'] for r in res])
-    return {k: launches[k] for k in ('vq_argmin', 'adam')}
+    return {k: launches[k] for k in ('vq_argmin', 'adam', 'ema')}
 
 
 def phase_mesh_dryrun():
@@ -2638,9 +2781,10 @@ def phase_mesh_nccl(kdd: dict):
            if not torch.equal(a.to('cuda'), b)]
     assert not bad, ('NCCL mesh epoch vs unmeshed graph epoch', bad[:8])
     steps = tr.steps_per_epoch
-    assert {k: ranks[0].launches[k] for k in ('vq_argmin', 'adam')} == {
-        'vq_argmin': steps, 'adam': steps * _adam_per_step(20)}, \
-        ranks[0].launches
+    assert {k: ranks[0].launches[k] for k in ('vq_argmin', 'adam',
+                                              'ema')} == {
+        'vq_argmin': steps, 'adam': steps * _adam_per_step(20),
+        'ema': steps}, ranks[0].launches
     emit('mesh_nccl', backend='nccl', world=1, captured=captured,
          capture_error=error, graph=got['graph'], steps=tr.steps_per_epoch,
          loss=got['loss'], loss_unmeshed=hist[0].loss,
@@ -2696,6 +2840,8 @@ def phase_cli_mesh():
                             seconds=pipe_s)
     launches = {k: mesh['launches'][k] + rec['mesh']['launches'][k]
                 for k in mesh['launches']}
+    # two 'data' ranks: the EMA step is the dense one, all-reduced
+    assert launches['ema'] == 0, launches
     emit('cli_mesh', launches=launches, **out)
     return launches
 
@@ -2866,6 +3012,8 @@ def phase_sweep_memory() -> dict:
                  steps + stage2 + 3000 * 6, 2 * (steps + stage2)], v
     assert [r['launches']['adam'] for r in runs] == [3 * adam, adam, adam,
                                                      2 * adam], runs
+    assert [r['launches']['ema'] for r in runs] == [3 * steps, steps, steps,
+                                                    2 * steps], runs
     return _sum_launches(*(r['launches'] for r in runs))
 
 
@@ -2873,24 +3021,20 @@ def phase_sweep_memory() -> dict:
 # epoch; bench and bench_cmll at their defaults
 BENCH_PACKED_FLAGS = ['-n', 'kdd', '-k', '4096', '-d', '10', '-b', '32',
                       '-e', '1', '-s', '4']
-LAUNCH_NAMES = ('vq_argmin', 'vq_argmin_bf16', 'adam', 'adam_bf16')
 
 
 def _twin(module, argv: list):
     """One run of a measurement twin's `main(argv)` in-process, counted:
     (exit code, the JSON lines it printed, launches, seconds)."""
-    from pgmvae_tpu_torch.ops import cuda_vq, fused_adam
+    from pgmvae_tpu_torch import graphs
     out = io.StringIO()
     # ---- the main path, counted
-    cuda_vq.LAUNCHES = cuda_vq.LAUNCHES_BF16 = 0
-    fused_adam.LAUNCHES = fused_adam.LAUNCHES_BF16 = 0
+    graphs._set_launch_counts((0,) * len(graphs.COUNTERS))
     t0 = time.time()
     with contextlib.redirect_stdout(out):
         rc = module.main(argv)
     seconds = time.time() - t0
-    launches = dict(zip(LAUNCH_NAMES, (
-        cuda_vq.LAUNCHES, cuda_vq.LAUNCHES_BF16, fused_adam.LAUNCHES,
-        fused_adam.LAUNCHES_BF16)))
+    launches = graphs.named_launch_counts()
     # ---- end of the counted run
     lines = [json.loads(line) for line in out.getvalue().splitlines()
              if line.startswith('{')]
@@ -2899,9 +3043,13 @@ def _twin(module, argv: list):
 
 def _train_launches(cfg, steps: int, adam_impl: str) -> dict:
     """The launches of `steps` train steps of `cfg`: one nearest-code call
-    a step (the bf16 instance under bf16 compute) and one Adam launch a
-    table of leaves a step (the bf16-moment variant for fused_bf16)."""
-    want = dict.fromkeys(LAUNCH_NAMES, 0)
+    a step (the bf16 instance under bf16 compute), one Adam launch a
+    table of leaves a step (the bf16-moment variant for fused_bf16) and
+    one EMA step a step (EMA quantizer)."""
+    from pgmvae_tpu_torch import graphs
+    want = dict.fromkeys(graphs.LAUNCH_NAMES, 0)
+    if cfg.quantizer == 'ema':
+        want['ema'] = steps
     want['vq_argmin_bf16' if cfg.compute_dtype == 'bf16'
          else 'vq_argmin'] = steps
     want['adam_bf16' if adam_impl == 'fused_bf16' else 'adam'] = (
@@ -2910,7 +3058,9 @@ def _train_launches(cfg, steps: int, adam_impl: str) -> dict:
 
 
 def _sum_launches(*counts) -> dict:
-    return {k: sum(c[k] for c in counts) for k in LAUNCH_NAMES}
+    """Sums by kernel."""
+    from pgmvae_tpu_torch import graphs
+    return {k: sum(c[k] for c in counts) for k in graphs.LAUNCH_NAMES}
 
 
 def phase_bench() -> dict:
@@ -2921,7 +3071,7 @@ def phase_bench() -> dict:
     card, every cell measured (no `_error`), MFU at most 100% of the
     card's peak for its arithmetic, one graph capture per kind and run,
     and the launches its epochs, batches and Gibbs steps imply."""
-    from pgmvae_tpu_torch import bench, bench_cmll, bench_packed
+    from pgmvae_tpu_torch import bench, bench_cmll, bench_packed, graphs
     from pgmvae_tpu_torch.models import vqvae
     from pgmvae_tpu_torch.registry import REGISTRY
     from pgmvae_tpu_torch.stage2 import Stage2
@@ -2940,7 +3090,8 @@ def phase_bench() -> dict:
     assert head['replays'] == steps - 1, head
     chunk = Stage2(bench.NLTCS_CFG, device='cuda').chunk
     chunks = -(-nltcs.n_train // chunk) + -(-nltcs.n_test // chunk)
-    assert head['stage2_launches'] == {**dict.fromkeys(LAUNCH_NAMES, 0),
+    assert head['stage2_launches'] == {**dict.fromkeys(graphs.LAUNCH_NAMES,
+                                                       0),
                                        'vq_argmin': chunks}, head
     recorded = [head['launches'], head['stage2_launches']]
     for cell in bench.CELLS:
@@ -3050,8 +3201,8 @@ def phase_stream_big() -> dict:
     once for every variable, counts equal to those of the split's two
     halves cut off a chunk boundary, a finite PLL, and the largest count
     cell against 2^24 (f32 counts are exact below it)."""
-    from pgmvae_tpu_torch import bench_streaming
-    from pgmvae_tpu_torch.ops import cuda_vq, fused_adam
+    from pgmvae_tpu_torch import bench_streaming, graphs
+    from pgmvae_tpu_torch.ops import cuda_vq
     from pgmvae_tpu_torch.stage2 import Stage2
     from pgmvae_tpu_torch.train import Trainer
 
@@ -3113,21 +3264,18 @@ def phase_stream_big() -> dict:
     codebook = core.codebook(state)
     mark = _memory_mark()
     # ---- the main path, counted
-    cuda_vq.LAUNCHES = cuda_vq.LAUNCHES_BF16 = 0
-    fused_adam.LAUNCHES = fused_adam.LAUNCHES_BF16 = 0
+    graphs._set_launch_counts((0,) * len(graphs.COUNTERS))
     t0 = time.time()
     dist = s2.cpt(state.params, codebook, data)
     cpt_seconds = time.time() - t0
     pll = s2.pseudo_log_likelihood(state.params, codebook, data, dist)
     stage2_seconds = time.time() - t0
-    s2_launches = dict(zip(LAUNCH_NAMES, (
-        cuda_vq.LAUNCHES, cuda_vq.LAUNCHES_BF16, fused_adam.LAUNCHES,
-        fused_adam.LAUNCHES_BF16)))
+    s2_launches = graphs.named_launch_counts()
     # ---- end of the counted run
     s2_memory = _memory_since(mark)
     chunks = -(-rows // s2.chunk)
     assert (s2.chunk, chunks) == (1365, 13_828), (s2.chunk, chunks)
-    assert s2_launches == {**dict.fromkeys(LAUNCH_NAMES, 0),
+    assert s2_launches == {**dict.fromkeys(graphs.LAUNCH_NAMES, 0),
                            'vq_argmin': 2 * chunks}, s2_launches
     assert s2_memory['allocated_growth_gb'] < half_gb, s2_memory
     (n1, n0), again = counted
@@ -3277,7 +3425,8 @@ def phase_cli_big() -> dict:
     chunks = sum(-(-n // chunk) for n, chunk, _ in counted)
     adam = _adam_per_step(4 * (len(REGISTRY['kdd'].encoder_units(10)) + 1))
     assert launches == {'vq_argmin': steps + chunks, 'vq_argmin_bf16': 0,
-                        'adam': steps * adam, 'adam_bf16': 0}, launches
+                        'adam': steps * adam, 'adam_bf16': 0,
+                        'ema': steps}, launches
     return launches
 
 
@@ -3294,6 +3443,7 @@ def main() -> int:
     rows_bf16, kernel_bf16_err = phase_kernel(torch.bfloat16)
     adam_row = phase_kernel_adam()
     adam_bf16_row = phase_kernel_adam(torch.bfloat16)
+    ema_rows = phase_kernel_ema()
     launches, slice_err = phase_slice()
     small_err = phase_small_reference()
     train_launches, train_err, train_gap, trained = phase_train()
@@ -3377,6 +3527,31 @@ def main() -> int:
                   'cli_big': cli_big_launches['adam']}
     adam_bf16_paths = {'cli': cli_launches['adam_bf16'],
                        'bench': bench_launches['adam_bf16']}
+    # one launch a training step wherever the 'data' axis has one rank;
+    # the dense step (no launch) under two (mesh_bbc, cli_mesh, dryrun)
+    ema_paths = {'train': train_launches['ema'],
+                 'train_bf16': bf16_launches['ema'],
+                 'train_kdd': kdd_launches['ema'],
+                 'checkpoint': ckpt_launches['ema'],
+                 'stream_kdd': stream_launches['ema'],
+                 'packed_kdd': packed_launches['ema'],
+                 'sweep_kdd': sweep_kdd_launches['ema'],
+                 'packed_kdd_bf16': packed_bf16['cli']['ema'],
+                 'packed_kdd_bf16_fit': packed_bf16['fit']['ema'],
+                 'run_epochs': epochs_launches['run_epochs']['ema'],
+                 'run_epochs_packed':
+                     epochs_launches['run_epochs_packed']['ema'],
+                 'train_kdd_full': full_launches['ema'],
+                 'cli': cli_launches['ema'],
+                 'mesh_nccl': nccl_launches['ema'],
+                 'mesh_dryrun': dryrun_launches['ema'],
+                 'mesh_bbc': mesh_bbc_launches['ema'],
+                 'cli_mesh': cli_mesh_launches['ema'],
+                 'bench': bench_launches['ema'],
+                 'stream_big': stream_big_launches['ema'],
+                 'sweep_memory': sweep_memory_launches['ema'],
+                 'cli_big': cli_big_launches['ema']}
+    ema_row = ema_rows[EMA_SHAPES[0]]
     timed = ('ms', 'device_ms', 'plain_ms', 'plain_device_ms',
              'bound_ms', 'bound_by', 'library_ms', 'library_device_ms')
     print(json.dumps({'kernels': [{
@@ -3415,7 +3590,18 @@ def main() -> int:
         'max_abs_err': 0.0,       # bit-equal to its plain version
         **{key: adam_bf16_row[key] for key in timed},
         'device_ms_by': DEVICE_TIMER,
-        'shape': adam_bf16_row['shapes']}]}))
+        'shape': adam_bf16_row['shapes']}, {
+        'name': 'ema_update', 'route': 'cuda',
+        'source': 'pgmvae_tpu_torch/ops/csrc/ema_update.cu',
+        'replaces': None,     # the JAX package leaves the step to XLA
+        'launches': sum(ema_paths.values()),
+        'launches_by_path': ema_paths,
+        'max_rel': max(max(c['rel'].values()) for row in ema_rows.values()
+                       for c in row['cases'].values()),
+        **{key: ema_row[key] for key in timed},
+        'device_ms_by': DEVICE_TIMER,
+        'shape': ema_row['shape'],
+        'shapes_compared': [row['shape'] for row in ema_rows.values()]}]}))
     print(smi)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

@@ -64,8 +64,6 @@ HEADLINE_EPOCHS = 64
 NLTCS_CFG = VqVaeConfig(n_var=16, units=(15, 14, 13, 12), dim=10,
                         num_codes=50, cost=0.25, decay=0.99,
                         quantizer='ema')
-# the kernel launch counters by name, in graphs.COUNTERS order
-LAUNCH_NAMES = ('vq_argmin', 'vq_argmin_bf16', 'adam', 'adam_bf16')
 
 
 def train_flops_per_sample(cfg) -> float:
@@ -176,7 +174,7 @@ def device_label(device: torch.device) -> str:
 
 
 def launch_counts() -> dict:
-    return dict(zip(LAUNCH_NAMES, graphs.launch_counts()))
+    return graphs.named_launch_counts()
 
 
 def launches_since(before: dict) -> dict:

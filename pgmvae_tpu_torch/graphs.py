@@ -33,11 +33,11 @@ eager loop makes and the caller's generators end where the eager loop would
 leave them.
 
 Launch accounting: the kernel wrappers count a launch when Python calls
-them (`cuda_vq.LAUNCHES`, `fused_adam.LAUNCHES`, and their bfloat16
-twins). A capture calls them without launching anything, so the counts a
-capture adds are taken back and kept as the graph's launches per step, and
-every replay adds them again. The counts then read as if every step had
-run eagerly.
+them (`cuda_vq.LAUNCHES`, `fused_adam.LAUNCHES`, their bfloat16 twins, and
+`cuda_ema.LAUNCHES`). A capture calls them without launching anything, so
+the counts a capture adds are taken back and kept as the graph's launches
+per step, and every replay adds them again. The counts then read as if
+every step had run eagerly.
 """
 
 from __future__ import annotations
@@ -49,27 +49,36 @@ from typing import Callable, Optional, Sequence
 import torch
 
 from pgmvae_tpu_torch import trace
-from pgmvae_tpu_torch.ops import cuda_vq, fused_adam
+from pgmvae_tpu_torch.ops import cuda_ema, cuda_vq, fused_adam
 
-# (module, attribute) of every kernel launch counter
-COUNTERS = ((cuda_vq, 'LAUNCHES'), (cuda_vq, 'LAUNCHES_BF16'),
-            (fused_adam, 'LAUNCHES'), (fused_adam, 'LAUNCHES_BF16'))
+# (module, attribute, name in reports) of every kernel launch counter
+COUNTERS = ((cuda_vq, 'LAUNCHES', 'vq_argmin'),
+            (cuda_vq, 'LAUNCHES_BF16', 'vq_argmin_bf16'),
+            (fused_adam, 'LAUNCHES', 'adam'),
+            (fused_adam, 'LAUNCHES_BF16', 'adam_bf16'),
+            (cuda_ema, 'LAUNCHES', 'ema'))
+LAUNCH_NAMES = tuple(name for _, _, name in COUNTERS)
 
 
 def launch_counts() -> tuple:
     """The kernel launch counters, in COUNTERS order."""
-    return tuple(getattr(module, name) for module, name in COUNTERS)
+    return tuple(getattr(module, attr) for module, attr, _ in COUNTERS)
+
+
+def named_launch_counts() -> dict:
+    """The kernel launch counters by their names in reports."""
+    return dict(zip(LAUNCH_NAMES, launch_counts()))
 
 
 def add_launches(per_step: Sequence[int], steps: int = 1) -> None:
     """Add `steps` times `per_step` to the launch counters."""
-    for (module, name), n in zip(COUNTERS, per_step):
-        setattr(module, name, getattr(module, name) + n * steps)
+    for (module, attr, _), n in zip(COUNTERS, per_step):
+        setattr(module, attr, getattr(module, attr) + n * steps)
 
 
 def _set_launch_counts(counts: Sequence[int]) -> None:
-    for (module, name), n in zip(COUNTERS, counts):
-        setattr(module, name, n)
+    for (module, attr, _), n in zip(COUNTERS, counts):
+        setattr(module, attr, n)
 
 
 _CAPTURE_STREAMS = {}      # CUDA device index -> its capture stream

@@ -268,11 +268,12 @@ def placement(world_size: int, device) -> tuple:
 
 
 def build_kernels() -> None:
-    """Build both CUDA kernels' libraries (one nvcc each, together), so
+    """Build the CUDA kernels' libraries (one nvcc each, together), so
     that the ranks only load them."""
-    from pgmvae_tpu_torch.ops import cuda_vq, fused_adam
-    with ThreadPoolExecutor(max_workers=2) as pool:
-        for f in [pool.submit(m.build) for m in (cuda_vq, fused_adam)]:
+    from pgmvae_tpu_torch.ops import cuda_ema, cuda_vq, fused_adam
+    kernels = (cuda_vq, fused_adam, cuda_ema)
+    with ThreadPoolExecutor(max_workers=len(kernels)) as pool:
+        for f in [pool.submit(m.build) for m in kernels]:
             f.result()
 
 
@@ -291,8 +292,7 @@ def _rank_main(rank: int, payload: bytes, world_size: int, backend: str,
         rank=rank, timeout=datetime.timedelta(seconds=collective_timeout))
     try:
         value = fn(device, *args)
-        launches = dict(zip(('vq_argmin', 'vq_argmin_bf16', 'adam',
-                             'adam_bf16'), graphs.launch_counts()))
+        launches = graphs.named_launch_counts()
         with open(os.path.join(out_dir, f'rank-{rank}.pkl'), 'wb') as f:
             pickle.dump(RankResult(value, launches, str(device)), f)
     finally:

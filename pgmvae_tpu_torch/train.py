@@ -5,7 +5,8 @@ pads it with sentinel rows (-1) to whole batches, and runs one train step
 per batch: the ragged last batch carries 0/1 sample weights through every
 mean and statistic, so its padded rows are exact no-ops. Each step is one
 forward and backward pass, then the Adam update in place through the CUDA
-kernel of `ops/fused_adam.py`, then the EMA codebook update. Metrics stay on
+kernel of `ops/fused_adam.py`, then the EMA codebook update in place
+(`ema_step`: on CUDA the kernel of `ops/cuda_ema.py`). Metrics stay on
 the device and are read once per epoch when the caller logs them, else once
 per `fit`. adam_impl 'fused_bf16' keeps the Adam moments in bfloat16.
 
@@ -39,8 +40,9 @@ Randomness: epoch e draws its permutation and its dead-code restart rows
 from a generator seeded from (seed, e) alone, so fit(a) followed by
 fit(b, start_epoch=a) is bit-identical to fit(a + b).
 
-Train steps update the state's params and moments in place; `copy_state`
-takes a snapshot that later steps leave alone.
+Train steps update the state's params and moments in place, and its EMA
+counts, dw and codebook where one 'data' rank holds them (not its step
+counters); `copy_state` takes a snapshot that later steps leave alone.
 
 Epochs as CUDA graphs (the counterpart of the JAX package's epoch `scan`
 and its blocks of epochs): an epoch runs one step body over static buffers
@@ -48,18 +50,19 @@ and its blocks of epochs): an epoch runs one step body over static buffers
 through a device step counter, gathers its batch (from the device data, or
 from a static chunk buffer that the streamed epoch refills every chunk),
 derives w from that row, runs the train step, copies the tensors the step
-made anew (the EMA state, the counts) into the state's own, and adds the
-step's metrics into static sums. The permutation is drawn eagerly, once an
-epoch. On CUDA the epoch's first step runs eagerly as the warm-up, the body
-is captured, and every other step is a replay; the graph stays on the
-Trainer, keyed on the addresses and shapes of the state and data, and is
-captured anew for another state or data tensor (`fit` and `fit_packed`
-release it before they return). Every batch is [bs, n_var] with 0/1
-weights, so the ragged last batch needs no graph of its own. The restart
-draws come from the graph's own generators, which take the epoch
-generators' state before the replays: the replayed epoch is bit-equal to
-the eager loop (`Trainer(graphs=False)`, and the CPU's). The epoch updates
-the state in place: it returns the state it was given.
+made anew (the step counters; under restarts or a 'data' axis the EMA
+state) into the state's own, and adds the step's metrics into static sums.
+The permutation is drawn eagerly, once an epoch. On CUDA the epoch's first
+step runs eagerly as the warm-up, the body is captured, and every other
+step is a replay; the graph stays on the Trainer, keyed on the addresses
+and shapes of the state and data, and is captured anew for another state or
+data tensor (`fit` and `fit_packed` release it before they return). Every
+batch is [bs, n_var] with 0/1 weights, so the ragged last batch needs no
+graph of its own. The restart draws come from the graph's own generators,
+which take the epoch generators' state before the replays: the replayed
+epoch is bit-equal to the eager loop (`Trainer(graphs=False)`, and the
+CPU's). The epoch updates the state in place: it returns the state it was
+given.
 
 A device mesh (`mesh_ctx`, `parallel/mesh.py`): `init_state` draws the
 global model on the host from the int seed and `shard_state` keeps the
@@ -68,12 +71,13 @@ numbers of a single-device run. A step takes the global batch and keeps the
 rank's rows; the losses are the rank's partial sums of the global means
 (the global mask columns, n_active and sum of weights); gradients and EMA
 statistics are all-reduced over 'data' before the Adam kernel and the EMA
-update; dead-code restarts draw the global [n_var, K] rows from the shared
-generator and take them from the batch's latents gathered over 'data'; the
-metrics are all-reduced over the world. Under NCCL the step with its
-collectives is captured into the epoch's graph; under gloo, whose
-collectives cannot be captured, epochs run the eager loop. Packed seeds
-refuse a mesh.
+update (with more than one 'data' rank the EMA step takes the dense
+`code_stats` and `ema_update`, not the kernel); dead-code restarts draw
+the global [n_var, K] rows from the shared generator and take them from
+the batch's latents gathered over 'data'; the metrics are all-reduced
+over the world. Under NCCL the step with its collectives is captured into
+the epoch's graph; under gloo, whose collectives cannot be captured,
+epochs run the eager loop. Packed seeds refuse a mesh.
 """
 
 from __future__ import annotations
@@ -88,7 +92,7 @@ import torch
 from pgmvae_tpu_torch import graphs, resolve_device
 from pgmvae_tpu_torch.data.pinned import pinned_pieces
 from pgmvae_tpu_torch.models import vqvae
-from pgmvae_tpu_torch.ops import fused_adam
+from pgmvae_tpu_torch.ops import cuda_ema, fused_adam
 from pgmvae_tpu_torch.ops import quantizer as q
 from pgmvae_tpu_torch.parallel.mesh import MeshContext, shard_leading_axis
 from pgmvae_tpu_torch.trace import span
@@ -163,10 +167,31 @@ def copy_state(state: TrainState) -> TrainState:
 
 
 def _assign(dst: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
-    """Copy a tensor a step made anew into the state tensor it replaces."""
-    if dst is not src:
+    """Copy a tensor a step made anew into the state tensor it replaces;
+    nothing where the step wrote into the state tensor itself (`src` is
+    `dst`, or a view of it with its shape: the EMA kernel's packed state)."""
+    if dst is not src and not (dst.data_ptr() == src.data_ptr()
+                               and dst.shape == src.shape
+                               and dst.stride() == src.stride()):
         dst.copy_(src)
     return dst
+
+
+def ema_step(ema: q.EmaState, z: torch.Tensor, indices: torch.Tensor,
+             w: torch.Tensor, cfg: vqvae.VqVaeConfig, mesh: MeshContext):
+    """The EMA codebook step of a train step: (new EmaState, the batch
+    counts [n, K]). Where the 'data' axis has more than one rank, each
+    rank's statistics are summed over it before the update: `code_stats`,
+    the all-reduce, `ema_update`. Otherwise `cuda_ema.ema_update_fused`,
+    which updates the state's tensors in place: the kernel on CUDA, its
+    plain version (the same two functions) on the CPU."""
+    if mesh.shape[0] > 1:
+        counts, dw = mesh.all_reduce_many(
+            q.code_stats(z, indices, cfg.num_codes, weights=w), 'data')
+        return q.ema_update(ema, counts, dw, cfg.decay, cfg.epsilon,
+                            cfg.zero_debias), counts
+    return cuda_ema.ema_update_fused(ema, z, indices, w, cfg.decay,
+                                     cfg.epsilon, cfg.zero_debias)
 
 
 def copy_state_into(dst: TrainState, src: TrainState) -> TrainState:
@@ -381,11 +406,7 @@ class Trainer:
             rows = z.shape[0]
             ema, counts = state.ema, None
             if cfg.quantizer == 'ema':
-                counts, dw = mesh.all_reduce_many(
-                    q.code_stats(z, out.indices, cfg.num_codes, weights=w),
-                    'data')
-                ema = q.ema_update(ema, counts, dw, cfg.decay, cfg.epsilon,
-                                   cfg.zero_debias)
+                ema, counts = ema_step(ema, z, out.indices, w, cfg, mesh)
                 if cfg.dead_code_threshold > 0 and generators is not None:
                     # the global draw, rows of the global batch
                     z_all = mesh.all_gather(z, 'data', dim=1)

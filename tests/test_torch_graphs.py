@@ -17,7 +17,7 @@ import torch
 from pgmvae_tpu_torch import gibbs as tg
 from pgmvae_tpu_torch import graphs
 from pgmvae_tpu_torch.models import vqvae as tv
-from pgmvae_tpu_torch.ops import cuda_vq, fused_adam
+from pgmvae_tpu_torch.ops import cuda_ema, cuda_vq, fused_adam
 from pgmvae_tpu_torch.train import EpochMetrics, Trainer, _map_state, \
     copy_state
 
@@ -243,7 +243,7 @@ def test_cmll_draws_one_block_of_uniforms_a_sub_segment(monkeypatch):
 
 @pytest.fixture
 def counters(monkeypatch):
-    for module, name in graphs.COUNTERS:
+    for module, name, _ in graphs.COUNTERS:
         monkeypatch.setattr(module, name, 0)
 
 
@@ -270,15 +270,17 @@ def test_replays_add_the_captured_launches(counters, monkeypatch):
     def body(generators):
         cuda_vq.LAUNCHES += 1
         fused_adam.LAUNCHES += 20
+        cuda_ema.LAUNCHES += 1
     g = graphs.StepGraph(body, 'cpu', capture=True)
     replays = _stub_graph(monkeypatch, g, True)
     g.run(5)
-    assert (cuda_vq.LAUNCHES, fused_adam.LAUNCHES) == (5, 100)
-    assert g.launches == (1, 0, 20, 0) and len(replays) == 4
+    assert (cuda_vq.LAUNCHES, fused_adam.LAUNCHES, cuda_ema.LAUNCHES) == (
+        5, 100, 5)
+    assert g.launches == (1, 0, 20, 0, 1) and len(replays) == 4
     g.run(3)
-    assert graphs.launch_counts() == (8, 0, 160, 0) and len(replays) == 7
+    assert graphs.launch_counts() == (8, 0, 160, 0, 8) and len(replays) == 7
     g.run(0)
-    assert graphs.launch_counts() == (8, 0, 160, 0)
+    assert graphs.launch_counts() == (8, 0, 160, 0, 8)
 
 
 def test_replays_draw_what_the_eager_loop_draws(monkeypatch):
