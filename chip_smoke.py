@@ -5,11 +5,11 @@ Run from the root of a checkout, with no arguments:
 
     python3 chip_smoke.py
 
-It builds the port's three CUDA kernels (the nearest-code search, with a
+It builds the port's CUDA kernels (the nearest-code search, with a
 bfloat16 kernel of its own on the tensor cores whose SASS must hold HMMA,
 the Adam update, one launch over a table of leaves, with its
-bfloat16-moment instance, and the EMA codebook step; one nvcc each,
-started together) from the sources in the checkout, holds each kernel
+bfloat16-moment instance, the EMA codebook step, and the reconstruction
+tail's forward and backward pair; one nvcc each, started together) from the sources in the checkout, holds each kernel
 against its
 plain PyTorch version at the shapes of the main paths (timed by CUDA
 events over back-to-back calls, `ms`, and by the profiler's device time of
@@ -389,7 +389,7 @@ def phase_build():
     """The kernels' builds, one nvcc each, started together. The bfloat16
     nearest-code kernel must run on the tensor cores: every instantiation's
     SASS holds HMMA."""
-    from pgmvae_tpu_torch.ops import cuda_ema, cuda_vq, fused_adam
+    from pgmvae_tpu_torch.ops import cuda_ema, cuda_recon, cuda_vq, fused_adam
 
     def timed(module):
         t0 = time.time()
@@ -397,10 +397,10 @@ def phase_build():
         return time.time() - t0
 
     t0 = time.time()
-    with ThreadPoolExecutor(max_workers=3) as pool:
+    with ThreadPoolExecutor(max_workers=4) as pool:
         futures = {name: pool.submit(timed, module) for name, module in
                    (('vq_argmin', cuda_vq), ('adam', fused_adam),
-                    ('ema', cuda_ema))}
+                    ('ema', cuda_ema), ('recon', cuda_recon))}
         seconds = {name: f.result() for name, f in futures.items()}
     vq = _ptxas(cuda_vq.library_path().with_suffix('.log'))
     # by template arguments: vq_argmin_kernel<float, DPAD, RB, SUB> ->
@@ -423,8 +423,10 @@ def phase_build():
     emit('build', seconds=seconds, wall_seconds=time.time() - t0,
          libraries=[cuda_vq.library_path().name,
                     fused_adam.library_path().name,
-                    cuda_ema.library_path().name],
+                    cuda_ema.library_path().name,
+                    cuda_recon.library_path().name],
          ptxas_ema=_ptxas(cuda_ema.library_path().with_suffix('.log')),
+         ptxas_recon=_ptxas(cuda_recon.library_path().with_suffix('.log')),
          ptxas_vq={key: dpad.get(key) for key in (
              '16_4_1', '16_4_4', '24_8_1', '24_8_4', '128_4_1')
              + BF16_INSTANCES},
@@ -844,6 +846,192 @@ def phase_kernel_ema():
     return rows
 
 
+# The reconstruction tail's kernel pair, (F, B, N, S, lo, n_active, dtype,
+# case): bbc's quality recipe and its batch 250 (its ragged step: 170
+# rows of weight 1), packed kdd (S=4, the packed step's upstream gradient
+# expanded from one value), a mesh_bbc rank's networks (the last of four
+# model ranks over 1,060 networks, two of them padding; 125 rows and the
+# global batch's weight sum), the padded model whole (n_active 1,058 of
+# 1,060; bbc's ragged step at batch 25, 20 rows of weight 1), bfloat16 at
+# batch 250 and at an odd width, and the pair-free paths: an odd width and
+# logits one value past an alignment
+RECON_CASES = [(1058, 25, 1058, 1, 0, 1058, 'float32', 'full'),
+               (1058, 250, 1058, 1, 0, 1058, 'float32', 'ragged'),
+               (256, 32, 64, 4, 0, 64, 'float32', 'full'),
+               (265, 125, 1060, 1, 795, 1058, 'float32', 'shard'),
+               (1060, 25, 1060, 1, 0, 1058, 'float32', 'ragged'),
+               (1058, 250, 1058, 1, 0, 1058, 'bfloat16', 'ragged'),
+               (9, 33, 9, 1, 0, 9, 'bfloat16', 'full'),
+               (21, 10, 7, 3, 0, 6, 'float32', 'ragged'),
+               (64, 32, 64, 1, 0, 64, 'float32', 'unaligned')]
+RECON_TIMED = 3          # the first cases timed: bbc 25, bbc 250, packed kdd
+RECON_KERNELS = ('recon_loss_fwd_kernel', 'recon_loss_bwd_kernel')
+
+
+def _recon_case(f, b, n, s, lo, na, dtype, case, gen):
+    """(logits, y, w, wsum, g, seeds) of one reconstruction case on the
+    card: logits ~ N(0, 2^2), binary labels, 0/1 weights. A ragged case
+    keeps the rows of bbc's last step at its batch (1,670 train rows), or
+    two thirds where the batch divides them."""
+    from pgmvae_tpu_torch.registry import REGISTRY
+    dt = getattr(torch, dtype)
+    size = f * b * n
+    x = 2.0 * torch.randn(size + (case == 'unaligned'), generator=gen,
+                          device='cuda')
+    x = x[1:] if case == 'unaligned' else x
+    x = x.view(f, b, n).to(dt)
+    y = (torch.rand((s, b, n), generator=gen, device='cuda') < 0.3).float()
+    w = torch.ones(b, device='cuda')
+    if case == 'ragged':
+        w[REGISTRY['bbc'].n_train % b or b - b // 3:] = 0.0
+    wsum = (torch.tensor(2.0 * b - 3.0, device='cuda') if case == 'shard'
+            else None)
+    g = (torch.ones((), device='cuda').expand(s) if s > 1
+         else 0.5 + torch.rand((), generator=gen, device='cuda'))
+    return x, (y if s > 1 else y[0]), w, wsum, g, (s if s > 1 else None)
+
+
+def _recon_terms64(x, y, w, wsum, seeds, lo, na):
+    """The plain version's per-element float32 terms of the MSE and MAE
+    summed in float64: (mse, mae) [S] of exact sums of the same terms."""
+    from pgmvae_tpu_torch.ops import cuda_recon
+    recon = torch.sigmoid(x)
+    mask = cuda_recon._mask(x, seeds, lo, na, torch.float32)
+    d = cuda_recon._denominator(na, w, wsum).double()
+    sq = cuda_recon.recon_error(recon, y.to(x.dtype), seeds) ** 2
+    ab = torch.abs(cuda_recon.recon_error(recon, y, seeds))
+    dims = (1, 2, 3) if seeds is not None else (0, 1, 2)
+    return tuple(torch.sum((t * mask * w[None, :, None]).double(), dims) / d
+                 for t in (sq, ab))
+
+
+def phase_kernel_recon():
+    """The reconstruction tail's kernel pair against its plain versions
+    (`recon_loss_plain`, autograd through it) on the card at RECON_CASES:
+    mse and mae within (2 ceil(N / 64) + 1) 2^-24 relative of the float64
+    sums of the plain version's own float32 terms (a lane's float32 partial
+    of a row holds at most 2 ceil(N / 64) nonnegative terms, then float64,
+    then one rounding; the plain version's float32 sums, within 1e-4 of the
+    same, are reported), D bit-equal, the gradient within 1e-6 of its
+    largest element in float32 and within 2^-8 (one bfloat16 rounding) in
+    bfloat16, two launches a forward and backward; then the pair captured
+    in a CUDA graph, whose two replays must be bit-equal to the eager call.
+    Times at the first RECON_TIMED cases: each kernel's device time, the
+    plain version's, CUDA events, and the bytes bound (the logits read by
+    the forward, read and their gradient written by the backward, y read
+    by each)."""
+    from pgmvae_tpu_torch.ops import cuda_recon
+    gen = torch.Generator(device='cuda').manual_seed(SEED)
+    launched = cuda_recon.LAUNCHES
+    rows = {}
+    for spec in RECON_CASES:
+        f, b, n, s, lo, na, dtype, case = spec
+        x, y, w, wsum, g, seeds = _recon_case(*spec, gen)
+        xk = x.detach().requires_grad_()
+        before = cuda_recon.LAUNCHES
+        mse, mae = cuda_recon.recon_loss(xk, y, w, seeds, lo, na, wsum)
+        grad, = torch.autograd.grad(mse, xk, g)
+        torch.cuda.synchronize()
+        assert cuda_recon.LAUNCHES == before + 2, spec
+        xp = x.detach().requires_grad_()
+        pmse, pmae = cuda_recon.recon_loss_plain(xp, y, w, seeds, lo, na,
+                                                 wsum)
+        pgrad, = torch.autograd.grad(pmse, xp, g)
+        ref = _recon_terms64(x, y, w, wsum, seeds, lo, na)
+        tol = (2 * -(-n // 64) + 1) * 2.0 ** -24
+
+        def rel(a, r):
+            a, r = a.double().reshape(-1), r.reshape(-1)
+            return float(((a - r).abs() / r.abs().clamp(min=1e-300)).max())
+        gaps = {'mse': rel(mse.detach(), ref[0]), 'mae': rel(mae, ref[1]),
+                'plain_mse': rel(pmse.detach(), ref[0]),
+                'plain_mae': rel(pmae, ref[1])}
+        assert max(gaps['mse'], gaps['mae']) <= tol, (spec, gaps, tol)
+        assert max(gaps['plain_mse'], gaps['plain_mae']) <= 1e-4, (spec,
+                                                                   gaps)
+        grad_rel = float((grad.float() - pgrad.float()).abs().max()
+                         / pgrad.float().abs().max())
+        assert grad_rel <= (1e-6 if dtype == 'float32' else 2.0 ** -8), (
+            spec, grad_rel)
+        assert grad.dtype == x.dtype and grad.shape == x.shape
+        denom = cuda_recon._forward_kernel(x, y, w, seeds, lo, na, wsum)[2]
+        assert torch.equal(denom, cuda_recon._denominator(na, w, wsum)), (
+            spec, float(denom))
+        row = dict(shape=[f, b, n], seeds=s, lo=lo, n_active=na,
+                   dtype=dtype, case=case, gaps=gaps, tol=tol,
+                   grad_rel=grad_rel,
+                   grad_bit_equal_share=float(
+                       (grad == pgrad).double().mean()),
+                   plan=cuda_recon.plan(f, b, n, s)._asdict())
+
+        # the pair in a CUDA graph: replays bit-equal to the eager call
+        xs = x.detach().requires_grad_()
+        outs = [torch.empty_like(mse), torch.empty_like(mae),
+                torch.empty_like(grad)]
+
+        def body():
+            m1, m2 = cuda_recon.recon_loss(xs, y, w, seeds, lo, na, wsum)
+            d, = torch.autograd.grad(m1, xs, g)
+            for dst, src in zip(outs, (m1, m2, d)):
+                dst.copy_(src)
+        side = torch.cuda.Stream()
+        side.wait_stream(torch.cuda.current_stream())
+        with torch.cuda.stream(side):
+            body()
+        torch.cuda.current_stream().wait_stream(side)
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            body()
+        for _ in range(2):
+            for t in outs:
+                t.fill_(float('nan'))
+            graph.replay()
+            torch.cuda.synchronize()
+            assert all(torch.equal(a, b) for a, b in zip(
+                outs, (mse, mae, grad))), ('replay', spec)
+        del graph, outs, xs
+        rows[spec] = row
+        if len(rows) > RECON_TIMED:
+            emit('kernel_recon', **row)
+            del x, y, xk, xp, grad, pgrad
+            continue
+
+        def fwd():
+            with torch.no_grad():
+                cuda_recon.recon_loss(x, y, w, seeds, lo, na, wsum)
+
+        def pair():
+            m1, _ = cuda_recon.recon_loss(xk, y, w, seeds, lo, na, wsum)
+            torch.autograd.grad(m1, xk, g)
+
+        def plain():
+            m1, _ = cuda_recon.recon_loss_plain(xp, y, w, seeds, lo, na,
+                                                wsum)
+            torch.autograd.grad(m1, xp, g)
+        fwd_dev = split_device_ms(fwd, RECON_KERNELS[0])[0]
+        pair_dev = device_ms(pair)
+        bwd_dev = split_device_ms(pair, RECON_KERNELS[1])[0]
+        size = x.element_size()
+        nbytes = {'fwd': size * f * b * n + 4.0 * s * b * n,
+                  'bwd': 2.0 * size * f * b * n + 4.0 * s * b * n}
+        bound_ms = {k: v / HBM_BYTES * 1e3 for k, v in nbytes.items()}
+        pair_bound = bound_ms['fwd'] + bound_ms['bwd']
+        row.update(ms=cuda_ms(pair), device_ms=pair_dev,
+                   fwd_device_ms=fwd_dev, bwd_device_ms=bwd_dev,
+                   plain_ms=cuda_ms(plain), plain_device_ms=device_ms(plain),
+                   library_ms=None, library_device_ms=None,
+                   bound_ms=pair_bound, bound_by='bytes',
+                   fwd_bound_ms=bound_ms['fwd'],
+                   bwd_bound_ms=bound_ms['bwd'],
+                   bound_share=pair_bound / pair_dev,
+                   fwd_share=bound_ms['fwd'] / fwd_dev,
+                   bwd_share=bound_ms['bwd'] / bwd_dev)
+        emit('kernel_recon', **row)
+        del x, y, xk, xp, grad, pgrad
+    cuda_recon.LAUNCHES = launched     # comparison and timing only
+    return rows
+
+
 def _bbc_like_splits(n_var: int):
     """Synthetic binary data at bbc's split sizes: independent columns with
     sparse, word-frequency-like rates, made with numpy from SEED."""
@@ -1081,8 +1269,9 @@ def _kernel_vs_plain_step(tr, state, yb, w):
     codes differ, and then only by near-ties. Returns (max abs difference
     of the Adam-only comparison, max relative difference of the all-plain
     one, code flips, flip gap)."""
+    from pgmvae_tpu_torch import graphs
     from pgmvae_tpu_torch.models import vqvae
-    from pgmvae_tpu_torch.ops import cuda_ema, cuda_vq, fused_adam
+    from pgmvae_tpu_torch.ops import cuda_vq, fused_adam
     from pgmvae_tpu_torch.train import copy_state
 
     def leaves(st):
@@ -1100,7 +1289,7 @@ def _kernel_vs_plain_step(tr, state, yb, w):
         cb = tr.codebook(state)
         flips, gap = near_ties(z, cb, cuda_vq.vq_codes_fused(z, cb),
                                cuda_vq.vq_codes_plain(z, cb))
-    launches = (cuda_vq.LAUNCHES, fused_adam.LAUNCHES, cuda_ema.LAUNCHES)
+    launches = graphs.launch_counts()
     ker, _ = tr.train_step(copy_state(state), yb, w)
     with mock.patch.object(fused_adam, 'adam_update',
                            fused_adam.adam_update_plain):
@@ -1109,7 +1298,7 @@ def _kernel_vs_plain_step(tr, state, yb, w):
                                cuda_vq.vq_codes_plain):
             all_plain, _ = tr.train_step(copy_state(state), yb, w)
     # comparison only
-    cuda_vq.LAUNCHES, fused_adam.LAUNCHES, cuda_ema.LAUNCHES = launches
+    graphs._set_launch_counts(launches)
     torch.cuda.synchronize()
     adam_abs, adam_rel = compare(ker, adam_plain)
     assert adam_rel <= 1e-6, ('Adam kernel step vs plain', adam_rel)
@@ -1130,8 +1319,8 @@ def phase_train():
     bit-equal to the eager loop from the same init; a kernel step against a
     plain step; stage-2 PLLs of the trained model; profiles of one warm
     eager step and of one replayed epoch."""
+    from pgmvae_tpu_torch import graphs
     from pgmvae_tpu_torch.models import vqvae
-    from pgmvae_tpu_torch.ops import cuda_ema, cuda_vq, fused_adam
     from pgmvae_tpu_torch.stage2 import Stage2
     from pgmvae_tpu_torch.train import Trainer
 
@@ -1148,21 +1337,21 @@ def phase_train():
         ends.append(time.time())
 
     # ---- the main path, counted: every kernel launch from here to the read
-    cuda_vq.LAUNCHES = fused_adam.LAUNCHES = cuda_ema.LAUNCHES = 0
+    graphs.reset_launch_counts()
     t0 = time.time()
     state, hist = tr.fit(state, y, 2, seed=SEED, log_fn=log_fn)
     torch.cuda.synchronize()
     fit_seconds = time.time() - t0
-    launches = {'vq_argmin': cuda_vq.LAUNCHES, 'adam': fused_adam.LAUNCHES,
-                'ema': cuda_ema.LAUNCHES}
+    launches = graphs.named_launch_counts()
     # ---- end of the counted run
     memory = _memory_since(mark)
 
     steps = 2 * tr.steps_per_epoch
     assert tr.steps_per_epoch == 7 and steps == 14, tr.steps_per_epoch
-    assert launches == {'vq_argmin': steps,
-                        'adam': steps * _adam_per_step(n_leaves),
-                        'ema': steps} and n_leaves == 20, launches
+    assert launches == _launches(vq_argmin=steps,
+                                 adam=steps * _adam_per_step(n_leaves),
+                                 ema=steps, recon=2 * steps)
+    assert n_leaves == 20, n_leaves
     assert all(np.isfinite(list(m)).all() for m in hist), hist
     assert hist[1].loss < hist[0].loss, hist
     graph = tr.graph_stats['epoch']
@@ -1332,8 +1521,9 @@ def phase_train_kdd():
     PLL must rise above the initial model's. Then a kernel step against a
     plain step, the test PLL against a run through the plain version, and
     profiles of one warm eager step and of one replayed epoch."""
+    from pgmvae_tpu_torch import graphs
     from pgmvae_tpu_torch.models import vqvae
-    from pgmvae_tpu_torch.ops import cuda_ema, cuda_vq, fused_adam
+    from pgmvae_tpu_torch.ops import cuda_vq
     from pgmvae_tpu_torch.stage2 import Stage2
     from pgmvae_tpu_torch.train import Trainer, copy_state
 
@@ -1352,13 +1542,12 @@ def phase_train_kdd():
     mark = _memory_mark()
 
     # ---- the training path, counted
-    cuda_vq.LAUNCHES = fused_adam.LAUNCHES = cuda_ema.LAUNCHES = 0
+    graphs.reset_launch_counts()
     t0 = time.time()
     state, hist = tr.fit(state, y, 1, seed=KDD_SEED)
     torch.cuda.synchronize()
     fit_seconds = time.time() - t0
-    launches = {'vq_argmin': cuda_vq.LAUNCHES, 'adam': fused_adam.LAUNCHES,
-                'ema': cuda_ema.LAUNCHES}
+    launches = graphs.named_launch_counts()
     # ---- the stage-2 path, counted
     cb = tr.codebook(state)
     cuda_vq.LAUNCHES = 0
@@ -1374,9 +1563,9 @@ def phase_train_kdd():
     chunks = -(-y.shape[0] // s2.chunk) + -(-y_test.shape[0] // s2.chunk)
     assert steps == 200 and s2.chunk == 118 and chunks == 55 + 297, (
         steps, s2.chunk, chunks)
-    assert launches == {'vq_argmin': steps,
-                        'adam': steps * _adam_per_step(n_leaves),
-                        'ema': steps}, launches
+    assert launches == _launches(vq_argmin=steps,
+                                 adam=steps * _adam_per_step(n_leaves),
+                                 ema=steps, recon=2 * steps), launches
     assert s2_launches == chunks, (s2_launches, chunks)
     assert all(np.isfinite(list(m)).all() for m in hist), hist
     assert np.isfinite(pll_test) and pll_test < 0, pll_test
@@ -1429,7 +1618,8 @@ def phase_train_kdd():
                 lambda: tr.train_step(state, yb, w), top=10, watch=VQ_NAMES)
     _profile_epoch_graph('profile_train_kdd_epoch_graph', tr, state, y)
     return ({'train': launches['vq_argmin'], 'stage2': s2_launches,
-             'adam': launches['adam'], 'ema': launches['ema']},
+             'adam': launches['adam'], 'ema': launches['ema'],
+             'recon': launches['recon']},
             max(gap, s2_gap), adam_abs, trained)
 
 
@@ -1442,8 +1632,8 @@ def phase_train_bf16(f32: dict):
     of the float32 run's (the JAX package's sanity band,
     tests/test_compute_dtype.py). Then profiles of one warm eager step and
     of one replayed epoch."""
+    from pgmvae_tpu_torch import graphs
     from pgmvae_tpu_torch.models import vqvae
-    from pgmvae_tpu_torch.ops import cuda_ema, cuda_vq, fused_adam
     from pgmvae_tpu_torch.train import Trainer
 
     cfg = _bbc_train_config()._replace(compute_dtype='bf16')
@@ -1457,20 +1647,18 @@ def phase_train_bf16(f32: dict):
         ends.append(time.time())
 
     # ---- the main path, counted
-    cuda_vq.LAUNCHES = cuda_vq.LAUNCHES_BF16 = fused_adam.LAUNCHES = 0
-    cuda_ema.LAUNCHES = 0
+    graphs.reset_launch_counts()
     t0 = time.time()
     state, hist = tr.fit(state, y, 2, seed=SEED, log_fn=log_fn)
     torch.cuda.synchronize()
     fit_seconds = time.time() - t0
-    launches = {'vq_argmin': cuda_vq.LAUNCHES,
-                'vq_argmin_bf16': cuda_vq.LAUNCHES_BF16,
-                'adam': fused_adam.LAUNCHES, 'ema': cuda_ema.LAUNCHES}
+    launches = graphs.named_launch_counts()
     # ---- end of the counted run
     memory = _memory_since(mark)
 
-    assert launches == {'vq_argmin': 0, 'vq_argmin_bf16': 14,
-                        'adam': 14 * _adam_per_step(20), 'ema': 14}, launches
+    assert launches == _launches(vq_argmin_bf16=14,
+                                 adam=14 * _adam_per_step(20), ema=14,
+                                 recon=28), launches
     masters = (vqvae.param_leaves(state.params)
                + vqvae.param_leaves(state.opt_state.mu)
                + vqvae.param_leaves(state.opt_state.nu) + list(state.ema[:3]))
@@ -1511,7 +1699,7 @@ def phase_stream_kdd(kdd: dict):
     counted: params, EMA state and moments must be bit-equal to the in-core
     `train_kdd` result. Then in-core, streamed and eager fits in turns for
     steps/s."""
-    from pgmvae_tpu_torch.ops import cuda_ema, cuda_vq, fused_adam
+    from pgmvae_tpu_torch import graphs
     from pgmvae_tpu_torch.train import Trainer
 
     core, ref, y = kdd['tr'], kdd['state'], kdd['y']
@@ -1522,18 +1710,17 @@ def phase_stream_kdd(kdd: dict):
     state = _kdd_init(tr)
     torch.cuda.synchronize()
     # ---- the main path, counted
-    cuda_vq.LAUNCHES = fused_adam.LAUNCHES = cuda_ema.LAUNCHES = 0
+    graphs.reset_launch_counts()
     t0 = time.time()
     state, _ = tr.fit(state, y, 1, seed=KDD_SEED)
     torch.cuda.synchronize()
     seconds = time.time() - t0
-    launches = {'vq_argmin': cuda_vq.LAUNCHES, 'adam': fused_adam.LAUNCHES,
-                'ema': cuda_ema.LAUNCHES}
+    launches = graphs.named_launch_counts()
     # ---- end of the counted run
     n_leaves = 4 * (len(core.cfg.units) + 1)
-    assert launches == {'vq_argmin': 200,
-                        'adam': 200 * _adam_per_step(n_leaves),
-                        'ema': 200}, launches
+    assert launches == _launches(vq_argmin=200,
+                                 adam=200 * _adam_per_step(n_leaves),
+                                 ema=200, recon=400), launches
     leaves = _assert_bit_equal(state, ref, 'streamed vs in-core')
     graph = tr.graph_stats['chunk']
     turns = {'in_core': [], 'streamed': [], 'eager': []}
@@ -1568,8 +1755,9 @@ def phase_packed_kdd(kdd: dict, turns: dict):
     bit-equal to the eager loop, and the kdd seed's test PLL within 0.1 nat
     of `train_kdd`'s. Then profiles of one warm eager packed step and of
     one replayed packed epoch."""
+    from pgmvae_tpu_torch import graphs
     from pgmvae_tpu_torch.models import vqvae
-    from pgmvae_tpu_torch.ops import cuda_ema, cuda_vq, fused_adam
+    from pgmvae_tpu_torch.ops import cuda_vq
     from pgmvae_tpu_torch.stage2 import Stage2
     from pgmvae_tpu_torch.train import copy_state
 
@@ -1583,7 +1771,7 @@ def phase_packed_kdd(kdd: dict, turns: dict):
     yb = torch.from_numpy(y[:n_seeds * KDD_BATCH]).cuda().view(
         n_seeds, KDD_BATCH, -1)
     w = torch.ones(KDD_BATCH, device='cuda')
-    counts = (cuda_vq.LAUNCHES, fused_adam.LAUNCHES, cuda_ema.LAUNCHES)
+    counts = graphs.launch_counts()
     with torch.no_grad():              # the first step's codes, packed
         z_packed = vqvae.encode(tr._step_layout(states, n_seeds).params, yb,
                                 seeds=n_seeds)
@@ -1609,25 +1797,23 @@ def phase_packed_kdd(kdd: dict, turns: dict):
         flip_gap = max(flip_gap, g)
         step_gaps.append(gap)
         del unpacked1
-    cuda_vq.LAUNCHES, fused_adam.LAUNCHES, cuda_ema.LAUNCHES = counts
+    graphs._set_launch_counts(counts)
     del packed1, z_packed
 
     states = init()
     mark = _memory_mark()
     # ---- the main path, counted
-    cuda_vq.LAUNCHES = cuda_vq.LAUNCHES_BF16 = fused_adam.LAUNCHES = 0
-    cuda_ema.LAUNCHES = 0
+    graphs.reset_launch_counts()
     t0 = time.time()
     states, ms = tr.fit_packed(states, y, 1, seeds)     # reads the metrics
     seconds = time.time() - t0
-    launches = {'vq_argmin': cuda_vq.LAUNCHES, 'adam': fused_adam.LAUNCHES,
-                'ema': cuda_ema.LAUNCHES}
+    launches = graphs.named_launch_counts()
     # ---- end of the counted run
     memory = _memory_since(mark)
     n_leaves = 4 * (len(tr.cfg.units) + 1)
-    assert launches == {'vq_argmin': 200,
-                        'adam': 200 * _adam_per_step(n_leaves),
-                        'ema': 200}, launches
+    assert launches == _launches(vq_argmin=200,
+                                 adam=200 * _adam_per_step(n_leaves),
+                                 ema=200, recon=400), launches
     assert np.isfinite(ms.loss).all(), ms
     graph = tr.graph_stats['packed']
     hold = _hold_eager(
@@ -1817,8 +2003,9 @@ def phase_checkpoint(kdd: dict):
     from the loaded state, both counted; the same steps from an in-memory
     copy must give the same state bit for bit."""
     from pgmvae_tpu_torch import checkpoint as ckpt
+    from pgmvae_tpu_torch import graphs
     from pgmvae_tpu_torch.models import vqvae
-    from pgmvae_tpu_torch.ops import cuda_ema, cuda_vq, fused_adam
+    from pgmvae_tpu_torch.ops import cuda_vq
     from pgmvae_tpu_torch.serving import PgmModel
     from pgmvae_tpu_torch.train import copy_state
 
@@ -1864,17 +2051,15 @@ def phase_checkpoint(kdd: dict):
     mem = copy_state(state)
     torch.cuda.synchronize()
     # ---- resumed training from the file, counted
-    cuda_vq.LAUNCHES = fused_adam.LAUNCHES = cuda_ema.LAUNCHES = 0
+    graphs.reset_launch_counts()
     for yb in batches:
         loaded, _ = tr.train_step(loaded, yb, w)
     torch.cuda.synchronize()
-    resume = {'vq_argmin': cuda_vq.LAUNCHES, 'adam': fused_adam.LAUNCHES,
-              'ema': cuda_ema.LAUNCHES}
+    resume = graphs.named_launch_counts()
     # ---- end of the counted run; the in-memory twin is the comparison
-    for yb in batches:
-        mem, _ = tr.train_step(mem, yb, w)
-    cuda_vq.LAUNCHES, fused_adam.LAUNCHES, cuda_ema.LAUNCHES = (
-        resume['vq_argmin'], resume['adam'], resume['ema'])
+    with _uncounted():
+        for yb in batches:
+            mem, _ = tr.train_step(mem, yb, w)
     torch.cuda.synchronize()
     pairs = list(zip(_state_leaves(loaded), _state_leaves(mem)))
     bit_equal = all(torch.equal(a, b) for a, b in pairs)
@@ -1882,9 +2067,10 @@ def phase_checkpoint(kdd: dict):
                                     for a, b in pairs)
     assert gap < 1e-6, ('resumed vs in-memory', gap)
     n_leaves = len(vqvae.param_leaves(state.params))
-    assert resume == {'vq_argmin': RESUME_STEPS,
-                      'adam': RESUME_STEPS * _adam_per_step(n_leaves),
-                      'ema': RESUME_STEPS}, resume
+    assert resume == _launches(vq_argmin=RESUME_STEPS,
+                               adam=RESUME_STEPS * _adam_per_step(n_leaves),
+                               ema=RESUME_STEPS,
+                               recon=2 * RESUME_STEPS), resume
     emit('checkpoint', model='kdd sweep cell (phase train_kdd)',
          file_bytes=nbytes, save_seconds=save_s, load_seconds=load_s,
          leaves=len(pairs), load_bit_equal=True,
@@ -1893,8 +2079,7 @@ def phase_checkpoint(kdd: dict):
          pll_test=kdd['pll_test'], resume_steps=RESUME_STEPS,
          resume_launches=resume, resume_bit_equal=bit_equal,
          resume_max_rel_gap=gap)
-    return ({'vq_argmin': serve_launches + resume['vq_argmin'],
-             'adam': resume['adam'], 'ema': resume['ema']})
+    return _sum_launches(resume, _launches(vq_argmin=serve_launches))
 
 
 def phase_cmll_kdd(kdd: dict):
@@ -1972,7 +2157,7 @@ def phase_run_epochs(kdd: dict) -> dict:
     data, each counted, with its metrics read once ([E, 4] and [S, E, 4]);
     held bit-equal (state and metrics) to `fit` and `fit_packed` from the
     same init, which are not counted."""
-    from pgmvae_tpu_torch.ops import cuda_ema, cuda_vq, fused_adam
+    from pgmvae_tpu_torch import graphs
     tr, y = kdd['tr'], kdd['y']
     seeds = list(PACKED_SEEDS)
     data = torch.as_tensor(y, device='cuda')
@@ -1984,7 +2169,7 @@ def phase_run_epochs(kdd: dict) -> dict:
         state = tr.init_states_packed(seeds) if packed else _kdd_init(tr)
         torch.cuda.synchronize()
         # ---- the main path, counted
-        cuda_vq.LAUNCHES = fused_adam.LAUNCHES = cuda_ema.LAUNCHES = 0
+        graphs.reset_launch_counts()
         t0 = time.time()
         if packed:
             state, ms = tr.run_epochs_packed(state, data, seeds, 0,
@@ -1993,14 +2178,13 @@ def phase_run_epochs(kdd: dict) -> dict:
             state, ms = tr.run_epochs(state, data, KDD_SEED, 0, RUN_EPOCHS)
         ms = ms.cpu().numpy()
         seconds = time.time() - t0
-        launches[name] = {'vq_argmin': cuda_vq.LAUNCHES,
-                          'adam': fused_adam.LAUNCHES,
-                          'ema': cuda_ema.LAUNCHES}
+        launches[name] = graphs.named_launch_counts()
         # ---- end of the counted run
         tr.release_graphs()
-        assert launches[name] == {
-            'vq_argmin': steps,
-            'adam': steps * _adam_per_step(n_leaves), 'ema': steps}, launches
+        assert launches[name] == _launches(
+            vq_argmin=steps,
+            adam=steps * _adam_per_step(n_leaves), ema=steps,
+            recon=2 * steps), launches
         assert ms.shape == ((len(seeds),) if packed else ()) + (
             RUN_EPOCHS, 4), ms.shape
         with _uncounted():
@@ -2032,7 +2216,7 @@ def phase_train_kdd_full(splits: dict) -> dict:
     graph path, counted, on the shared-factor splits; its wall time and
     steps/s, and the test PLL's move from the initial model's (stage 2 on
     the whole train split, uncounted)."""
-    from pgmvae_tpu_torch.ops import cuda_ema, cuda_vq, fused_adam
+    from pgmvae_tpu_torch import graphs
     from pgmvae_tpu_torch.stage2 import Stage2
     from pgmvae_tpu_torch.train import Trainer
     cfg = _kdd_config()
@@ -2049,20 +2233,19 @@ def phase_train_kdd_full(splits: dict) -> dict:
         pll_init = pll()
     mark = _memory_mark()
     # ---- the main path, counted
-    cuda_vq.LAUNCHES = fused_adam.LAUNCHES = cuda_ema.LAUNCHES = 0
+    graphs.reset_launch_counts()
     t0 = time.time()
     state, hist = tr.fit(state, y, 1, seed=KDD_SEED)
     torch.cuda.synchronize()
     seconds = time.time() - t0
-    launches = {'vq_argmin': cuda_vq.LAUNCHES, 'adam': fused_adam.LAUNCHES,
-                'ema': cuda_ema.LAUNCHES}
+    launches = graphs.named_launch_counts()
     # ---- end of the counted run
     memory = _memory_since(mark)
     steps = tr.steps_per_epoch
     n_leaves = 4 * (len(cfg.units) + 1)
-    assert steps == 5628 and launches == {
-        'vq_argmin': steps, 'adam': steps * _adam_per_step(n_leaves),
-        'ema': steps}, (steps, launches)
+    assert steps == 5628 and launches == _launches(
+        vq_argmin=steps, adam=steps * _adam_per_step(n_leaves),
+        ema=steps, recon=2 * steps), (steps, launches)
     assert np.isfinite(list(hist[0])).all(), hist
     with _uncounted():
         t1 = time.time()
@@ -2130,7 +2313,7 @@ def _cli(tmp: str, flags: list, module=None, base=CLI_FLAGS):
     cwd = os.getcwd()
     os.chdir(tmp)
     # ---- the main path, counted
-    graphs._set_launch_counts((0,) * len(graphs.COUNTERS))
+    graphs.reset_launch_counts()
     try:
         t0 = time.time()
         rc = module.main(base + flags + ['--data-dir', tmp])
@@ -2240,30 +2423,32 @@ def phase_cli():
             for name, r in runs.items()} == {
         name: 3 * steps if name == 'compute_bf16' else 0 for name in runs}
     # the packed grid: 2 groups of 2 seeds, one launch a step (a nearest-
-    # code call, an Adam update) for both seeds; stage 2 per seed as in an
-    # unpacked cell
+    # code call, an Adam update; the reconstruction tail two) for both
+    # seeds; stage 2 per seed as in an unpacked cell
     stage2 = vq['pallas'] - 3 * steps
     assert sweep['grid']['launches'] == {
         'vq_argmin': 2 * 3 * steps + 4 * stage2, 'vq_argmin_bf16': 0,
         'adam': 2 * 3 * steps * adam, 'adam_bf16': 0,
-        'ema': 2 * 3 * steps}, sweep
+        'ema': 2 * 3 * steps, 'recon': 2 * 2 * 3 * steps}, sweep
     # the isolated cell ran on the card in its own process, through the
     # three kernels: one launch a step of each, and its stage 2
     iso = sweep['isolate']['cell_process']
     assert iso == {'device': 'cuda:0', 'launches': {
         'vq_argmin': 3 * steps + stage2, 'vq_argmin_bf16': 0,
-        'adam': 3 * steps * adam, 'adam_bf16': 0, 'ema': 3 * steps}}, iso
+        'adam': 3 * steps * adam, 'adam_bf16': 0, 'ema': 3 * steps,
+        'recon': 2 * 3 * steps}}, iso
     for name, r in runs.items():
         n = (1 if name == 'resume' else 3) * steps
         want = ({'adam': 0, 'adam_bf16': n * adam} if name == 'fused_bf16'
                 else {'adam': n * adam, 'adam_bf16': 0})
         want['ema'] = n
+        want['recon'] = 2 * n
         got = {k: r['launches'][k] for k in want}
         assert got == want, (name, got, want)
     assert serve_launches == 1, serve_launches
     assert prof_launches == {'vq_argmin': vq['resume'], 'vq_argmin_bf16': 0,
                              'adam': steps * adam, 'adam_bf16': 0,
-                             'ema': steps}, prof_launches
+                             'ema': steps, 'recon': 2 * steps}, prof_launches
     np.testing.assert_allclose(scores.mean(),
                                runs['checkpoint_cmll']['result']['pll-test'],
                                rtol=1e-5)
@@ -2358,9 +2543,9 @@ def phase_sweep_kdd(kdd: dict, packed_pll: float):
     stage2 = sum(-(-y.shape[0] // chunk)
                  for y in (rows['train'], *rows.values()))
     n_leaves = 4 * (len(tr.cfg.units) + 1)
-    assert launches == {'vq_argmin': 200 + 4 * stage2, 'vq_argmin_bf16': 0,
-                        'adam': 200 * _adam_per_step(n_leaves),
-                        'adam_bf16': 0, 'ema': 200}, launches
+    assert launches == _launches(vq_argmin=200 + 4 * stage2,
+                                 adam=200 * _adam_per_step(n_leaves),
+                                 ema=200, recon=400), launches
     plls = [r['pll_test'] for r in records]
     assert all(np.isfinite(v) and v < 0 for v in plls), plls
     assert abs(plls[0] - packed_pll) <= 1e-5 * abs(packed_pll), (
@@ -2396,9 +2581,8 @@ def phase_packed_kdd_bf16(kdd: dict, f32_losses: list):
     the float32 packed run's (the JAX package's sanity band,
     tests/test_compute_dtype.py). Last, a profile of one replayed packed
     bf16 epoch and the kernel's share of its device time."""
-    from pgmvae_tpu_torch import run_pipeline
+    from pgmvae_tpu_torch import graphs, run_pipeline
     from pgmvae_tpu_torch.models import vqvae
-    from pgmvae_tpu_torch.ops import cuda_ema, cuda_vq, fused_adam
     from pgmvae_tpu_torch.stage2 import Stage2
     from pgmvae_tpu_torch.train import Trainer
     from pgmvae_tpu_torch.utils.logging import run_identifier
@@ -2424,7 +2608,7 @@ def phase_packed_kdd_bf16(kdd: dict, f32_losses: list):
     per_step = _adam_per_step(n_leaves)
     assert cli_launches == {'vq_argmin': 4 * stage2, 'vq_argmin_bf16': 200,
                             'adam': 200 * per_step, 'adam_bf16': 0,
-                            'ema': 200}, cli_launches
+                            'ema': 200, 'recon': 400}, cli_launches
     plls = {k: [r[k] for r in records]
             for k in ('pll_train', 'pll_valid', 'pll_test')}
     assert all(np.isfinite(v) and v < 0 for vs in plls.values()
@@ -2434,19 +2618,17 @@ def phase_packed_kdd_bf16(kdd: dict, f32_losses: list):
     states = tr.init_states_packed(seeds)
     mark = _memory_mark()
     # ---- the main path, counted
-    cuda_vq.LAUNCHES = cuda_vq.LAUNCHES_BF16 = fused_adam.LAUNCHES = 0
-    cuda_ema.LAUNCHES = 0
+    graphs.reset_launch_counts()
     t0 = time.time()
     states, ms = tr.fit_packed(states, y, 1, seeds)
     torch.cuda.synchronize()
     seconds = time.time() - t0
-    launches = {'vq_argmin': cuda_vq.LAUNCHES,
-                'vq_argmin_bf16': cuda_vq.LAUNCHES_BF16,
-                'adam': fused_adam.LAUNCHES, 'ema': cuda_ema.LAUNCHES}
+    launches = graphs.named_launch_counts()
     # ---- end of the counted run
     memory = _memory_since(mark)
-    assert launches == {'vq_argmin': 0, 'vq_argmin_bf16': 200,
-                        'adam': 200 * per_step, 'ema': 200}, launches
+    assert launches == _launches(vq_argmin_bf16=200,
+                                 adam=200 * per_step, ema=200,
+                                 recon=400), launches
     masters = (vqvae.param_leaves(states.params)
                + vqvae.param_leaves(states.opt_state.mu)
                + vqvae.param_leaves(states.opt_state.nu)
@@ -2700,6 +2882,7 @@ def phase_mesh_bbc():
     expect_adam = n_ranks * (1 + steps) * _adam_per_step(20)
     assert launches['vq_argmin'] == expect_vq, (launches, expect_vq)
     assert launches['adam'] == expect_adam, (launches, expect_adam)
+    assert launches['recon'] == 2 * n_ranks * (1 + steps), launches
     # two 'data' ranks: the EMA step is the dense one, all-reduced
     assert launches['ema'] == 0, launches
     emit('mesh_bbc', mesh=list(MESH_BBC), backend=res[0]['backend'],
@@ -2715,7 +2898,7 @@ def phase_mesh_bbc():
          mesh_step_ms=1e3 * max(r['fit_s'] for r in res) / steps,
          one_device_step_ms=1e3 * one_fit_s / steps, world_s=world_s,
          rank_peak_gb=[r['peak_gb'] for r in res])
-    return {k: launches[k] for k in ('vq_argmin', 'adam', 'ema')}
+    return {k: launches[k] for k in ('vq_argmin', 'adam', 'ema', 'recon')}
 
 
 def phase_mesh_dryrun():
@@ -2734,7 +2917,11 @@ def phase_mesh_dryrun():
         jax_line = json.load(f)['tail'].strip()
     emit('mesh_dryrun', line=report['line'], jax_line=jax_line,
          launches=report['launches'], seconds=seconds)
-    return report['launches']
+    # every rank's train step: the reconstruction tail's two kernels and
+    # one Adam update (one table of leaves)
+    launches = report['launches']
+    assert launches['recon'] == 2 * launches['adam'] > 0, launches
+    return launches
 
 
 def _nccl_rank(device, y, graphs):
@@ -2782,9 +2969,9 @@ def phase_mesh_nccl(kdd: dict):
     assert not bad, ('NCCL mesh epoch vs unmeshed graph epoch', bad[:8])
     steps = tr.steps_per_epoch
     assert {k: ranks[0].launches[k] for k in ('vq_argmin', 'adam',
-                                              'ema')} == {
+                                              'ema', 'recon')} == {
         'vq_argmin': steps, 'adam': steps * _adam_per_step(20),
-        'ema': steps}, ranks[0].launches
+        'ema': steps, 'recon': 2 * steps}, ranks[0].launches
     emit('mesh_nccl', backend='nccl', world=1, captured=captured,
          capture_error=error, graph=got['graph'], steps=tr.steps_per_epoch,
          loss=got['loss'], loss_unmeshed=hist[0].loss,
@@ -2840,8 +3027,11 @@ def phase_cli_mesh():
                             seconds=pipe_s)
     launches = {k: mesh['launches'][k] + rec['mesh']['launches'][k]
                 for k in mesh['launches']}
-    # two 'data' ranks: the EMA step is the dense one, all-reduced
+    # two 'data' ranks: the EMA step is the dense one, all-reduced; every
+    # rank's step launches the reconstruction tail's two kernels and one
+    # Adam update (one table of leaves)
     assert launches['ema'] == 0, launches
+    assert launches['recon'] == 2 * launches['adam'] > 0, launches
     emit('cli_mesh', launches=launches, **out)
     return launches
 
@@ -3014,6 +3204,8 @@ def phase_sweep_memory() -> dict:
                                                      2 * adam], runs
     assert [r['launches']['ema'] for r in runs] == [3 * steps, steps, steps,
                                                     2 * steps], runs
+    assert [r['launches']['recon'] for r in runs] == [
+        6 * steps, 2 * steps, 2 * steps, 4 * steps], runs
     return _sum_launches(*(r['launches'] for r in runs))
 
 
@@ -3029,7 +3221,7 @@ def _twin(module, argv: list):
     from pgmvae_tpu_torch import graphs
     out = io.StringIO()
     # ---- the main path, counted
-    graphs._set_launch_counts((0,) * len(graphs.COUNTERS))
+    graphs.reset_launch_counts()
     t0 = time.time()
     with contextlib.redirect_stdout(out):
         rc = module.main(argv)
@@ -3041,15 +3233,25 @@ def _twin(module, argv: list):
     return rc, lines, launches, seconds
 
 
+def _launches(**counts) -> dict:
+    """Launch counts by name, as `graphs.named_launch_counts()` gives
+    them: the counters named here, every other counter 0."""
+    from pgmvae_tpu_torch import graphs
+    unknown = set(counts) - set(graphs.LAUNCH_NAMES)
+    assert not unknown, unknown
+    return {**dict.fromkeys(graphs.LAUNCH_NAMES, 0), **counts}
+
+
 def _train_launches(cfg, steps: int, adam_impl: str) -> dict:
     """The launches of `steps` train steps of `cfg`: one nearest-code call
     a step (the bf16 instance under bf16 compute), one Adam launch a
-    table of leaves a step (the bf16-moment variant for fused_bf16) and
-    one EMA step a step (EMA quantizer)."""
-    from pgmvae_tpu_torch import graphs
-    want = dict.fromkeys(graphs.LAUNCH_NAMES, 0)
+    table of leaves a step (the bf16-moment variant for fused_bf16), one
+    EMA step a step (EMA quantizer) and the reconstruction tail's forward
+    and backward kernels a step."""
+    want = _launches()
     if cfg.quantizer == 'ema':
         want['ema'] = steps
+    want['recon'] = 2 * steps
     want['vq_argmin_bf16' if cfg.compute_dtype == 'bf16'
          else 'vq_argmin'] = steps
     want['adam_bf16' if adam_impl == 'fused_bf16' else 'adam'] = (
@@ -3071,7 +3273,7 @@ def phase_bench() -> dict:
     card, every cell measured (no `_error`), MFU at most 100% of the
     card's peak for its arithmetic, one graph capture per kind and run,
     and the launches its epochs, batches and Gibbs steps imply."""
-    from pgmvae_tpu_torch import bench, bench_cmll, bench_packed, graphs
+    from pgmvae_tpu_torch import bench, bench_cmll, bench_packed
     from pgmvae_tpu_torch.models import vqvae
     from pgmvae_tpu_torch.registry import REGISTRY
     from pgmvae_tpu_torch.stage2 import Stage2
@@ -3090,9 +3292,7 @@ def phase_bench() -> dict:
     assert head['replays'] == steps - 1, head
     chunk = Stage2(bench.NLTCS_CFG, device='cuda').chunk
     chunks = -(-nltcs.n_train // chunk) + -(-nltcs.n_test // chunk)
-    assert head['stage2_launches'] == {**dict.fromkeys(graphs.LAUNCH_NAMES,
-                                                       0),
-                                       'vq_argmin': chunks}, head
+    assert head['stage2_launches'] == _launches(vq_argmin=chunks), head
     recorded = [head['launches'], head['stage2_launches']]
     for cell in bench.CELLS:
         rec = line[cell.key]
@@ -3264,7 +3464,7 @@ def phase_stream_big() -> dict:
     codebook = core.codebook(state)
     mark = _memory_mark()
     # ---- the main path, counted
-    graphs._set_launch_counts((0,) * len(graphs.COUNTERS))
+    graphs.reset_launch_counts()
     t0 = time.time()
     dist = s2.cpt(state.params, codebook, data)
     cpt_seconds = time.time() - t0
@@ -3275,8 +3475,7 @@ def phase_stream_big() -> dict:
     s2_memory = _memory_since(mark)
     chunks = -(-rows // s2.chunk)
     assert (s2.chunk, chunks) == (1365, 13_828), (s2.chunk, chunks)
-    assert s2_launches == {**dict.fromkeys(graphs.LAUNCH_NAMES, 0),
-                           'vq_argmin': 2 * chunks}, s2_launches
+    assert s2_launches == _launches(vq_argmin=2 * chunks), s2_launches
     assert s2_memory['allocated_growth_gb'] < half_gb, s2_memory
     (n1, n0), again = counted
     for a, b in zip(again, (n1, n0)):
@@ -3424,9 +3623,9 @@ def phase_cli_big() -> dict:
     steps = -(-rows // 256)
     chunks = sum(-(-n // chunk) for n, chunk, _ in counted)
     adam = _adam_per_step(4 * (len(REGISTRY['kdd'].encoder_units(10)) + 1))
-    assert launches == {'vq_argmin': steps + chunks, 'vq_argmin_bf16': 0,
-                        'adam': steps * adam, 'adam_bf16': 0,
-                        'ema': steps}, launches
+    assert launches == _launches(vq_argmin=steps + chunks, vq_argmin_bf16=0,
+                                 adam=steps * adam, adam_bf16=0,
+                                 ema=steps, recon=2 * steps), launches
     return launches
 
 
@@ -3444,6 +3643,7 @@ def main() -> int:
     adam_row = phase_kernel_adam()
     adam_bf16_row = phase_kernel_adam(torch.bfloat16)
     ema_rows = phase_kernel_ema()
+    recon_rows = phase_kernel_recon()
     launches, slice_err = phase_slice()
     small_err = phase_small_reference()
     train_launches, train_err, train_gap, trained = phase_train()
@@ -3551,7 +3751,32 @@ def main() -> int:
                  'stream_big': stream_big_launches['ema'],
                  'sweep_memory': sweep_memory_launches['ema'],
                  'cli_big': cli_big_launches['ema']}
+    # two launches (forward, backward) a training step on every path
+    recon_paths = {'train': train_launches['recon'],
+                   'train_bf16': bf16_launches['recon'],
+                   'train_kdd': kdd_launches['recon'],
+                   'checkpoint': ckpt_launches['recon'],
+                   'stream_kdd': stream_launches['recon'],
+                   'packed_kdd': packed_launches['recon'],
+                   'sweep_kdd': sweep_kdd_launches['recon'],
+                   'packed_kdd_bf16': packed_bf16['cli']['recon'],
+                   'packed_kdd_bf16_fit': packed_bf16['fit']['recon'],
+                   'run_epochs': epochs_launches['run_epochs']['recon'],
+                   'run_epochs_packed':
+                       epochs_launches['run_epochs_packed']['recon'],
+                   'train_kdd_full': full_launches['recon'],
+                   'cli': cli_launches['recon'],
+                   'mesh_nccl': nccl_launches['recon'],
+                   'mesh_dryrun': dryrun_launches['recon'],
+                   'mesh_bbc': mesh_bbc_launches['recon'],
+                   'cli_mesh': cli_mesh_launches['recon'],
+                   'bench': bench_launches['recon'],
+                   'stream_big': stream_big_launches['recon'],
+                   'sweep_memory': sweep_memory_launches['recon'],
+                   'cli_big': cli_big_launches['recon']}
+    assert all(recon_paths.values()), recon_paths
     ema_row = ema_rows[EMA_SHAPES[0]]
+    recon_row = recon_rows[tuple(RECON_CASES[1])]
     timed = ('ms', 'device_ms', 'plain_ms', 'plain_device_ms',
              'bound_ms', 'bound_by', 'library_ms', 'library_device_ms')
     print(json.dumps({'kernels': [{
@@ -3601,7 +3826,17 @@ def main() -> int:
         **{key: ema_row[key] for key in timed},
         'device_ms_by': DEVICE_TIMER,
         'shape': ema_row['shape'],
-        'shapes_compared': [row['shape'] for row in ema_rows.values()]}]}))
+        'shapes_compared': [row['shape'] for row in ema_rows.values()]}, {
+        'name': 'recon_loss', 'route': 'cuda',
+        'source': 'pgmvae_tpu_torch/ops/csrc/recon_loss.cu',
+        'replaces': None,     # the JAX package leaves the loss to XLA
+        'launches': sum(recon_paths.values()),
+        'launches_by_path': recon_paths,
+        'max_grad_rel': max(row['grad_rel'] for row in recon_rows.values()),
+        **{key: recon_row[key] for key in timed},
+        'device_ms_by': DEVICE_TIMER,
+        'shape': recon_row['shape'],
+        'cases_compared': [list(spec) for spec in recon_rows]}]}))
     print(smi)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

@@ -33,10 +33,11 @@ eager loop makes and the caller's generators end where the eager loop would
 leave them.
 
 Launch accounting: the kernel wrappers count a launch when Python calls
-them (`cuda_vq.LAUNCHES`, `fused_adam.LAUNCHES`, their bfloat16 twins, and
-`cuda_ema.LAUNCHES`). A capture calls them without launching anything, so
-the counts a capture adds are taken back and kept as the graph's launches
-per step, and every replay adds them again. The counts then read as if
+them (`cuda_vq.LAUNCHES`, `fused_adam.LAUNCHES`, their bfloat16 twins,
+`cuda_ema.LAUNCHES` and `cuda_recon.LAUNCHES`). A capture calls them
+without launching anything, so the counts a capture adds are taken back
+and kept as the graph's launches per step, and every replay adds them
+again. The counts then read as if
 every step had run eagerly.
 """
 
@@ -49,14 +50,15 @@ from typing import Callable, Optional, Sequence
 import torch
 
 from pgmvae_tpu_torch import trace
-from pgmvae_tpu_torch.ops import cuda_ema, cuda_vq, fused_adam
+from pgmvae_tpu_torch.ops import cuda_ema, cuda_recon, cuda_vq, fused_adam
 
 # (module, attribute, name in reports) of every kernel launch counter
 COUNTERS = ((cuda_vq, 'LAUNCHES', 'vq_argmin'),
             (cuda_vq, 'LAUNCHES_BF16', 'vq_argmin_bf16'),
             (fused_adam, 'LAUNCHES', 'adam'),
             (fused_adam, 'LAUNCHES_BF16', 'adam_bf16'),
-            (cuda_ema, 'LAUNCHES', 'ema'))
+            (cuda_ema, 'LAUNCHES', 'ema'),
+            (cuda_recon, 'LAUNCHES', 'recon'))
 LAUNCH_NAMES = tuple(name for _, _, name in COUNTERS)
 
 
@@ -79,6 +81,11 @@ def add_launches(per_step: Sequence[int], steps: int = 1) -> None:
 def _set_launch_counts(counts: Sequence[int]) -> None:
     for (module, attr, _), n in zip(COUNTERS, counts):
         setattr(module, attr, n)
+
+
+def reset_launch_counts() -> None:
+    """Set every kernel launch counter to 0."""
+    _set_launch_counts((0,) * len(COUNTERS))
 
 
 _CAPTURE_STREAMS = {}      # CUDA device index -> its capture stream

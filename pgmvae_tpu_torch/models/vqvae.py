@@ -302,10 +302,22 @@ class ForwardOut(NamedTuple):
     q_loss: torch.Tensor      # codebook loss (0 for ema/naive)
 
 
-def _decode(params, x: torch.Tensor, activation: str = 'selu'):
+class LogitsOut(NamedTuple):
+    """ForwardOut with the decoder's logits [n, B, n_var] (its last
+    pre-activation, before the sigmoid) in place of recon."""
+    logits: torch.Tensor
+    z: torch.Tensor
+    indices: torch.Tensor
+    e_loss: torch.Tensor
+    q_loss: torch.Tensor
+
+
+def decode_logits(params, x: torch.Tensor, activation: str = 'selu'):
+    """The decoder without its output sigmoid: latents [F, B, D] ->
+    logits [F, B, n_var]."""
     hidden, (w, b) = params['dec'][:-1], params['dec'][-1]
     x = _dense_stack(hidden, x, activation_fn(activation))
-    return torch.sigmoid(torch.baddbmm(b, x, w))
+    return torch.baddbmm(b, x, w)
 
 
 def apply_model(params, codebook, y: torch.Tensor, cfg: VqVaeConfig,
@@ -320,6 +332,18 @@ def apply_model(params, codebook, y: torch.Tensor, cfg: VqVaeConfig,
     recon is [S * n_var, B, n_var] and the losses are per seed, [S]. With
     `shard` (a mesh rank's networks and rows) the losses are the rank's
     partial sums of the global means."""
+    out = apply_model_logits(params, codebook, y, cfg, weights, var_ids,
+                             seeds, shard)
+    return ForwardOut(torch.sigmoid(out.logits), *out[1:])
+
+
+def apply_model_logits(params, codebook, y: torch.Tensor, cfg: VqVaeConfig,
+                       weights: Optional[torch.Tensor] = None,
+                       var_ids: Optional[torch.Tensor] = None,
+                       seeds: Optional[int] = None,
+                       shard: Optional[q.Shard] = None) -> LogitsOut:
+    """`apply_model` with the decoder's logits in place of its sigmoid
+    (the trainer's loss takes them: `ops/cuda_recon.py`)."""
     z = encode(params, y, var_ids, cfg.activation, cfg.first_layer, seeds,
                lo=0 if shard is None else shard.lo)
     # with explicit var_ids the rows are selection positions, not variable
@@ -336,8 +360,8 @@ def apply_model(params, codebook, y: torch.Tensor, cfg: VqVaeConfig,
         latent, indices, e_loss, q_loss = q.vq_forward(
             z, codebook, weights, impl=cfg.vq_impl, n_active=na,
             seeds=seeds, shard=shard)
-    recon = _decode(params, latent, cfg.activation)
-    return ForwardOut(recon, z, indices, e_loss, q_loss)
+    return LogitsOut(decode_logits(params, latent, cfg.activation), z,
+                     indices, e_loss, q_loss)
 
 
 def map_params(fn, params):

@@ -12,6 +12,8 @@ per `fit`. adam_impl 'fused_bf16' keeps the Adam moments in bfloat16.
 
 Loss: mse over each network's leave-one-out reconstruction, plus
 cost*e_loss (plus q_loss for the 'vq' quantizer), plus l2_reg*l2_penalty.
+The mse and the mae metric come from the decoder's logits through
+`ops/cuda_recon.py`: on CUDA one forward and one backward kernel a step.
 Adam uses eps=1e-7 (the Keras default).
 
 compute_dtype 'bf16': the forward and backward passes run in bfloat16. The
@@ -92,7 +94,7 @@ import torch
 from pgmvae_tpu_torch import graphs, resolve_device
 from pgmvae_tpu_torch.data.pinned import pinned_pieces
 from pgmvae_tpu_torch.models import vqvae
-from pgmvae_tpu_torch.ops import cuda_ema, fused_adam
+from pgmvae_tpu_torch.ops import cuda_ema, cuda_recon, fused_adam
 from pgmvae_tpu_torch.ops import quantizer as q
 from pgmvae_tpu_torch.parallel.mesh import MeshContext, shard_leading_axis
 from pgmvae_tpu_torch.trace import span
@@ -121,28 +123,6 @@ class EpochMetrics(NamedTuple):
     mse: float         # reconstruction mse
     mae: float         # mean absolute reconstruction error
     perplexity: float  # codebook usage: exp(entropy of code histogram)
-
-
-def _masked_recon_mean(x, w, mask, n_active=None, wsum=None):
-    """Mean over a [n, B, n] tensor with per-sample weights w [B] and the
-    leave-one-out mask [n, 1, n]: denominator n*(n-1)*sum(w), the mean over
-    the reference's gathered [n, B, n-1] views. A packed [S, n, B, n] tensor
-    gives one mean per seed, [S]. A mesh rank passes its networks' mask rows,
-    the global n (n_active) and the global batch's `wsum`: its share of the
-    global mean."""
-    n = n_active if n_active is not None else x.shape[-3]
-    x = x * mask * w[None, :, None]
-    total = torch.sum(x) if x.dim() == 3 else torch.sum(x, (1, 2, 3))
-    return total / (n * (n - 1) * torch.clamp(
-        torch.sum(w) if wsum is None else wsum, min=1.0))
-
-
-def _recon_error(recon, y, seeds=None):
-    """recon - y for every network: [n, B, n_var], or packed [S, n, B,
-    n_var] from recon [S * n, B, n_var] and y [S, B, n_var]."""
-    if seeds is None:
-        return recon - y[None]
-    return recon.view(seeds, -1, *recon.shape[1:]) - y[:, None]
 
 
 def _map_state(fn, *states):
@@ -334,8 +314,11 @@ class Trainer:
         return None
 
     # ------------------------------------------------------------- step --
-    def _loss(self, params, state: TrainState, y, w, mask, seeds=None,
+    def _loss(self, params, state: TrainState, y, w, seeds=None,
               shard: Optional[q.Shard] = None):
+        """(total loss, the forward's outputs, mse, mae): the mse and mae
+        of the decoder's logits against the float32 y from one
+        `cuda_recon.recon_loss` (the kernel pair on CUDA)."""
         cfg = self.cfg
         cdt = COMPUTE_DTYPES[cfg.compute_dtype]
         p, yc = params, y
@@ -349,12 +332,11 @@ class Trainer:
                 codebook = p['codebook']
             elif codebook is not None:
                 codebook = codebook.to(cdt)
-        out = vqvae.apply_model(p, codebook, yc, cfg, weights=w, seeds=seeds,
-                                shard=shard)
-        # the float32 mask and weights make the sums float32
-        mse = _masked_recon_mean(_recon_error(out.recon, yc, seeds) ** 2, w,
-                                 mask, cfg.active_vars,
-                                 None if shard is None else shard.wsum)
+        out = vqvae.apply_model_logits(p, codebook, yc, cfg, weights=w,
+                                       seeds=seeds, shard=shard)
+        mse, mae = cuda_recon.recon_loss(
+            out.logits, y, w, seeds, 0 if shard is None else shard.lo,
+            cfg.active_vars, None if shard is None else shard.wsum)
         if cfg.quantizer == 'vq':
             aux = out.q_loss + cfg.cost * out.e_loss
         else:  # 'ema' and 'naive': commitment term only
@@ -365,7 +347,7 @@ class Trainer:
         # gives its gradient once
         if cfg.l2_reg > 0 and self.mesh.data_rank == 0:
             total = total + cfg.l2_reg * vqvae.l2_penalty(params, seeds)
-        return total, out, mse
+        return total, out, mse, mae
 
     def _step(self, state: TrainState, y: torch.Tensor, w: torch.Tensor,
               generators=None, seeds: Optional[int] = None):
@@ -374,21 +356,17 @@ class Trainer:
         [S, 4]). `generators` (one a seed) draw the dead-code restarts.
         Under a mesh y and w are the global batch (see the module doc)."""
         cfg, mesh = self.cfg, self.mesh
-        shard, var_ids, w_all = None, None, w
+        shard, w_all = None, w
         if mesh.mesh is not None:
-            lo, hi = self.var_range
-            shard = q.Shard(lo, cfg.n_var, torch.sum(w))
-            var_ids = torch.arange(lo, hi, device=y.device)
+            shard = q.Shard(self.var_range[0], cfg.n_var, torch.sum(w))
             w_all = mesh.padded_rows(w)
             y, w = mesh.local_rows(y), mesh.local_rows(w)
-        mask = vqvae.loo_mask(cfg.n_var, var_ids, y.dtype,
-                              n_active=cfg.active_vars, device=y.device)
         leaves = vqvae.param_leaves(state.params)
         live = [p.detach().requires_grad_() for p in leaves]
         with torch.enable_grad():
-            loss, out, mse = self._loss(
+            loss, out, mse, mae = self._loss(
                 vqvae.params_from_leaves(state.params, live), state, y, w,
-                mask, seeds, shard)
+                seeds, shard)
             # packed: the sum of the seeds' losses, each seed's gradient
             grads = torch.autograd.grad(
                 loss if seeds is None else torch.sum(loss), live)
@@ -424,9 +402,6 @@ class Trainer:
                 counts.scatter_add_(1, out.indices.long(),
                                     w[None, :].expand(rows, -1))
                 counts = mesh.all_reduce(counts, 'data')
-            mae = _masked_recon_mean(
-                torch.abs(_recon_error(out.recon.detach(), y, seeds)), w,
-                mask, cfg.active_vars, None if shard is None else shard.wsum)
             if counts is None:
                 perplexity = torch.zeros(() if seeds is None else (seeds,),
                                          dtype=y.dtype, device=y.device)

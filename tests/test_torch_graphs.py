@@ -17,7 +17,7 @@ import torch
 from pgmvae_tpu_torch import gibbs as tg
 from pgmvae_tpu_torch import graphs
 from pgmvae_tpu_torch.models import vqvae as tv
-from pgmvae_tpu_torch.ops import cuda_ema, cuda_vq, fused_adam
+from pgmvae_tpu_torch.ops import cuda_ema, cuda_recon, cuda_vq, fused_adam
 from pgmvae_tpu_torch.train import EpochMetrics, Trainer, _map_state, \
     copy_state
 
@@ -271,16 +271,30 @@ def test_replays_add_the_captured_launches(counters, monkeypatch):
         cuda_vq.LAUNCHES += 1
         fused_adam.LAUNCHES += 20
         cuda_ema.LAUNCHES += 1
+        cuda_recon.LAUNCHES += 2
     g = graphs.StepGraph(body, 'cpu', capture=True)
     replays = _stub_graph(monkeypatch, g, True)
     g.run(5)
-    assert (cuda_vq.LAUNCHES, fused_adam.LAUNCHES, cuda_ema.LAUNCHES) == (
-        5, 100, 5)
-    assert g.launches == (1, 0, 20, 0, 1) and len(replays) == 4
+    assert (cuda_vq.LAUNCHES, fused_adam.LAUNCHES, cuda_ema.LAUNCHES,
+            cuda_recon.LAUNCHES) == (5, 100, 5, 10)
+    assert g.launches == (1, 0, 20, 0, 1, 2) and len(replays) == 4
     g.run(3)
-    assert graphs.launch_counts() == (8, 0, 160, 0, 8) and len(replays) == 7
+    assert graphs.launch_counts() == (8, 0, 160, 0, 8, 16)
+    assert len(replays) == 7
     g.run(0)
-    assert graphs.launch_counts() == (8, 0, 160, 0, 8)
+    assert graphs.launch_counts() == (8, 0, 160, 0, 8, 16)
+
+
+def test_reset_zeroes_every_named_counter(counters):
+    """`reset_launch_counts` sets every counter of COUNTERS to 0, and
+    `named_launch_counts` reads each under its report name."""
+    graphs.add_launches(range(1, len(graphs.COUNTERS) + 1), steps=3)
+    assert graphs.named_launch_counts() == {
+        name: 3 * (i + 1) for i, name in enumerate(graphs.LAUNCH_NAMES)}
+    assert graphs.named_launch_counts()['recon'] == cuda_recon.LAUNCHES
+    graphs.reset_launch_counts()
+    assert graphs.named_launch_counts() == dict.fromkeys(
+        graphs.LAUNCH_NAMES, 0)
 
 
 def test_replays_draw_what_the_eager_loop_draws(monkeypatch):

@@ -11,9 +11,9 @@ import torch
 from pgmvae_tpu import train as jtrain
 from pgmvae_tpu.models import vqvae as jv
 from pgmvae_tpu.ops import quantizer as jq
-from pgmvae_tpu_torch import train as ttrain
 from pgmvae_tpu_torch.convert import params_from_jax
 from pgmvae_tpu_torch.models import vqvae as tv
+from pgmvae_tpu_torch.ops import cuda_recon
 from pgmvae_tpu_torch.ops import quantizer as tq
 
 
@@ -231,8 +231,8 @@ def _torch_loss(cfg, y, w):
     def loss(params, codebook):
         cbk = params['codebook'] if cfg.quantizer == 'vq' else codebook
         out = tv.apply_model(params, cbk, y, cfg, weights=w)
-        mse = ttrain._masked_recon_mean((out.recon - y[None]) ** 2, w, mask,
-                                        cfg.active_vars)
+        mse = cuda_recon.masked_recon_mean((out.recon - y[None]) ** 2, w,
+                                           mask, cfg.active_vars)
         aux = cfg.cost * out.e_loss
         if cfg.quantizer == 'vq':
             aux = aux + out.q_loss
