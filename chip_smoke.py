@@ -131,6 +131,10 @@ STREAM_SHAPES = [(64, 256, 10, 64), (64, 1365, 10, 64)]
 # stream_big's shapes, cli_big's too): the packed pair's train batch (S=2)
 # and the CMLL's Gibbs step (p1 = 6 blocks over 1,024 test rows)
 SWEEP_MEMORY_SHAPES = [(128, 256, 10, 64), (6, 1024, 10, 64)]
+# the float32 kernel's ragged edges, checked and not timed: K past a
+# multiple of the tile and of 4 (its 4-byte copies, the +inf tail of
+# |W_k|^2), and D = 33 (an instance unrolled to 48, with its exit)
+F32_RAGGED = [(11, 1000, 10, 4097), (3, 29, 33, 96)]
 MAIN_SHAPE = (1058, 32, 20, 50)   # the stage-2 chunk: most main-path launches
 TIE_SPLIT = (64, 32, 10, 4096)    # ties across code tiles and strips
 BF16_MAIN_SHAPE = (1058, 250, 20, 50)
@@ -403,13 +407,16 @@ def phase_build():
                     ('ema', cuda_ema), ('recon', cuda_recon))}
         seconds = {name: f.result() for name, f in futures.items()}
     vq = _ptxas(cuda_vq.library_path().with_suffix('.log'))
-    # by template arguments: vq_argmin_kernel<float, DPAD, RB, SUB> ->
-    # 'DPAD_RB_SUB'; vq_argmin_bf16_kernel<KS, MT> -> 'bf16_KS_MT'
+    # by template arguments: vq_argmin_kernel<float, DPAD, EXACT, RB, SUB>
+    # -> 'DPAD_RB_SUB', with an 'x' after DPAD where EXACT;
+    # vq_argmin_bf16_kernel<KS, MT> -> 'bf16_KS_MT'
     dpad = {}
     for e, lines in vq.items():
-        m = re.search(r'vq_argmin_kernelIfLi(\d+)ELi(\d+)ELi(\d+)E', e)
+        m = re.search(r'vq_argmin_kernelIfLi(\d+)ELb([01])ELi(\d+)ELi(\d+)E',
+                      e)
         if m:
-            dpad['_'.join(m.groups())] = lines
+            p, exact, rb, sub = m.groups()
+            dpad[f'{p}{"x" * int(exact)}_{rb}_{sub}'] = lines
         m = re.search(r'vq_argmin_bf16_kernelILi(\d+)ELi(\d+)E', e)
         if m:
             dpad['bf16_%s_%s' % m.groups()] = lines
@@ -428,7 +435,8 @@ def phase_build():
          ptxas_ema=_ptxas(cuda_ema.library_path().with_suffix('.log')),
          ptxas_recon=_ptxas(cuda_recon.library_path().with_suffix('.log')),
          ptxas_vq={key: dpad.get(key) for key in (
-             '16_4_1', '16_4_4', '24_8_1', '24_8_4', '128_4_1')
+             '10x_8_4', '10x_4_4', '10x_8_1', '20x_8_1', '20x_4_1',
+             '20x_8_4', '30x_8_1', '16_4_1', '24_8_4', '128_4_1')
              + BF16_INSTANCES},
          sass_hmma_bf16=hmma, ptxas_adam=adam)
 
@@ -442,6 +450,19 @@ def _tie_edges(bf16: bool = False):
     p = (cuda_vq.plan_bf16 if bf16 else cuda_vq.plan)(*TIE_SPLIT)
     assert p.strips > 1 and p.strip_k > p.tk, p
     return [(range(e - 16, e), range(e, e + 16)) for e in (p.tk, p.strip_k)]
+
+
+def _tie_groups():
+    """Code pairs (first copies, repeats) of the float32 plan at TIE_SPLIT,
+    for its first 16 code lanes: inside one thread's group of RK codes
+    (4j, 4j + 2), and across a group boundary of the same lane (4j + 3, the
+    first code of the lane's next group)."""
+    from pgmvae_tpu_torch.ops import cuda_vq
+    p = cuda_vq.plan(*TIE_SPLIT)
+    step = p.tk // p.sub             # a lane's next group: the next sub-tile
+    lanes = range(16)
+    return ([4 * j for j in lanes] + [4 * j + 3 for j in lanes],
+            [4 * j + 2 for j in lanes] + [step + 4 * j for j in lanes])
 
 
 def _kernel_case(kind, n, b, d, k, gen, dtype=torch.float32):
@@ -461,12 +482,18 @@ def _kernel_case(kind, n, b, d, k, gen, dtype=torch.float32):
     if kind == 'tie_tiles':              # codes 64..127 repeat codes 0..63
         w[:, :, 64:128] = w[:, :, 0:64]
         return torch.randn((n, b, d), generator=gen, device='cuda'), w
-    # tie_strips: repeated codes across the tile and the strip edge, each
+    # tie_strips: repeated codes across the tile and the strip edge (or
+    # tie_groups: inside a thread's group and across its groups), each
     # sample placed next to one first copy, so the pair is its nearest
-    src = []
-    for first, repeat in _tie_edges(dtype == torch.bfloat16):
-        w[:, :, repeat.start:repeat.stop] = w[:, :, first.start:first.stop]
-        src.extend(first)
+    if kind == 'tie_groups':
+        src, repeat = _tie_groups()
+        w[:, :, repeat] = w[:, :, src]
+    else:
+        src = []
+        for first, repeat in _tie_edges(dtype == torch.bfloat16):
+            w[:, :, repeat.start:repeat.stop] = \
+                w[:, :, first.start:first.stop]
+            src.extend(first)
     src = torch.tensor(src, device='cuda')[torch.arange(b) % len(src)]
     z = w[:, :, src].transpose(1, 2).contiguous()
     z += 1e-3 * torch.randn(z.shape, generator=gen, device='cuda')
@@ -491,6 +518,9 @@ def phase_kernel(dtype=torch.float32):
     if bf16:
         cases += ([('ragged', s) for s in BF16_RAGGED]
                   + [('unaligned', s) for s in BF16_UNALIGNED])
+    else:
+        cases += ([('tie_groups', TIE_SPLIT)]
+                  + [('ragged', s) for s in F32_RAGGED])
     for kind, (n, b, d, k) in cases:
         z, w = (t.to(dtype) for t in _kernel_case(kind, n, b, d, k, gen,
                                                   dtype))
@@ -509,6 +539,10 @@ def phase_kernel(dtype=torch.float32):
             for _, repeat in _tie_edges(bf16):
                 assert not bool(((got >= repeat.start)
                                  & (got < repeat.stop)).any()), kind
+        elif kind == 'tie_groups':
+            assert not bool(torch.isin(
+                got, torch.tensor(_tie_groups()[1], dtype=got.dtype,
+                                  device=got.device)).any()), kind
         mism, gap = near_ties(z, w, got, ref)
         max_err = max(max_err, gap)
         row = dict(kind=kind, shape=[n, b, d, k], mismatches=mism,

@@ -29,13 +29,16 @@
 // one-warp blocks on 132 SMs. So:
 // - Register micro-tiles. Each thread scores RB (4 or 8) samples x RK = 4
 //   codes: per d one 16-byte shared-memory read of its 4 codes, RB/4 reads
-//   of its samples and RB*4 FMAs, and its codes' |W_k|^2 chains in the same
-//   d loop (1/RB more FMAs, no barrier). A warp is TX = 4 code lanes x 8
-//   sample rows, so its reads touch 64 bytes of codes and 128-256 bytes of
-//   samples, one or two shared-memory wavefronts for 20-36 FMAs.
-// - The d loop reads row d + 1 before it scores row d. Unrolled to DPAD (D
-//   rounded up) with an exit at D, each step's loads would otherwise sit
-//   behind that exit branch and wait out their latency.
+//   of its samples and RB*4 FMAs. A warp is TX = 4 code lanes x 8 sample
+//   rows, so its reads touch 64 bytes of codes and 128-256 bytes of
+//   samples, one or two shared-memory wavefronts for 16-32 FMAs.
+// - The d loop reads row d + 1 before it scores row d, so shared-memory
+//   latency hides behind the FMAs. It is unrolled to DPAD: D exactly for
+//   the D the registry trains (10, 20, 30: no exit at all), else D rounded
+//   up, with an exit at D before each step's loads. The samples are read
+//   by asm loads, which the compiler leaves in the loop: they are the same
+//   in every pass, and an exact instance's loop, with no exit to stop it,
+//   would otherwise keep all RB * D of them in registers and spill.
 // - K adds parallelism inside the block: WK warps split a code sub-tile of
 //   WK*16 codes, WY warps split the samples. The z tile [TB = WY*8*RB][D]
 //   is staged once, transposed to [D][TB + 4] (the pad spreads the
@@ -44,13 +47,38 @@
 //   sub-tiles, [D][SUB*WK*16], stream through a ring of STAGES buffers
 //   filled with cp.async (16 bytes .cg where K is a multiple of 4 and W is
 //   16-byte aligned, else 4 bytes .ca; zero-fill past K), so the next tile
-//   loads while this one is scored. SUB = 4 where a strip holds enough codes
-//   spreads the ring's wait and two barriers over four sub-tiles.
-// - Each thread keeps a running (min, index) per sample, replaced only on a
-//   strict < while its codes walk upward. The merge of a sample's minima,
-//   over the TX lanes by warp shuffles and then over the WK warps through
-//   shared memory, orders by (value, then index), so the lowest index wins
-//   every tie.
+//   loads while this one is scored. SUB = 4 where a strip holds two such
+//   ring tiles or more spreads the ring's wait and barriers over four
+//   sub-tiles.
+// - With SUB = 4 (K = 4096: the kdd sweep, its Gibbs chain and stage 2) a
+//   thread walks 8 groups of RK codes or more, and their selection is
+//   grouped:
+//   - |W_k|^2 once per ring tile, into a shared table [tk] beside the ring,
+//     by the in-order fmaf chain on the tile's values (not once a pass in
+//     every thread); codes past the strip's end get +inf, so their scores
+//     (fmaf(-2, a, +inf) = +inf) never win a strict <, and the loop tests
+//     no code against K. A pass reads its 4 codes' values in one read.
+//   - A grouped minimum. For each of its samples a thread takes the
+//     minimum of a pass's RK scores (3 FMNMX) and keeps it only on a
+//     strict < against its running minimum, with the pass's first code:
+//     one compare and two selects for RK scores, not for each. Its codes
+//     walk upward, so the earliest group keeps a tie.
+//   - The merges below run on (minimum, group). Groups are disjoint runs of
+//     RK codes, so of two equal minima the lower group holds the lower
+//     code. Then one thread a sample recomputes its winning group's RK
+//     scores by the same chains, from the z tile (still in shared memory)
+//     and W (the ring, where the group's tile is one of the last two; else
+//     device memory, in L2), and takes the lowest code whose score is the
+//     minimum: the codes and minima of a compare and select on every score,
+//     bit for bit.
+//   With SUB = 1 (strips of few codes: bbc's and nltcs's K = 50, the
+//   out-of-core twin's 64, small grids cut into narrow strips) a thread
+//   walks a few groups, and the recomputation would cost about what the
+//   grouping saves: each score is compared and selected on its own, with
+//   |W_k|^2 chained in the d loop.
+// - The merge of a sample's minima, over the TX lanes by warp shuffles and
+//   then over the WK warps through shared memory, orders by (value, then
+//   index), so the lowest index wins every tie.
 // - Small grids split K. When n * ceil(B/TB) gives fewer than two blocks an
 //   SM (kdd: 64), the codes are cut into strips of whole tiles, one block
 //   each (grid.z); each block writes its strip's (min, index) to a partial
@@ -59,10 +87,16 @@
 // - Small K packs variables. Where K fits two sub-tiles and a block would
 //   be under 128 threads, VPB variables share a block (bbc's stage-2 chunk:
 //   two).
-// What still bounds it (H100, PERF.md): instruction slots and latency, not
-// FMAs or bytes. A good share of a thread's instructions are not the scores'
-// FMAs (|W_k|^2, the compare-and-select per score, loads, loop), and the
-// barriers and tile waits of short blocks are not all hidden.
+// - 128 registers a thread (two blocks of 256 threads an SM): at 80 (three
+//   blocks) the loop's shared-memory addresses no longer fit, and the
+//   Gibbs step's instance issues 6% more instructions a pass and runs 3%
+//   slower.
+// What still bounds it (H100, PERF.md): instruction slots, not FMAs or
+// bytes. At the Gibbs step's shape (D = 10, RB = 8, K = 4096) a pass of
+// 32 scores issues 449 instructions (14.0 a score; 320 of them the
+// scores' FMAs, 30 + 1 shared-memory reads, 80 for the scores and the
+// grouped minimum), about 49% of the fp32 rate's bound; the barriers and
+// tile waits of short blocks are not all hidden.
 //
 // The bfloat16 instance (`vq_argmin_bf16`, the same Pallas kernel's
 // f32-accumulated dot on bf16 operands under bf16 compute, its
@@ -124,7 +158,7 @@ constexpr int MAX_THREADS = 256;   // threads a block
 constexpr int MAX_D = 128;         // widest latent the kernel takes
 constexpr int SMEM_BYTES = 48 * 1024;
 constexpr int STAGES = 2;          // code tiles in the ring
-constexpr int BLOCKS_PER_SM = 3;   // for __launch_bounds__
+constexpr int BLOCKS_PER_SM = 2;   // for __launch_bounds__: 128 registers
 constexpr int NO_CODE = 0x7fffffff;
 
 __device__ __forceinline__ void cp_async16(float* dst, const float* src,
@@ -150,6 +184,31 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
 }
 
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes of shared memory at shared address a + OFFSET. An asm load, so
+// that the compiler keeps it where it is written: the z tile's values are
+// the same in every pass, and hoisted out of the loops they would take
+// RB * D registers (80 at RB = 8, D = 10) and spill
+template <int OFFSET>
+__device__ __forceinline__ float4 lds128(unsigned a) {
+  float4 v;
+  asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4+%5];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(a), "n"(OFFSET));
+  return v;
+}
+
+// a thread's RB samples of one z tile row, at shared address a
+template <int RB>
+__device__ __forceinline__ void load_z(float4 (&zv)[RB / 4], unsigned a) {
+  static_assert(RB == 4 || RB == 8, "RB is 4 or 8");
+  zv[0] = lds128<0>(a);
+  if constexpr (RB == 8) zv[1] = lds128<16>(a);
+}
+
 // (value, index) order: the lower value, then the lower index
 __device__ __forceinline__ bool better(float v, int i, float bv, int bi) {
   return v < bv || (v == bv && i < bi);
@@ -171,11 +230,11 @@ __device__ __forceinline__ float widen(bf16 x) {
 }
 
 // Shared memory of a block, in floats: the z tile [vpb][D][tb + 4], the
-// ring [STAGES][vpb][D][tk] and the merge buffer [vpb][wk][tb] of (value,
-// index).
+// ring [STAGES][vpb][D][tk], |W_k|^2 of a ring tile [vpb][tk] and the merge
+// buffer [vpb][wk][tb] of (value, index).
 __host__ __device__ __forceinline__ int smem_floats(int D, int tb, int tk,
                                                     int wk, int vpb) {
-  return vpb * (D * (tb + 4) + STAGES * D * tk + 2 * wk * tb);
+  return vpb * (D * (tb + 4) + STAGES * D * tk + tk + 2 * wk * tb);
 }
 
 // Fills code tile [k0, k0 + tk) of rows [row0, row0 + rows) of W viewed as
@@ -209,12 +268,19 @@ __device__ __forceinline__ void load_tile(float* dst, const T* w,
   }
 }
 
-// grid (sample tiles, variable groups, strips); block 32*wy*wk*vpb threads
-template <typename T, int DPAD, int RB, int SUB>
+// grid (sample tiles, variable groups, strips); block 32*wy*wk*vpb threads.
+// The d loops run to DPAD, and stop at s.D unless EXACT (DPAD == s.D).
+// SUB > 1 (a strip of two ring tiles of SUB sub-tiles or more, so a lane
+// walks 8 groups or more) takes the grouped minimum; SUB = 1 (few codes,
+// where a group's resolution would cost what it saves) compares and selects
+// every score, with |W_k|^2 in the d loop.
+template <typename T, int DPAD, bool EXACT, int RB, int SUB>
 __global__ void __launch_bounds__(MAX_THREADS, BLOCKS_PER_SM)
 vq_argmin_kernel(const T* __restrict__ z, const T* __restrict__ w,
                  int32_t* __restrict__ out, float* __restrict__ part_v,
                  int32_t* __restrict__ part_i, Shape s) {
+  static_assert(RK == 4, "the grouped minimum takes 4 codes");
+  constexpr bool GROUPED = SUB > 1;
   extern __shared__ float4 smem4[];
   const int tb = s.wy * ROWS * RB;
   const int tbp = tb + 4;
@@ -224,7 +290,8 @@ vq_argmin_kernel(const T* __restrict__ z, const T* __restrict__ w,
   float* zs = reinterpret_cast<float*>(smem4);     // [vpb][D][tbp]
   float* ring = zs + s.vpb * s.D * tbp;            // [STAGES][vpb][D][tk]
   const int ring_stride = s.vpb * s.D * tk;
-  float* red_v = ring + STAGES * ring_stride;      // [vpb][wk][tb]
+  float* w2s = ring + STAGES * ring_stride;        // [vpb][tk]
+  float* red_v = w2s + s.vpb * tk;                 // [vpb][wk][tb]
   int* red_i = reinterpret_cast<int*>(red_v + s.vpb * s.wk * tb);
 
   const int lane = threadIdx.x & 31;
@@ -240,16 +307,11 @@ vq_argmin_kernel(const T* __restrict__ z, const T* __restrict__ w,
   const int ke = min(ks + s.strip_k, s.K);
   const int ntiles = (ke - ks + tk - 1) / tk;
   const int rows = s.vpb * s.D;
+  const float inf = __int_as_float(0x7f800000);
 
-  // tiles 0 .. STAGES-2 in flight before the loop; one commit group each
-#pragma unroll
-  for (int t = 0; t < STAGES - 1; ++t) {
-    if (t < ntiles) {
-      load_tile(ring + t * ring_stride, w, s, v0 * s.D, rows, ks + t * tk,
-                tk, threads);
-    }
-    cp_async_commit();
-  }
+  // tile 0 in flight while the z tile is staged
+  load_tile(ring, w, s, v0 * s.D, rows, ks, tk, threads);
+  cp_async_commit();
 
   // the z tile, transposed; samples past B and variables past n are zero.
   // i / D in float: exact here, as i < tb*D <= 2^14 and 1/D errs by 2^-24
@@ -265,43 +327,58 @@ vq_argmin_kernel(const T* __restrict__ z, const T* __restrict__ w,
     }
   }
 
+  // a sample's running minimum, and its code or (GROUPED) the first code of
+  // the group that holds it; NO_CODE while none is below +inf
   float best[RB];
   int best_k[RB];
 #pragma unroll
   for (int r = 0; r < RB; ++r) {
-    best[r] = __int_as_float(0x7f800000);  // +inf
+    best[r] = inf;
     best_k[r] = NO_CODE;
   }
-  const float* zp = zs + vb * s.D * tbp + row * RB;
+  const unsigned za0 = smem_addr(zs + vb * s.D * tbp + row * RB);
   const int col = (wk * TX + tx) * RK;             // first code in the tile
 
   for (int t = 0; t < ntiles; ++t) {
-    // tile t + STAGES - 1 into the buffer that tile t - 1 left; then wait
-    // for tile t (groups stay one per tile, empty past the last)
-    const int tn = t + STAGES - 1;
-    if (tn < ntiles) {
-      load_tile(ring + (tn % STAGES) * ring_stride, w, s, v0 * s.D, rows,
-                ks + tn * tk, tk, threads);
+    cp_async_wait<0>();
+    __syncthreads();   // tile t is in; every thread is done with tile t - 1
+    const int k0 = ks + t * tk;
+    if (t + 1 < ntiles) {      // tile t + 1 loads while tile t is scored
+      load_tile(ring + ((t + 1) % STAGES) * ring_stride, w, s, v0 * s.D,
+                rows, k0 + tk, tk, threads);
     }
     cp_async_commit();
-    cp_async_wait<STAGES - 1>();
-    __syncthreads();
-
     const float* tile = ring + (t % STAGES) * ring_stride;
+    if constexpr (GROUPED) {
+      // |W_k|^2 of the tile's codes, the in-order fmaf chain; +inf past
+      // the strip's end
+      for (int j = threadIdx.x; j < s.vpb * tk; j += threads) {
+        const int vv = j / tk;
+        const int c = j - vv * tk;
+        const float* wc = tile + vv * s.D * tk + c;
+        float acc = 0.0f;
+#pragma unroll
+        for (int d = 0; d < DPAD; ++d) {
+          if (!EXACT && d == s.D) break;
+          acc = fmaf(wc[d * tk], wc[d * tk], acc);
+        }
+        w2s[j] = k0 + c < ke ? acc : inf;
+      }
+      __syncthreads();
+    }
+
     // the d loop reads row d + 1 before it scores row d, so shared-memory
-    // latency hides behind the FMAs. Row D, read and unused at the end, is
-    // still inside the block's shared memory: the next variable's rows, the
-    // ring after the z tile, the merge buffer after the ring.
+    // latency hides behind the FMAs. Row D, read and unused at the end of
+    // a padded instance's loop, is still inside the block's shared memory:
+    // the next variable's rows, the ring after the z tile, the |W_k|^2
+    // table after the ring.
 #pragma unroll 1  // one copy of the d loop: four would overflow the
     for (int u = 0; u < SUB; ++u) {  // instruction cache
       const float* wp = tile + vb * s.D * tk + u * tks + col;
-      const float* zq = zp;
+      unsigned za = za0;
       float4 wv = *reinterpret_cast<const float4*>(wp);
       float4 zv[RB / 4];
-#pragma unroll
-      for (int q = 0; q < RB / 4; ++q) {
-        zv[q] = *reinterpret_cast<const float4*>(zq + 4 * q);
-      }
+      load_z<RB>(zv, za);
       float acc[RB][RK];
       float w2[RK];
 #pragma unroll
@@ -312,15 +389,7 @@ vq_argmin_kernel(const T* __restrict__ z, const T* __restrict__ w,
       }
 #pragma unroll
       for (int d = 0; d < DPAD; ++d) {
-        if (d == s.D) break;
-        wp += tk;
-        zq += tbp;
-        const float4 wn = *reinterpret_cast<const float4*>(wp);
-        float4 zn[RB / 4];
-#pragma unroll
-        for (int q = 0; q < RB / 4; ++q) {
-          zn[q] = *reinterpret_cast<const float4*>(zq + 4 * q);
-        }
+        if (!EXACT && d == s.D) break;
         const float wc[RK] = {wv.x, wv.y, wv.z, wv.w};
         float zr[RB];
 #pragma unroll
@@ -330,38 +399,60 @@ vq_argmin_kernel(const T* __restrict__ z, const T* __restrict__ w,
           zr[4 * q + 2] = zv[q].z;
           zr[4 * q + 3] = zv[q].w;
         }
+        if (!EXACT || d + 1 < DPAD) {
+          wp += tk;
+          za += 4 * tbp;
+          wv = *reinterpret_cast<const float4*>(wp);
+          load_z<RB>(zv, za);
+        }
 #pragma unroll
         for (int c = 0; c < RK; ++c) {
-          w2[c] = fmaf(wc[c], wc[c], w2[c]);
+          if constexpr (!GROUPED) w2[c] = fmaf(wc[c], wc[c], w2[c]);
 #pragma unroll
           for (int r = 0; r < RB; ++r) {
             acc[r][c] = fmaf(zr[r], wc[c], acc[r][c]);
           }
         }
-        wv = wn;
-#pragma unroll
-        for (int q = 0; q < RB / 4; ++q) zv[q] = zn[q];
       }
-      const int kc = ks + t * tk + u * tks + col;
+      const int kc = k0 + u * tks + col;
+      if constexpr (GROUPED) {
+        // the minimum of the pass's RK scores, kept with the pass's first
+        // code on a strict <
+        const float4 h = *reinterpret_cast<const float4*>(
+            w2s + vb * tk + u * tks + col);
 #pragma unroll
-      for (int c = 0; c < RK; ++c) {
-        if (kc + c < ke) {
+        for (int r = 0; r < RB; ++r) {
+          const float m = fminf(fminf(fmaf(-2.0f, acc[r][0], h.x),
+                                      fmaf(-2.0f, acc[r][1], h.y)),
+                                fminf(fmaf(-2.0f, acc[r][2], h.z),
+                                      fmaf(-2.0f, acc[r][3], h.w)));
+          if (m < best[r]) {
+            best[r] = m;
+            best_k[r] = kc;
+          }
+        }
+      } else {
 #pragma unroll
-          for (int r = 0; r < RB; ++r) {
-            const float sc = w2[c] - 2.0f * acc[r][c];
-            if (sc < best[r]) {
-              best[r] = sc;
-              best_k[r] = kc + c;
+        for (int c = 0; c < RK; ++c) {
+          if (kc + c < ke) {
+#pragma unroll
+            for (int r = 0; r < RB; ++r) {
+              const float sc = fmaf(-2.0f, acc[r][c], w2[c]);
+              if (sc < best[r]) {
+                best[r] = sc;
+                best_k[r] = kc + c;
+              }
             }
           }
         }
       }
     }
-    __syncthreads();  // this ring buffer is free to refill
   }
 
-  // merge a sample's minima by (value, then lowest index): over the TX code
-  // lanes of the warp, then over the WK warps in shared memory
+  // merge a sample's (minimum, code or group) over the TX code lanes of the
+  // warp, then over the WK warps in shared memory, by (value, then lowest
+  // index): groups are disjoint runs of RK codes, so of two equal minima
+  // the lower group holds the lower code
 #pragma unroll
   for (int r = 0; r < RB; ++r) {
 #pragma unroll
@@ -374,42 +465,102 @@ vq_argmin_kernel(const T* __restrict__ z, const T* __restrict__ w,
       }
     }
   }
-  if (s.wk > 1) {
-    if (tx == 0) {
+  if (tx == 0) {
+#pragma unroll
+    for (int r = 0; r < RB; ++r) {
+      const int o = (vb * s.wk + wk) * tb + row * RB + r;
+      red_v[o] = best[r];
+      red_i[o] = best_k[r];
+    }
+  }
+  __syncthreads();
+  if (tx == 0 && wk == 0 && s.wk > 1) {
+    for (int j = 1; j < s.wk; ++j) {
 #pragma unroll
       for (int r = 0; r < RB; ++r) {
-        const int o = (vb * s.wk + wk) * tb + row * RB + r;
-        red_v[o] = best[r];
-        red_i[o] = best_k[r];
-      }
-    }
-    __syncthreads();
-    if (tx == 0 && wk == 0) {
-      for (int j = 1; j < s.wk; ++j) {
-#pragma unroll
-        for (int r = 0; r < RB; ++r) {
-          const int o = (vb * s.wk + j) * tb + row * RB + r;
-          if (better(red_v[o], red_i[o], best[r], best_k[r])) {
-            best[r] = red_v[o];
-            best_k[r] = red_i[o];
-          }
+        const int o = (vb * s.wk + j) * tb + row * RB + r;
+        if (better(red_v[o], red_i[o], best[r], best_k[r])) {
+          best[r] = red_v[o];
+          best_k[r] = red_i[o];
         }
       }
     }
-  }
-  const int v = v0 + vb;
-  if (tx != 0 || wk != 0 || v >= s.n) return;
 #pragma unroll
-  for (int r = 0; r < RB; ++r) {
-    const int b = b0 + row * RB + r;
-    if (b >= s.B) break;
+    for (int r = 0; r < RB; ++r) {
+      const int o = vb * s.wk * tb + row * RB + r;
+      red_v[o] = best[r];
+      red_i[o] = best_k[r];
+    }
+  }
+  __syncthreads();
+
+  // each sample's result, one sample a thread. GROUPED: the lowest code of
+  // the group whose score, by the same chains from the z tile and W, is the
+  // minimum; W from the ring where the group's tile is one of the last
+  // STAGES (still there), else from device memory
+  for (int i = threadIdx.x; i < s.vpb * tb; i += threads) {
+    const int vv = i / tb;
+    const int bb = i - vv * tb;
+    const int v = v0 + vv;
+    const int b = b0 + bb;
+    if (v >= s.n || b >= s.B) continue;
+    const int o_red = vv * s.wk * tb + bb;
+    float bv = red_v[o_red];
+    int bk = red_i[o_red];
+    if (GROUPED && bk != NO_CODE) {
+      const int kc = bk;
+      const float* zr = zs + vv * s.D * tbp + bb;
+      const T* wr = w + (size_t)v * s.D * s.K + kc;
+      const int tw = (kc - ks) / tk;               // the group's ring tile
+      const bool in_ring = tw + STAGES >= ntiles;
+      const float* rr = ring + (tw % STAGES) * ring_stride + vv * s.D * tk
+                        + (kc - ks - tw * tk);
+      float a[RK], h[RK];
+#pragma unroll
+      for (int c = 0; c < RK; ++c) a[c] = h[c] = 0.0f;
+      // RD rows' loads at a time; rows past D add exact zeros (a and h
+      // start at +0 and are never -0)
+      constexpr int RD = DPAD < 10 ? DPAD : 10;
+      for (int d0 = 0; d0 < s.D; d0 += RD) {
+        float zd[RD], x[RD][RK];
+#pragma unroll
+        for (int j = 0; j < RD; ++j) {
+          const int d = d0 + j;
+          zd[j] = d < s.D ? zr[d * tbp] : 0.0f;
+#pragma unroll
+          for (int c = 0; c < RK; ++c) {
+            x[j][c] = !(d < s.D && kc + c < ke) ? 0.0f
+                      : in_ring ? rr[d * tk + c]
+                                : widen(wr[(size_t)d * s.K + c]);
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < RD; ++j) {
+#pragma unroll
+          for (int c = 0; c < RK; ++c) {
+            a[c] = fmaf(zd[j], x[j][c], a[c]);
+            h[c] = fmaf(x[j][c], x[j][c], h[c]);
+          }
+        }
+      }
+      bv = inf;
+      bk = NO_CODE;
+#pragma unroll
+      for (int c = 0; c < RK; ++c) {
+        const float sc = fmaf(-2.0f, a[c], h[c]);
+        if (kc + c < ke && sc < bv) {
+          bv = sc;
+          bk = kc + c;
+        }
+      }
+    }
     const size_t o = (size_t)v * s.B + b;
     if (gridDim.z == 1) {
-      out[o] = best_k[r] == NO_CODE ? 0 : best_k[r];
+      out[o] = bk == NO_CODE ? 0 : bk;
     } else {
       const size_t p = (size_t)blockIdx.z * s.n * s.B + o;
-      part_v[p] = best[r];
-      part_i[p] = best_k[r];
+      part_v[p] = bv;
+      part_i[p] = bk;
     }
   }
 }
@@ -453,10 +604,6 @@ __host__ __device__ __forceinline__ int bf16_smem_bytes(int d, int dp, int tb,
                                                         int tk) {
   return (2 * tb * d + 15) / 16 * 16 + BF_STAGES * 2 * dp * (tk + BF_PAD)
          + 4 * tk;
-}
-
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return static_cast<unsigned>(__cvta_generic_to_shared(p));
 }
 
 // one cp.async of `bytes` (16: .cg, 4: .ca; the helpers take addresses
@@ -734,7 +881,7 @@ cudaError_t launch_bf16(const bf16* z, const bf16* w, int32_t* out,
   return cudaGetLastError();
 }
 
-template <typename T, int DPAD, int RB, int SUB>
+template <typename T, int DPAD, bool EXACT, int RB, int SUB>
 cudaError_t launch(const T* z, const T* w, int32_t* out,
                    float* part_v, int32_t* part_i, const Shape& s,
                    int strips, cudaStream_t stream) {
@@ -744,7 +891,7 @@ cudaError_t launch(const T* z, const T* w, int32_t* out,
   const size_t smem = sizeof(float) * smem_floats(s.D, tb,
                                                   s.wk * TX * RK * SUB,
                                                   s.wk, s.vpb);
-  vq_argmin_kernel<T, DPAD, RB, SUB>
+  vq_argmin_kernel<T, DPAD, EXACT, RB, SUB>
       <<<grid, threads, smem, stream>>>(z, w, out, part_v, part_i, s);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess || strips == 1) return err;
@@ -754,24 +901,28 @@ cudaError_t launch(const T* z, const T* w, int32_t* out,
   return cudaGetLastError();
 }
 
-// D rounded up to 8, 16, 24, 32, 48, 64, 96 or 128 (the unrolled d loop
-// stops at D); RB = 8 and SUB = 4 only up to D = 32, past which their
+// D exactly where the registry trains it (10, 20, 30: `cuda_vq.EXACT_D`),
+// else D rounded up to 8, 16, 24, 32, 48, 64, 96 or 128 (the unrolled d
+// loop stops at D); RB = 8 and SUB = 4 only up to D = 32, past which their
 // registers would spill
 template <typename T, int RB, int SUB>
 cudaError_t dispatch(const T* z, const T* w, int32_t* out,
                      float* part_v, int32_t* part_i, const Shape& s,
                      int strips, cudaStream_t st) {
-#define VQ_LAUNCH(P) \
-  launch<T, P, RB, SUB>(z, w, out, part_v, part_i, s, strips, st)
-  if (s.D <= 8) return VQ_LAUNCH(8);
-  if (s.D <= 16) return VQ_LAUNCH(16);
-  if (s.D <= 24) return VQ_LAUNCH(24);
-  if (s.D <= 32) return VQ_LAUNCH(32);
+#define VQ_LAUNCH(P, EXACT) \
+  launch<T, P, EXACT, RB, SUB>(z, w, out, part_v, part_i, s, strips, st)
+  if (s.D == 10) return VQ_LAUNCH(10, true);
+  if (s.D == 20) return VQ_LAUNCH(20, true);
+  if (s.D == 30) return VQ_LAUNCH(30, true);
+  if (s.D <= 8) return VQ_LAUNCH(8, false);
+  if (s.D <= 16) return VQ_LAUNCH(16, false);
+  if (s.D <= 24) return VQ_LAUNCH(24, false);
+  if (s.D <= 32) return VQ_LAUNCH(32, false);
   if constexpr (RB == 4 && SUB == 1) {
-    if (s.D <= 48) return VQ_LAUNCH(48);
-    if (s.D <= 64) return VQ_LAUNCH(64);
-    if (s.D <= 96) return VQ_LAUNCH(96);
-    if (s.D <= 128) return VQ_LAUNCH(128);
+    if (s.D <= 48) return VQ_LAUNCH(48, false);
+    if (s.D <= 64) return VQ_LAUNCH(64, false);
+    if (s.D <= 96) return VQ_LAUNCH(96, false);
+    if (s.D <= 128) return VQ_LAUNCH(128, false);
   }
 #undef VQ_LAUNCH
   return cudaErrorInvalidValue;

@@ -88,6 +88,10 @@ MAX_WK = 4                # warps across a code tile
 MAX_WY = 2                # warps across a sample tile
 SUB = 4                   # code sub-tiles a ring tile, where they pay
 STAGES = 2                # code tiles in the kernel's ring
+# latents the kernel is built for exactly, with no exit in its unrolled d
+# loop (the D of the registry's recipes); other D run an instance unrolled
+# to D rounded up
+EXACT_D = (10, 20, 30)
 MIN_BLOCKS = 2 * SMS      # fewer blocks than this split K across blocks
 MAX_GRID_Y = 65535
 
@@ -97,9 +101,12 @@ class Plan(NamedTuple):
     each, a sample tile of `tb` = wy * ROWS * rb samples (wy warps) against
     ring tiles of `tk` = sub * wk * TX * RK codes: wk warps split a sub-tile
     of wk * TX * RK codes, and each scores `sub` sub-tiles a ring tile. A
-    thread scores rb samples x RK codes in registers. Codes are cut into
-    `strips` strips of `strip_k` codes, one block each; with more than one
-    strip a second launch merges the strips' partial minima."""
+    thread scores rb samples x RK codes in registers. With sub > 1 (a
+    strip of two ring tiles or more) the kernel keeps each thread's minimum
+    by groups of RK codes and finds the code in the winning group at the
+    end; with sub = 1 it compares every score. Codes are cut into `strips`
+    strips of `strip_k` codes, one block each; with more than one strip a
+    second launch merges the strips' partial minima."""
     rb: int
     wy: int
     wk: int
@@ -133,10 +140,11 @@ def _pow2_at_least(x: int) -> int:
 def _smem_bytes(d: int, rb: int, wy: int, wk: int, vpb: int,
                 sub: int = 1) -> int:
     """Shared memory of a block (csrc/vq_argmin.cu `smem_floats`): the z
-    tile [vpb][d][tb + 4], a ring of STAGES code tiles [STAGES][vpb][d][tk]
-    and the merge buffer of (value, index) [vpb][wk][tb]."""
+    tile [vpb][d][tb + 4], a ring of STAGES code tiles [STAGES][vpb][d][tk],
+    |W_k|^2 of a ring tile [vpb][tk] and the merge buffer of (value, index)
+    [vpb][wk][tb]."""
     tb, tk = wy * ROWS * rb, sub * wk * TX * RK
-    return 4 * vpb * (d * (tb + 4) + STAGES * d * tk + 2 * wk * tb)
+    return 4 * vpb * (d * (tb + 4) + STAGES * d * tk + tk + 2 * wk * tb)
 
 
 @functools.lru_cache(maxsize=1024)
@@ -173,8 +181,9 @@ def plan(n: int, b: int, d: int, k: int) -> Plan:
         strips = min(ktiles, _pow2_at_least(-(-MIN_BLOCKS // blocks)))
     codes = -(-ktiles // strips) * tks        # codes a strip
     # four sub-tiles a ring tile spread the ring's wait and barriers over
-    # four times the codes, where a strip holds two such tiles or more; a
-    # ring tile that would not fit takes half the code warps
+    # four times the codes, where a strip holds two such tiles or more (and
+    # there the kernel's grouped minimum pays for its recomputation at the
+    # end); a ring tile that would not fit takes half the code warps
     sub = 1
     if d <= 32 and codes >= 2 * SUB * tks:
         for wk_sub in (wk, wk // 2):

@@ -4,7 +4,14 @@ order, on the CPU. The plans are pure Python; the merge is held by a plain
 version of it (`strip_merge_plain`): the scores of `vq_codes_plain`, cut
 into a plan's code strips, argmin per strip and merged by (value, lowest
 index), must give `vq_codes_plain`'s codes and the JAX Pallas kernel's
-(interpret mode) bit for bit, ties across a strip edge included."""
+(interpret mode) bit for bit, ties across a strip edge included. The
+float32 instance's whole selection order (`kernel_order_plain`: a lane's
+grouped minimum, the lane and warp merges by (value, group), the
+resolution inside the winning group, the strip merge) must give
+`torch.argmin`'s first index."""
+
+import re
+from pathlib import Path
 
 import numpy as np
 import jax.numpy as jnp
@@ -254,6 +261,204 @@ def test_strip_merge_all_equal_gives_zero():
     scores = torch.zeros((2, 5, 4096))
     got = strip_merge_plain(scores, cuda_vq.plan(*KDD_BATCH).strip_k)
     assert got.dtype == torch.int32 and int(got.max()) == 0
+
+
+NO_CODE = 2 ** 31 - 1      # csrc/vq_argmin.cu: a lane that holds no code
+
+
+def _lex_min(val, idx, dim):
+    """(value, index) minima along `dim` by the kernel's `better`: the
+    lower value, then the lower index."""
+    low = val.amin(dim, keepdim=True)
+    return (low.squeeze(dim),
+            torch.where(val == low, idx, NO_CODE).amin(dim))
+
+
+def kernel_order_plain(scores: torch.Tensor, p) -> torch.Tensor:
+    """The float32 kernel's selection order under plan `p`, in plain
+    PyTorch, on scores [n, B, K]: codes past K score +inf (|W_k|^2 = +inf
+    there). Each code lane (a warp's wk, a thread's tx) walks its groups of
+    RK codes upward (ring tiles, then sub-tiles). With sub-tiles (p.sub >
+    1) it keeps a group's minimum, with the group's first code, only on a
+    strict <; the lanes' (minimum, group) merge by (value, lowest group)
+    over the TX lanes and the WK warps; the winning group's lowest code that
+    reaches the minimum, by a strict < walk, is the strip's. Without (p.sub
+    = 1) every score is compared on its own, strict <, and the lanes'
+    (minimum, code) merge the same way. The strips merge in order by strict
+    <. int32 [n, B]; a sample with no code below +inf gets 0."""
+    n, b, k = scores.shape
+    rk = cuda_vq.RK
+    lanes = p.tk // p.sub // rk                   # wk * TX
+    groups = p.strip_k // p.tk * p.sub           # a lane's groups a strip
+    inf = float('inf')
+    pad = torch.full((n, b, p.strips * p.strip_k), inf)
+    pad[:, :, :k] = scores
+    s = pad.view(n, b, p.strips, groups, lanes, rk)
+    first = torch.arange(p.strips * p.strip_k).view(
+        p.strips, groups, lanes, rk)[..., 0]     # a group's first code
+    if p.sub == 1:          # every score compared and selected, strict <
+        best = torch.full(s[:, :, :, 0, :, 0].shape, inf)
+        grp = torch.full(best.shape, NO_CODE)
+        for g in range(groups):
+            for c in range(rk):
+                take = s[:, :, :, g, :, c] < best
+                best = torch.where(take, s[:, :, :, g, :, c], best)
+                grp = torch.where(take, first[:, g] + c, grp)
+    else:                   # the grouped minimum
+        gmin = s.amin(-1)                         # [n, B, strips, G, L]
+        best = torch.full(gmin[:, :, :, 0].shape, inf)
+        grp = torch.full(best.shape, NO_CODE)
+        for g in range(groups):
+            take = gmin[:, :, :, g] < best
+            best = torch.where(take, gmin[:, :, :, g], best)
+            grp = torch.where(take, first[:, g], grp)
+    # lanes: [.., wk, TX]; shuffles over TX, then the warps in shared memory
+    best = best.view(n, b, p.strips, p.wk, cuda_vq.TX)
+    best, grp = _lex_min(*_lex_min(best, grp.view(best.shape), 4), 3)
+    val, idx = best, grp
+    if p.sub > 1:           # the winning group's codes, upward, strict <
+        pad = pad.view(n, b, p.strips, p.strip_k)
+        val = torch.full(best.shape, inf)
+        idx = torch.full(best.shape, NO_CODE)
+        for c in range(rk):
+            code = grp + c
+            sc = torch.gather(pad, 3, (code % p.strip_k)[..., None])[..., 0]
+            take = (grp != NO_CODE) & (sc < val)
+            val = torch.where(take, sc, val)
+            idx = torch.where(take, code, idx)
+    out_v, out_i = torch.full((n, b), inf), torch.full((n, b), NO_CODE)
+    for st in range(p.strips):                    # the merge launch
+        take = val[:, :, st] < out_v
+        out_v = torch.where(take, val[:, :, st], out_v)
+        out_i = torch.where(take, idx[:, :, st], out_i)
+    return torch.where(out_i == NO_CODE, 0, out_i).to(torch.int32)
+
+
+def _first_argmin(scores: torch.Tensor) -> np.ndarray:
+    return torch.argmin(scores, dim=2).to(torch.int32).numpy()
+
+
+def _f32_plan(plan_shape):
+    """The float32 plan of a MERGE_CASES plan shape (a bfloat16 case's
+    shape, planned for the float32 instance)."""
+    return cuda_vq.plan(*(plan_shape[1] if plan_shape[0] == 'bf16'
+                          else plan_shape))
+
+
+@pytest.mark.parametrize('shape,plan_shape', MERGE_CASES)
+def test_kernel_order_bit_equal(shape, plan_shape):
+    z, w = _zw(shape, seed=7)
+    scores = _scores(z, w)
+    got = kernel_order_plain(scores, _f32_plan(plan_shape)).numpy()
+    np.testing.assert_array_equal(got, _first_argmin(scores))
+    np.testing.assert_array_equal(
+        got, cuda_vq.vq_codes_plain(torch.from_numpy(z),
+                                    torch.from_numpy(w)).numpy())
+
+
+def _tie_pairs(kind: str, p):
+    """(first copies, repeats) of codes for a tie of `kind` under the
+    float32 plan p (a plan with four sub-tiles a ring tile): inside one
+    thread's group; across the groups of one lane (its next sub-tile, its
+    next ring tile); across the edge of a sub-tile, a ring tile, a strip
+    (other lanes)."""
+    tks, lanes = p.tk // p.sub, range(16)
+    if kind == 'in_group':
+        return [4 * j for j in lanes], [4 * j + 2 for j in lanes]
+    if kind == 'lane_next_group':
+        return [4 * j + 3 for j in lanes], [tks + 4 * j for j in lanes]
+    if kind == 'lane_next_tile':
+        last = (p.sub - 1) * tks
+        return ([last + 4 * j + 3 for j in lanes],
+                [p.tk + 4 * j for j in lanes])
+    edge = {'sub_tile_edge': tks, 'ring_tile_edge': p.tk,
+            'strip_edge': p.strip_k}[kind]
+    return list(range(edge - 16, edge)), list(range(edge, edge + 16))
+
+
+@pytest.mark.parametrize('kind', ['in_group', 'lane_next_group',
+                                  'lane_next_tile', 'sub_tile_edge',
+                                  'ring_tile_edge', 'strip_edge'])
+def test_kernel_order_ties_first_copy_wins(kind):
+    """Codes repeated inside a thread's group of RK codes, across the
+    groups of one lane and across sub-tile, ring-tile and strip edges, at
+    the kdd plan: every sample sits next to a first copy, and the first
+    copy must win."""
+    p = cuda_vq.plan(*KDD_BATCH)
+    assert p.sub == cuda_vq.SUB and p.strips > 1 and p.strip_k > p.tk
+    first, repeat = _tie_pairs(kind, p)
+    assert not set(first) & set(repeat)
+    assert all(f < r for f, r in zip(first, repeat))
+    z, w = _zw((2, 32, 10, 4096), seed=4)
+    w[:, :, repeat] = w[:, :, first]
+    src = np.asarray(first)[np.arange(32) % len(first)]
+    rng = np.random.default_rng(5)
+    z = (np.transpose(w[:, :, src], (0, 2, 1))
+         + 1e-3 * rng.standard_normal((2, 32, 10))).astype(np.float32)
+    scores = _scores(z, w)
+    got = kernel_order_plain(scores, p).numpy()
+    np.testing.assert_array_equal(got, np.broadcast_to(src, got.shape))
+    np.testing.assert_array_equal(got, _first_argmin(scores))
+
+
+@pytest.mark.parametrize('shape,plan_shape', [
+    ((2, 24, 10, 4097), (11, 1000, 10, 4097)),   # sub-tiles: grouped
+    ((3, 20, 10, 4097), (3, 20, 10, 4097)), ((2, 9, 5, 7), (2, 9, 5, 7)),
+    ((4, 33, 20, 50), (4, 33, 20, 50)), ((2, 40, 8, 130), (2, 40, 8, 130))])
+def test_kernel_order_ragged_k(shape, plan_shape):
+    """K past a multiple of the ring tile: the last strip's tail scores
+    +inf and never wins, and samples next to the last code take it."""
+    n, b, d, k = shape
+    p = cuda_vq.plan(*plan_shape)
+    assert k % p.tk != 0 and plan_shape[3] == k
+    z, w = _zw(shape, seed=11)
+    z[:, :b // 2] = w[:, None, :, k - 1] + 1e-3
+    scores = _scores(z, w)
+    got = kernel_order_plain(scores, p).numpy()
+    np.testing.assert_array_equal(got, _first_argmin(scores))
+    assert (got[:, :b // 2] == k - 1).all()
+
+
+@pytest.mark.parametrize('shape', [KDD_BATCH, (11, 1000, 10, 4097),
+                                   (3, 20, 10, 4097)])
+def test_kernel_order_all_equal_gives_zero(shape):
+    n, b, _, k = shape
+    got = kernel_order_plain(torch.zeros((2, 5, k)), cuda_vq.plan(*shape))
+    assert got.dtype == torch.int32 and int(got.abs().max()) == 0
+
+
+def test_plan_smem_holds_the_norm_table():
+    """A block's shared memory: the z tile, the ring, the ring tile's
+    |W_k|^2 table and the merge buffer (csrc/vq_argmin.cu `smem_floats`)."""
+    for shape in PLAN_SHAPES:
+        d = shape[2]
+        p = cuda_vq.plan(*shape)
+        assert p.smem_bytes == 4 * p.vpb * (
+            d * (p.tb + 4) + cuda_vq.STAGES * d * p.tk + p.tk
+            + 2 * p.wk * p.tb), shape
+    src = (Path(cuda_vq.__file__).parent / 'csrc' / 'vq_argmin.cu').read_text()
+    assert ('return vpb * (D * (tb + 4) + STAGES * D * tk + tk + 2 * wk * tb);'
+            in src)
+
+
+def test_exact_d_dispatch():
+    """The kernel's instances with no exit in the d loop are the D of
+    EXACT_D, tried before the padded ladder; the registry's recipes (kdd
+    and nltcs D 10, bbc 20, ad 30) and the benchmark's configurations train
+    only those D."""
+    import json
+    src = (Path(cuda_vq.__file__).parent / 'csrc' / 'vq_argmin.cu').read_text()
+    body = src[src.index('cudaError_t dispatch('):]
+    body = body[:body.index('#undef VQ_LAUNCH')]
+    exact = re.findall(r'if \(s\.D == (\d+)\) return VQ_LAUNCH\(\1, true\)',
+                       body)
+    assert tuple(int(d) for d in exact) == cuda_vq.EXACT_D
+    assert body.index('true)') < body.index('false)')
+    root = Path(__file__).resolve().parent.parent
+    for cfg in ('kdd', 'bbc'):
+        dim = json.loads((root / 'benchmark' / 'configs'
+                          / f'{cfg}.json').read_text())['dim']
+        assert dim in cuda_vq.EXACT_D, cfg
 
 
 def test_fused_raises_off_cpu_and_cuda():
