@@ -390,21 +390,22 @@ def _sass_hmma(lib_path) -> dict:
 
 
 def phase_build():
-    """The kernels' builds, one nvcc each, started together. The bfloat16
-    nearest-code kernel must run on the tensor cores: every instantiation's
-    SASS holds HMMA."""
-    from pgmvae_tpu_torch.ops import cuda_ema, cuda_recon, cuda_vq, fused_adam
+    """Every registered kernel library's build (`ops/kernels.py`), one
+    nvcc each, started together. The bfloat16 nearest-code kernel must run
+    on the tensor cores: every instantiation's SASS holds HMMA."""
+    from pgmvae_tpu_torch.ops import (cuda_ema, cuda_recon, cuda_vq,
+                                      fused_adam, kernels)
 
-    def timed(module):
+    def timed(build):
         t0 = time.time()
-        module.build()
+        build()
         return time.time() - t0
 
     t0 = time.time()
-    with ThreadPoolExecutor(max_workers=4) as pool:
-        futures = {name: pool.submit(timed, module) for name, module in
-                   (('vq_argmin', cuda_vq), ('adam', fused_adam),
-                    ('ema', cuda_ema), ('recon', cuda_recon))}
+    builds = kernels.builds()
+    with ThreadPoolExecutor(max_workers=len(builds)) as pool:
+        futures = {name: pool.submit(timed, build)
+                   for name, build in builds.items()}
         seconds = {name: f.result() for name, f in futures.items()}
     vq = _ptxas(cuda_vq.library_path().with_suffix('.log'))
     # by template arguments: vq_argmin_kernel<float, DPAD, EXACT, RB, SUB>
@@ -620,7 +621,7 @@ def phase_kernel_adam(moment_dtype=torch.float32):
     each update launches once per table. Then times over the main paths'
     leaves."""
     from pgmvae_tpu_torch.models import vqvae
-    from pgmvae_tpu_torch.ops import fused_adam
+    from pgmvae_tpu_torch.ops import fused_adam, kernels
     from pgmvae_tpu_torch.registry import default_units
     bf16 = moment_dtype == torch.bfloat16
     name = 'kernel_adam_bf16' if bf16 else 'kernel_adam'
@@ -630,7 +631,7 @@ def phase_kernel_adam(moment_dtype=torch.float32):
         st = st._replace(count=st.count + count)
         st2 = st2._replace(count=st2.count + count)
         live = sum(1 for shape, _ in specs if np.prod(shape) > 0)
-        launched = (fused_adam.LAUNCHES, fused_adam.LAUNCHES_BF16)
+        before = kernels.counts()
         for _ in range(ADAM_STEPS):
             grads = {'enc': [(torch.randn(p.shape, generator=gen,
                                           device='cuda') * 0.01,)
@@ -639,11 +640,10 @@ def phase_kernel_adam(moment_dtype=torch.float32):
             st2 = fused_adam.adam_update_plain(
                 twin, vqvae.map_params(torch.clone, grads), st2)
         torch.cuda.synchronize()
-        launched = (fused_adam.LAUNCHES - launched[0],
-                    fused_adam.LAUNCHES_BF16 - launched[1])
+        launched = kernels.since(before)
         want = ADAM_STEPS * fused_adam.launches_per_update(live)
-        assert launched == ((0, want) if bf16 else (want, 0)), (
-            case, launched, want)
+        assert launched == _launches(**{'adam_bf16' if bf16 else 'adam':
+                                         want}), (case, launched, want)
         pairs = [(params, twin), (st.mu, st2.mu), (st.nu, st2.nu)]
         for x, y in pairs:
             for i, ((a,), (b,)) in enumerate(zip(x['enc'], y['enc'])):
@@ -654,7 +654,7 @@ def phase_kernel_adam(moment_dtype=torch.float32):
         emit(name, case=case, leaves=len(specs), live_leaves=live,
              params=int(sum(np.prod(s) for s, _ in specs)),
              unaligned=sum(u for _, u in specs), first_count=count + 1,
-             steps=ADAM_STEPS, launches=sum(launched), bit_equal=True)
+             steps=ADAM_STEPS, launches=want, bit_equal=True)
 
     # times over the leaves of the bbc model (section train), the nltcs
     # headline's, kdd's (alone and packed, S=4), ad's, a rank's quarter of
@@ -695,7 +695,7 @@ def _adam_times(params, gen, moment_dtype, name):
     and the powers b^t), the whole update's, CUDA events, the plain version
     and (float32 moments) PyTorch's fused Adam. One line `name`."""
     from pgmvae_tpu_torch.models import vqvae
-    from pgmvae_tpu_torch.ops import fused_adam
+    from pgmvae_tpu_torch.ops import fused_adam, kernels
     bf16 = moment_dtype == torch.bfloat16
     leaves = vqvae.param_leaves(params)
     grads = vqvae.map_params(
@@ -704,7 +704,7 @@ def _adam_times(params, gen, moment_dtype, name):
     state = fused_adam.adam_init(params, LR, EPS, moment_dtype)
     numel = sum(p.numel() for p in leaves)
     per_param = 20.0 if bf16 else 28.0
-    before = (fused_adam.LAUNCHES, fused_adam.LAUNCHES_BF16)
+    before = kernels.counts()
 
     def kernel():
         fused_adam.adam_update(params, grads, state)
@@ -719,8 +719,7 @@ def _adam_times(params, gen, moment_dtype, name):
         list(zip(leaves, vqvae.param_leaves(state.mu),
                  vqvae.param_leaves(state.nu), vqvae.param_leaves(grads))))
     plain_ms, plain_dev = cuda_ms(plain), device_ms(plain)
-    # timing launches are not counted
-    fused_adam.LAUNCHES, fused_adam.LAUNCHES_BF16 = before
+    kernels.restore(before)            # timing launches are not counted
     library_ms = library_dev = None
     if not bf16:
         # yardstick only: PyTorch's own fused Adam over the same leaves (it
@@ -817,24 +816,24 @@ def phase_kernel_ema():
     times at the first EMA_TIMED shapes: the kernel's device time apart
     from the debias factor's scalar operations, the whole step's, CUDA
     events, the plain version, and the bound."""
-    from pgmvae_tpu_torch.ops import cuda_ema
+    from pgmvae_tpu_torch.ops import cuda_ema, kernels
     from pgmvae_tpu_torch.ops import quantizer as q
     gen = torch.Generator(device='cuda').manual_seed(SEED)
     rows = {}
-    launched = cuda_ema.LAUNCHES
+    launched = kernels.counts()
     for shape in EMA_SHAPES:
         n, b, d, k = shape
         worst = {}
         for case in EMA_CASES:
             state, z, idx, w, zd = _ema_case(case, *shape, gen)
             mine = q.EmaState(*(t.clone() for t in state))
-            before = cuda_ema.LAUNCHES
+            before = kernels.counts()
             got, counts = cuda_ema.ema_update_fused(mine, z, idx, w, 0.9,
                                                     1e-5, zd)
             want, want_counts = cuda_ema.ema_update_plain(state, z, idx, w,
                                                           0.9, 1e-5, zd)
             torch.cuda.synchronize()
-            assert cuda_ema.LAUNCHES == before + 1, case
+            assert kernels.since(before) == _launches(ema=1), case
             assert all(a is b for a, b in zip(got[:3], mine[:3])), case
             assert torch.equal(counts, want_counts), (shape, case)
             assert torch.equal(got.counts, want.counts), (shape, case)
@@ -876,7 +875,7 @@ def phase_kernel_ema():
                    achieved_tb_s=nbytes / (kernel_dev * 1e-3) / 1e12)
         emit('kernel_ema', **row)
         del state, z, idx, w
-    cuda_ema.LAUNCHES = launched       # comparison and timing only
+    kernels.restore(launched)          # comparison and timing only
     return rows
 
 
@@ -954,19 +953,19 @@ def phase_kernel_recon():
     plain version's, CUDA events, and the bytes bound (the logits read by
     the forward, read and their gradient written by the backward, y read
     by each)."""
-    from pgmvae_tpu_torch.ops import cuda_recon
+    from pgmvae_tpu_torch.ops import cuda_recon, kernels
     gen = torch.Generator(device='cuda').manual_seed(SEED)
-    launched = cuda_recon.LAUNCHES
+    launched = kernels.counts()
     rows = {}
     for spec in RECON_CASES:
         f, b, n, s, lo, na, dtype, case = spec
         x, y, w, wsum, g, seeds = _recon_case(*spec, gen)
         xk = x.detach().requires_grad_()
-        before = cuda_recon.LAUNCHES
+        before = kernels.counts()
         mse, mae = cuda_recon.recon_loss(xk, y, w, seeds, lo, na, wsum)
         grad, = torch.autograd.grad(mse, xk, g)
         torch.cuda.synchronize()
-        assert cuda_recon.LAUNCHES == before + 2, spec
+        assert kernels.since(before) == _launches(recon=2), spec
         xp = x.detach().requires_grad_()
         pmse, pmae = cuda_recon.recon_loss_plain(xp, y, w, seeds, lo, na,
                                                  wsum)
@@ -1062,7 +1061,7 @@ def phase_kernel_recon():
                    bwd_share=bound_ms['bwd'] / bwd_dev)
         emit('kernel_recon', **row)
         del x, y, xk, xp, grad, pgrad
-    cuda_recon.LAUNCHES = launched     # comparison and timing only
+    kernels.restore(launched)          # comparison and timing only
     return rows
 
 
@@ -1111,7 +1110,7 @@ def _chunk_codes(s2, params, codebook, y):
 
 def phase_slice():
     from pgmvae_tpu_torch.models.vqvae import VqVaeConfig, init_model
-    from pgmvae_tpu_torch.ops import cuda_vq
+    from pgmvae_tpu_torch.ops import cuda_vq, kernels
     from pgmvae_tpu_torch.registry import default_units
     from pgmvae_tpu_torch.serving import PgmModel
     from pgmvae_tpu_torch.stage2 import Stage2, select_parents
@@ -1126,14 +1125,12 @@ def phase_slice():
     torch.cuda.synchronize()
 
     # ---- the main path, counted: every kernel launch from here to the read
-    cuda_vq.LAUNCHES = 0
+    kernels.reset()
     t0 = time.time()
     s2 = Stage2(cfg)
     dist, pll, secs = _stage2_plls(s2, params, codebook, splits)
     s2p = Stage2(cfg, parents=parents)
     _, pll_p, secs_p = _stage2_plls(s2p, params, codebook, splits)
-    s2s = Stage2(cfg, parents=parents, scatter=True)
-    _, pll_s, secs_s = _stage2_plls(s2s, params, codebook, splits)
     model = PgmModel(cfg, params, codebook, dist)
     y_test = splits['test']
     scores = model.score(y_test)
@@ -1141,19 +1138,28 @@ def phase_slice():
     cond = model.conditional_probability(y_test, np.arange(n_var))
     torch.cuda.synchronize()
     main_seconds = time.time() - t0
-    launches = cuda_vq.LAUNCHES
+    launches = kernels.counts()
     # ---- end of the counted run
 
     chunks = sum(-(-y.shape[0] // s2.chunk) for y in splits.values())
-    assert launches == 3 * (chunks + -(-splits['train'].shape[0]
-                                        // s2.chunk)) + 3, launches
-    assert s2.chunk == 32 and not s2.scatter and s2p.scatter is False
-    for name, vals in (('pll', pll), ('pll_parents', pll_p),
-                       ('pll_scatter', pll_s)):
+    assert launches == _launches(vq_argmin=2 * (
+        chunks + -(-splits['train'].shape[0] // s2.chunk)) + 3), launches
+    assert s2.chunk == s2p.chunk == 32, (s2.chunk, s2p.chunk)
+    for name, vals in (('pll', pll), ('pll_parents', pll_p)):
         assert all(np.isfinite(v) and v < 0 for v in vals.values()), (
             name, vals)
-    # the scatter path counts the same integers as the one-hot bmm
-    assert pll_s == pll_p, (pll_s, pll_p)
+    # the count path (index_add_, float32 adds in any order on the card)
+    # gives the integers of a float64 histogram of the same kernel codes
+    y = splits['train']
+    n1, n0 = s2p.counts(params, codebook, y)
+    cells = _chunk_codes(s2p, params, codebook, y)[1][:, :y.shape[0]]
+    words = (y[:, parents].astype(np.int64) << np.arange(4)).sum(-1).T
+    cells = cells.cpu().numpy().astype(np.int64) * 16 + words
+    for got, labels in ((n1, y.T), (n0, 1.0 - y.T)):
+        want = np.zeros((n_var, 50 * 16))
+        np.add.at(want, (np.arange(n_var)[:, None], cells),
+                  labels.astype(np.float64))
+        np.testing.assert_array_equal(got.reshape(n_var, -1), want)
     assert scores.shape == (y_test.shape[0],) and np.isfinite(scores).all()
     np.testing.assert_allclose(scores.mean(), pll['test'], rtol=1e-5)
     assert codes.shape == (y_test.shape[0], n_var) and codes.dtype == np.int32
@@ -1188,9 +1194,8 @@ def phase_slice():
                              num_codes=50, fan_mode='per_network'),
          splits={s: int(y.shape[0]) for s, y in splits.items()},
          chunk=s2.chunk, launches=launches, main_path_seconds=main_seconds,
-         pll=pll, pll_parents=pll_p, pll_scatter=pll_s,
-         pll_plain_kernel_off=pll_plain, seconds_per_split=secs,
-         seconds_per_split_parents=secs_p, seconds_per_split_scatter=secs_s,
+         pll=pll, pll_parents=pll_p, pll_plain_kernel_off=pll_plain,
+         seconds_per_split=secs, seconds_per_split_parents=secs_p,
          score_mean=float(scores.mean()),
          serving_samples_per_s=y_test.shape[0] / serve_s,
          serving_score_ms=serve_s * 1e3, tie_flips_vs_plain=flips,
@@ -1303,9 +1308,8 @@ def _kernel_vs_plain_step(tr, state, yb, w):
     codes differ, and then only by near-ties. Returns (max abs difference
     of the Adam-only comparison, max relative difference of the all-plain
     one, code flips, flip gap)."""
-    from pgmvae_tpu_torch import graphs
     from pgmvae_tpu_torch.models import vqvae
-    from pgmvae_tpu_torch.ops import cuda_vq, fused_adam
+    from pgmvae_tpu_torch.ops import cuda_vq, fused_adam, kernels
     from pgmvae_tpu_torch.train import copy_state
 
     def leaves(st):
@@ -1323,7 +1327,7 @@ def _kernel_vs_plain_step(tr, state, yb, w):
         cb = tr.codebook(state)
         flips, gap = near_ties(z, cb, cuda_vq.vq_codes_fused(z, cb),
                                cuda_vq.vq_codes_plain(z, cb))
-    launches = graphs.launch_counts()
+    launches = kernels.counts()
     ker, _ = tr.train_step(copy_state(state), yb, w)
     with mock.patch.object(fused_adam, 'adam_update',
                            fused_adam.adam_update_plain):
@@ -1332,7 +1336,7 @@ def _kernel_vs_plain_step(tr, state, yb, w):
                                cuda_vq.vq_codes_plain):
             all_plain, _ = tr.train_step(copy_state(state), yb, w)
     # comparison only
-    graphs._set_launch_counts(launches)
+    kernels.restore(launches)
     torch.cuda.synchronize()
     adam_abs, adam_rel = compare(ker, adam_plain)
     assert adam_rel <= 1e-6, ('Adam kernel step vs plain', adam_rel)
@@ -1353,8 +1357,8 @@ def phase_train():
     bit-equal to the eager loop from the same init; a kernel step against a
     plain step; stage-2 PLLs of the trained model; profiles of one warm
     eager step and of one replayed epoch."""
-    from pgmvae_tpu_torch import graphs
     from pgmvae_tpu_torch.models import vqvae
+    from pgmvae_tpu_torch.ops import kernels
     from pgmvae_tpu_torch.stage2 import Stage2
     from pgmvae_tpu_torch.train import Trainer
 
@@ -1371,20 +1375,18 @@ def phase_train():
         ends.append(time.time())
 
     # ---- the main path, counted: every kernel launch from here to the read
-    graphs.reset_launch_counts()
+    kernels.reset()
     t0 = time.time()
     state, hist = tr.fit(state, y, 2, seed=SEED, log_fn=log_fn)
     torch.cuda.synchronize()
     fit_seconds = time.time() - t0
-    launches = graphs.named_launch_counts()
+    launches = kernels.counts()
     # ---- end of the counted run
     memory = _memory_since(mark)
 
     steps = 2 * tr.steps_per_epoch
     assert tr.steps_per_epoch == 7 and steps == 14, tr.steps_per_epoch
-    assert launches == _launches(vq_argmin=steps,
-                                 adam=steps * _adam_per_step(n_leaves),
-                                 ema=steps, recon=2 * steps)
+    assert launches == _train_launches(cfg, steps, 'pallas'), launches
     assert n_leaves == 20, n_leaves
     assert all(np.isfinite(list(m)).all() for m in hist), hist
     assert hist[1].loss < hist[0].loss, hist
@@ -1468,13 +1470,12 @@ def _kdd_like_splits():
 def _uncounted():
     """Kernel launches in the block are comparisons, not the main path:
     the counters are put back after it."""
-    from pgmvae_tpu_torch import graphs
-    before = graphs.launch_counts()
+    from pgmvae_tpu_torch.ops import kernels
+    before = kernels.counts()
     try:
         yield
     finally:
-        graphs.add_launches([b - a for a, b in
-                             zip(graphs.launch_counts(), before)])
+        kernels.restore(before)
 
 
 def _eager_twin(tr):
@@ -1555,9 +1556,7 @@ def phase_train_kdd():
     PLL must rise above the initial model's. Then a kernel step against a
     plain step, the test PLL against a run through the plain version, and
     profiles of one warm eager step and of one replayed epoch."""
-    from pgmvae_tpu_torch import graphs
-    from pgmvae_tpu_torch.models import vqvae
-    from pgmvae_tpu_torch.ops import cuda_vq
+    from pgmvae_tpu_torch.ops import cuda_vq, kernels
     from pgmvae_tpu_torch.stage2 import Stage2
     from pgmvae_tpu_torch.train import Trainer, copy_state
 
@@ -1567,7 +1566,6 @@ def phase_train_kdd():
     y_test = splits['test']
     tr = Trainer(cfg, KDD_LR, KDD_BATCH, y.shape[0], adam_impl='pallas')
     state = _kdd_init(tr)
-    n_leaves = len(vqvae.param_leaves(state.params))
     s2 = Stage2(cfg)
     with _uncounted():                 # the initial model's test PLL
         pll_init = s2.pseudo_log_likelihood(
@@ -1576,20 +1574,20 @@ def phase_train_kdd():
     mark = _memory_mark()
 
     # ---- the training path, counted
-    graphs.reset_launch_counts()
+    kernels.reset()
     t0 = time.time()
     state, hist = tr.fit(state, y, 1, seed=KDD_SEED)
     torch.cuda.synchronize()
     fit_seconds = time.time() - t0
-    launches = graphs.named_launch_counts()
+    launches = kernels.counts()
     # ---- the stage-2 path, counted
     cb = tr.codebook(state)
-    cuda_vq.LAUNCHES = 0
+    kernels.reset()
     t0 = time.time()
     dist = s2.cpt(state.params, cb, y)
     pll_test = s2.pseudo_log_likelihood(state.params, cb, y_test, dist)
     stage2_seconds = time.time() - t0
-    s2_launches = cuda_vq.LAUNCHES
+    s2_launches = kernels.counts()['vq_argmin']
     # ---- end of the counted runs
     memory = _memory_since(mark)
 
@@ -1597,9 +1595,7 @@ def phase_train_kdd():
     chunks = -(-y.shape[0] // s2.chunk) + -(-y_test.shape[0] // s2.chunk)
     assert steps == 200 and s2.chunk == 118 and chunks == 55 + 297, (
         steps, s2.chunk, chunks)
-    assert launches == _launches(vq_argmin=steps,
-                                 adam=steps * _adam_per_step(n_leaves),
-                                 ema=steps, recon=2 * steps), launches
+    assert launches == _train_launches(cfg, steps, 'pallas'), launches
     assert s2_launches == chunks, (s2_launches, chunks)
     assert all(np.isfinite(list(m)).all() for m in hist), hist
     assert np.isfinite(pll_test) and pll_test < 0, pll_test
@@ -1651,9 +1647,7 @@ def phase_train_kdd():
     profile_run('profile_train_kdd_step',
                 lambda: tr.train_step(state, yb, w), top=10, watch=VQ_NAMES)
     _profile_epoch_graph('profile_train_kdd_epoch_graph', tr, state, y)
-    return ({'train': launches['vq_argmin'], 'stage2': s2_launches,
-             'adam': launches['adam'], 'ema': launches['ema'],
-             'recon': launches['recon']},
+    return ({'train': launches, 'stage2': _launches(vq_argmin=s2_launches)},
             max(gap, s2_gap), adam_abs, trained)
 
 
@@ -1666,8 +1660,8 @@ def phase_train_bf16(f32: dict):
     of the float32 run's (the JAX package's sanity band,
     tests/test_compute_dtype.py). Then profiles of one warm eager step and
     of one replayed epoch."""
-    from pgmvae_tpu_torch import graphs
     from pgmvae_tpu_torch.models import vqvae
+    from pgmvae_tpu_torch.ops import kernels
     from pgmvae_tpu_torch.train import Trainer
 
     cfg = _bbc_train_config()._replace(compute_dtype='bf16')
@@ -1681,18 +1675,16 @@ def phase_train_bf16(f32: dict):
         ends.append(time.time())
 
     # ---- the main path, counted
-    graphs.reset_launch_counts()
+    kernels.reset()
     t0 = time.time()
     state, hist = tr.fit(state, y, 2, seed=SEED, log_fn=log_fn)
     torch.cuda.synchronize()
     fit_seconds = time.time() - t0
-    launches = graphs.named_launch_counts()
+    launches = kernels.counts()
     # ---- end of the counted run
     memory = _memory_since(mark)
 
-    assert launches == _launches(vq_argmin_bf16=14,
-                                 adam=14 * _adam_per_step(20), ema=14,
-                                 recon=28), launches
+    assert launches == _train_launches(cfg, 14, 'pallas'), launches
     masters = (vqvae.param_leaves(state.params)
                + vqvae.param_leaves(state.opt_state.mu)
                + vqvae.param_leaves(state.opt_state.nu) + list(state.ema[:3]))
@@ -1733,7 +1725,7 @@ def phase_stream_kdd(kdd: dict):
     counted: params, EMA state and moments must be bit-equal to the in-core
     `train_kdd` result. Then in-core, streamed and eager fits in turns for
     steps/s."""
-    from pgmvae_tpu_torch import graphs
+    from pgmvae_tpu_torch.ops import kernels
     from pgmvae_tpu_torch.train import Trainer
 
     core, ref, y = kdd['tr'], kdd['state'], kdd['y']
@@ -1744,17 +1736,14 @@ def phase_stream_kdd(kdd: dict):
     state = _kdd_init(tr)
     torch.cuda.synchronize()
     # ---- the main path, counted
-    graphs.reset_launch_counts()
+    kernels.reset()
     t0 = time.time()
     state, _ = tr.fit(state, y, 1, seed=KDD_SEED)
     torch.cuda.synchronize()
     seconds = time.time() - t0
-    launches = graphs.named_launch_counts()
+    launches = kernels.counts()
     # ---- end of the counted run
-    n_leaves = 4 * (len(core.cfg.units) + 1)
-    assert launches == _launches(vq_argmin=200,
-                                 adam=200 * _adam_per_step(n_leaves),
-                                 ema=200, recon=400), launches
+    assert launches == _train_launches(core.cfg, 200, 'pallas'), launches
     leaves = _assert_bit_equal(state, ref, 'streamed vs in-core')
     graph = tr.graph_stats['chunk']
     turns = {'in_core': [], 'streamed': [], 'eager': []}
@@ -1789,9 +1778,8 @@ def phase_packed_kdd(kdd: dict, turns: dict):
     bit-equal to the eager loop, and the kdd seed's test PLL within 0.1 nat
     of `train_kdd`'s. Then profiles of one warm eager packed step and of
     one replayed packed epoch."""
-    from pgmvae_tpu_torch import graphs
     from pgmvae_tpu_torch.models import vqvae
-    from pgmvae_tpu_torch.ops import cuda_vq
+    from pgmvae_tpu_torch.ops import cuda_vq, kernels
     from pgmvae_tpu_torch.stage2 import Stage2
     from pgmvae_tpu_torch.train import copy_state
 
@@ -1805,7 +1793,7 @@ def phase_packed_kdd(kdd: dict, turns: dict):
     yb = torch.from_numpy(y[:n_seeds * KDD_BATCH]).cuda().view(
         n_seeds, KDD_BATCH, -1)
     w = torch.ones(KDD_BATCH, device='cuda')
-    counts = graphs.launch_counts()
+    counts = kernels.counts()
     with torch.no_grad():              # the first step's codes, packed
         z_packed = vqvae.encode(tr._step_layout(states, n_seeds).params, yb,
                                 seeds=n_seeds)
@@ -1831,23 +1819,20 @@ def phase_packed_kdd(kdd: dict, turns: dict):
         flip_gap = max(flip_gap, g)
         step_gaps.append(gap)
         del unpacked1
-    graphs._set_launch_counts(counts)
+    kernels.restore(counts)
     del packed1, z_packed
 
     states = init()
     mark = _memory_mark()
     # ---- the main path, counted
-    graphs.reset_launch_counts()
+    kernels.reset()
     t0 = time.time()
     states, ms = tr.fit_packed(states, y, 1, seeds)     # reads the metrics
     seconds = time.time() - t0
-    launches = graphs.named_launch_counts()
+    launches = kernels.counts()
     # ---- end of the counted run
     memory = _memory_since(mark)
-    n_leaves = 4 * (len(tr.cfg.units) + 1)
-    assert launches == _launches(vq_argmin=200,
-                                 adam=200 * _adam_per_step(n_leaves),
-                                 ema=200, recon=400), launches
+    assert launches == _train_launches(tr.cfg, 200, 'pallas'), launches
     assert np.isfinite(ms.loss).all(), ms
     graph = tr.graph_stats['packed']
     hold = _hold_eager(
@@ -1979,24 +1964,25 @@ def phase_cmll(model: dict):
     the plain version, the graph's hold against the eager chain and a
     profile of a replayed CMLL_SEGMENT-step segment."""
     from pgmvae_tpu_torch import gibbs
-    from pgmvae_tpu_torch.ops import cuda_vq
+    from pgmvae_tpu_torch.ops import kernels
     cfg, y_test = model['cfg'], model['y_test']
     p1 = max(cfg.n_var // 10, 1)
     gen = torch.Generator(device='cuda').manual_seed(SEED)
     torch.cuda.synchronize()
 
     # ---- the main path, counted: every kernel launch from here to the read
-    cuda_vq.LAUNCHES = 0
+    kernels.reset()
     t0 = time.time()
     value = gibbs.conditional_marginal_log_likelihood(
         model['params'], model['codebook'], cfg, model['dist'], y_test,
         p1=p1, num_smp=CMLL_SMP, burn_in=CMLL_BURN, generator=gen)
     seconds = time.time() - t0          # it ends in a read of the device
-    launches = cuda_vq.LAUNCHES
+    launches = kernels.counts()
     # ---- end of the counted run
 
     steps = CMLL_SMP * p1
-    assert p1 == 105 and steps == 2100 and launches == steps, (p1, launches)
+    assert p1 == 105 and steps == 2100, p1
+    assert launches == _launches(vq_argmin=steps), launches
     assert np.isfinite(value) and value < 0, value
     equal, first, flips, gap = _gibbs_hold(model, p1, CMLL_HOLD)
     held = _gibbs_graph_hold(model['params'], model['codebook'], cfg,
@@ -2037,9 +2023,7 @@ def phase_checkpoint(kdd: dict):
     from the loaded state, both counted; the same steps from an in-memory
     copy must give the same state bit for bit."""
     from pgmvae_tpu_torch import checkpoint as ckpt
-    from pgmvae_tpu_torch import graphs
-    from pgmvae_tpu_torch.models import vqvae
-    from pgmvae_tpu_torch.ops import cuda_vq
+    from pgmvae_tpu_torch.ops import kernels
     from pgmvae_tpu_torch.serving import PgmModel
     from pgmvae_tpu_torch.train import copy_state
 
@@ -2069,11 +2053,11 @@ def phase_checkpoint(kdd: dict):
         assert loaded.opt_state.eps == state.opt_state.eps
 
         # ---- serving from the file, counted
-        cuda_vq.LAUNCHES = 0
+        kernels.reset()
         t0 = time.time()
         scores = PgmModel.from_checkpoint(path).score(y_test)
         serve_s = time.time() - t0
-        serve_launches = cuda_vq.LAUNCHES
+        serve_launches = kernels.counts()['vq_argmin']
         # ---- end of the counted run
     assert serve_launches == 1, serve_launches
     np.testing.assert_allclose(scores.mean(), kdd['pll_test'], rtol=1e-5)
@@ -2085,11 +2069,11 @@ def phase_checkpoint(kdd: dict):
     mem = copy_state(state)
     torch.cuda.synchronize()
     # ---- resumed training from the file, counted
-    graphs.reset_launch_counts()
+    kernels.reset()
     for yb in batches:
         loaded, _ = tr.train_step(loaded, yb, w)
     torch.cuda.synchronize()
-    resume = graphs.named_launch_counts()
+    resume = kernels.counts()
     # ---- end of the counted run; the in-memory twin is the comparison
     with _uncounted():
         for yb in batches:
@@ -2100,11 +2084,7 @@ def phase_checkpoint(kdd: dict):
     gap = 0.0 if bit_equal else max(_max_rel(a.float(), b.float())
                                     for a, b in pairs)
     assert gap < 1e-6, ('resumed vs in-memory', gap)
-    n_leaves = len(vqvae.param_leaves(state.params))
-    assert resume == _launches(vq_argmin=RESUME_STEPS,
-                               adam=RESUME_STEPS * _adam_per_step(n_leaves),
-                               ema=RESUME_STEPS,
-                               recon=2 * RESUME_STEPS), resume
+    assert resume == _train_launches(tr.cfg, RESUME_STEPS, 'pallas'), resume
     emit('checkpoint', model='kdd sweep cell (phase train_kdd)',
          file_bytes=nbytes, save_seconds=save_s, load_seconds=load_s,
          leaves=len(pairs), load_bit_equal=True,
@@ -2125,7 +2105,7 @@ def phase_cmll_kdd(kdd: dict):
     replayed CMLL_SEGMENT-step segment over the whole test split, timed
     and profiled."""
     from pgmvae_tpu_torch import gibbs
-    from pgmvae_tpu_torch.ops import cuda_vq
+    from pgmvae_tpu_torch.ops import kernels
     tr, state = kdd['tr'], kdd['state']
     cfg, cb = tr.cfg, tr.codebook(state)
     p1 = max(cfg.n_var // 10, 1)
@@ -2135,17 +2115,18 @@ def phase_cmll_kdd(kdd: dict):
     torch.cuda.synchronize()
 
     # ---- the main path, counted: every kernel launch from here to the read
-    cuda_vq.LAUNCHES = 0
+    kernels.reset()
     t0 = time.time()
     value = gibbs.conditional_marginal_log_likelihood(
         state.params, cb, cfg, kdd['dist'], y, p1=p1, num_smp=3000,
         burn_in=150, generator=gen)
     seconds = time.time() - t0
-    launches = cuda_vq.LAUNCHES
+    launches = kernels.counts()
     # ---- end of the counted run
 
     steps = 3000 * p1
-    assert p1 == 6 and steps == 18000 and launches == steps, (p1, launches)
+    assert p1 == 6 and steps == 18000, p1
+    assert launches == _launches(vq_argmin=steps), launches
     assert np.isfinite(value) and value < 0, value
     held = _gibbs_graph_hold(state.params, cb, cfg, kdd['dist'], y, p1,
                              CMLL_HOLD, SEED + 5)
@@ -2191,11 +2172,10 @@ def phase_run_epochs(kdd: dict) -> dict:
     data, each counted, with its metrics read once ([E, 4] and [S, E, 4]);
     held bit-equal (state and metrics) to `fit` and `fit_packed` from the
     same init, which are not counted."""
-    from pgmvae_tpu_torch import graphs
+    from pgmvae_tpu_torch.ops import kernels
     tr, y = kdd['tr'], kdd['y']
     seeds = list(PACKED_SEEDS)
     data = torch.as_tensor(y, device='cuda')
-    n_leaves = 4 * (len(tr.cfg.units) + 1)
     steps = RUN_EPOCHS * tr.steps_per_epoch
     out, launches = {}, {}
     for name in ('run_epochs', 'run_epochs_packed'):
@@ -2203,7 +2183,7 @@ def phase_run_epochs(kdd: dict) -> dict:
         state = tr.init_states_packed(seeds) if packed else _kdd_init(tr)
         torch.cuda.synchronize()
         # ---- the main path, counted
-        graphs.reset_launch_counts()
+        kernels.reset()
         t0 = time.time()
         if packed:
             state, ms = tr.run_epochs_packed(state, data, seeds, 0,
@@ -2212,13 +2192,11 @@ def phase_run_epochs(kdd: dict) -> dict:
             state, ms = tr.run_epochs(state, data, KDD_SEED, 0, RUN_EPOCHS)
         ms = ms.cpu().numpy()
         seconds = time.time() - t0
-        launches[name] = graphs.named_launch_counts()
+        launches[name] = kernels.counts()
         # ---- end of the counted run
         tr.release_graphs()
-        assert launches[name] == _launches(
-            vq_argmin=steps,
-            adam=steps * _adam_per_step(n_leaves), ema=steps,
-            recon=2 * steps), launches
+        assert launches[name] == _train_launches(tr.cfg, steps,
+                                                 'pallas'), launches
         assert ms.shape == ((len(seeds),) if packed else ()) + (
             RUN_EPOCHS, 4), ms.shape
         with _uncounted():
@@ -2250,7 +2228,7 @@ def phase_train_kdd_full(splits: dict) -> dict:
     graph path, counted, on the shared-factor splits; its wall time and
     steps/s, and the test PLL's move from the initial model's (stage 2 on
     the whole train split, uncounted)."""
-    from pgmvae_tpu_torch import graphs
+    from pgmvae_tpu_torch.ops import kernels
     from pgmvae_tpu_torch.stage2 import Stage2
     from pgmvae_tpu_torch.train import Trainer
     cfg = _kdd_config()
@@ -2267,19 +2245,17 @@ def phase_train_kdd_full(splits: dict) -> dict:
         pll_init = pll()
     mark = _memory_mark()
     # ---- the main path, counted
-    graphs.reset_launch_counts()
+    kernels.reset()
     t0 = time.time()
     state, hist = tr.fit(state, y, 1, seed=KDD_SEED)
     torch.cuda.synchronize()
     seconds = time.time() - t0
-    launches = graphs.named_launch_counts()
+    launches = kernels.counts()
     # ---- end of the counted run
     memory = _memory_since(mark)
     steps = tr.steps_per_epoch
-    n_leaves = 4 * (len(cfg.units) + 1)
-    assert steps == 5628 and launches == _launches(
-        vq_argmin=steps, adam=steps * _adam_per_step(n_leaves),
-        ema=steps, recon=2 * steps), (steps, launches)
+    assert steps == 5628 and launches == _train_launches(
+        cfg, steps, 'pallas'), (steps, launches)
     assert np.isfinite(list(hist[0])).all(), hist
     with _uncounted():
         t1 = time.time()
@@ -2337,7 +2313,8 @@ def _cli(tmp: str, flags: list, module=None, base=CLI_FLAGS):
     """One run of a command line (`run`, or `module`'s main) in `tmp` (its
     logs, joblog and result.txt land there), counted: (exit code, its
     result lines, launches, seconds)."""
-    from pgmvae_tpu_torch import graphs, run
+    from pgmvae_tpu_torch import run
+    from pgmvae_tpu_torch.ops import kernels
     module = module or run
     result = os.path.join(tmp, 'result.txt')
     seen = 0
@@ -2347,14 +2324,14 @@ def _cli(tmp: str, flags: list, module=None, base=CLI_FLAGS):
     cwd = os.getcwd()
     os.chdir(tmp)
     # ---- the main path, counted
-    graphs.reset_launch_counts()
+    kernels.reset()
     try:
         t0 = time.time()
         rc = module.main(base + flags + ['--data-dir', tmp])
         seconds = time.time() - t0
     finally:
         os.chdir(cwd)
-    launches = graphs.named_launch_counts()
+    launches = kernels.counts()
     # ---- end of the counted run
     lines = []
     if os.path.exists(result):
@@ -2373,9 +2350,9 @@ def phase_cli():
     PgmModel.from_checkpoint serves the file, and the sweep runner
     runs a packed 2x2 grid (pk-2 lines), the same command again (no cell
     runs) and one --isolate cell (in its own process on the card)."""
-    from pgmvae_tpu_torch import graphs
     from pgmvae_tpu_torch.data.loader import load_split
-    from pgmvae_tpu_torch.ops import cuda_vq
+    from pgmvae_tpu_torch.models.vqvae import VqVaeConfig
+    from pgmvae_tpu_torch.ops import kernels
     from pgmvae_tpu_torch.registry import REGISTRY
     from pgmvae_tpu_torch.serving import PgmModel
     from pgmvae_tpu_torch.utils.logging import run_identifier
@@ -2419,9 +2396,9 @@ def phase_cli():
         assert trace['aten_ops'] > 0, trace
         y_test = load_split('nltcs', 'test', tmp)
         # ---- serving the checkpoint, counted
-        cuda_vq.LAUNCHES = 0
+        kernels.reset()
         scores = PgmModel.from_checkpoint(path).score(y_test)
-        serve_launches = cuda_vq.LAUNCHES
+        serve_launches = kernels.counts()['vq_argmin']
         # ---- end of the counted run
         sweep = _sweep(tmp)
     for name, r in runs.items():
@@ -2446,8 +2423,13 @@ def phase_cli():
     # resume; the bfloat16 moments take the variant and only it; bf16
     # compute trains through the bfloat16 instance, stage 2 stays float32
     steps = -(-16181 // 128)
-    adam = _adam_per_step(4 * (len(REGISTRY['nltcs'].encoder_units(10))
-                               + 1))
+    cfg = VqVaeConfig(n_var=16, units=REGISTRY['nltcs'].encoder_units(10),
+                      dim=10, num_codes=50, quantizer='ema')
+
+    def train(n, vq=0):
+        """n train steps of the command line's model and `vq` searches."""
+        return _sum_launches(_train_launches(cfg, n, 'pallas'),
+                             _launches(vq_argmin=vq))
     vq = {name: r['launches']['vq_argmin'] for name, r in runs.items()}
     assert vq['checkpoint_cmll'] - vq['pallas'] == 3000, vq
     assert vq['pallas'] - vq['resume'] == 2 * steps, vq
@@ -2460,29 +2442,25 @@ def phase_cli():
     # code call, an Adam update; the reconstruction tail two) for both
     # seeds; stage 2 per seed as in an unpacked cell
     stage2 = vq['pallas'] - 3 * steps
-    assert sweep['grid']['launches'] == {
-        'vq_argmin': 2 * 3 * steps + 4 * stage2, 'vq_argmin_bf16': 0,
-        'adam': 2 * 3 * steps * adam, 'adam_bf16': 0,
-        'ema': 2 * 3 * steps, 'recon': 2 * 2 * 3 * steps}, sweep
+    assert sweep['grid']['launches'] == train(2 * 3 * steps,
+                                              vq=4 * stage2), sweep
     # the isolated cell ran on the card in its own process, through the
     # three kernels: one launch a step of each, and its stage 2
     iso = sweep['isolate']['cell_process']
-    assert iso == {'device': 'cuda:0', 'launches': {
-        'vq_argmin': 3 * steps + stage2, 'vq_argmin_bf16': 0,
-        'adam': 3 * steps * adam, 'adam_bf16': 0, 'ema': 3 * steps,
-        'recon': 2 * 3 * steps}}, iso
+    assert iso == {'device': 'cuda:0',
+                   'launches': train(3 * steps, vq=stage2)}, iso
+    # every kernel but the searches (above), by run
     for name, r in runs.items():
-        n = (1 if name == 'resume' else 3) * steps
-        want = ({'adam': 0, 'adam_bf16': n * adam} if name == 'fused_bf16'
-                else {'adam': n * adam, 'adam_bf16': 0})
-        want['ema'] = n
-        want['recon'] = 2 * n
+        want = _train_launches(cfg, (1 if name == 'resume' else 3) * steps,
+                               'fused_bf16' if name == 'fused_bf16'
+                               else 'pallas')
+        want = {k: n for k, n in want.items()
+                if not k.startswith('vq_argmin')}
         got = {k: r['launches'][k] for k in want}
         assert got == want, (name, got, want)
     assert serve_launches == 1, serve_launches
-    assert prof_launches == {'vq_argmin': vq['resume'], 'vq_argmin_bf16': 0,
-                             'adam': steps * adam, 'adam_bf16': 0,
-                             'ema': steps, 'recon': 2 * steps}, prof_launches
+    assert prof_launches == train(steps, vq=vq['resume'] - steps), \
+        prof_launches
     np.testing.assert_allclose(scores.mean(),
                                runs['checkpoint_cmll']['result']['pll-test'],
                                rtol=1e-5)
@@ -2492,7 +2470,7 @@ def phase_cli():
     total = {k: sum(r['launches'][k] for r in runs.values())
              + sweep['grid']['launches'][k] + iso['launches'][k]
              + prof_launches[k]
-             for k in graphs.LAUNCH_NAMES}
+             for k in _launches()}
     total['vq_argmin'] += serve_launches
     return total
 
@@ -2576,10 +2554,8 @@ def phase_sweep_kdd(kdd: dict, packed_pll: float):
     # per seed: the CPT over the train rows, then each split's PLL
     stage2 = sum(-(-y.shape[0] // chunk)
                  for y in (rows['train'], *rows.values()))
-    n_leaves = 4 * (len(tr.cfg.units) + 1)
-    assert launches == _launches(vq_argmin=200 + 4 * stage2,
-                                 adam=200 * _adam_per_step(n_leaves),
-                                 ema=200, recon=400), launches
+    assert launches == _sum_launches(_train_launches(tr.cfg, 200, 'pallas'),
+                                     _launches(vq_argmin=4 * stage2)), launches
     plls = [r['pll_test'] for r in records]
     assert all(np.isfinite(v) and v < 0 for v in plls), plls
     assert abs(plls[0] - packed_pll) <= 1e-5 * abs(packed_pll), (
@@ -2615,8 +2591,9 @@ def phase_packed_kdd_bf16(kdd: dict, f32_losses: list):
     the float32 packed run's (the JAX package's sanity band,
     tests/test_compute_dtype.py). Last, a profile of one replayed packed
     bf16 epoch and the kernel's share of its device time."""
-    from pgmvae_tpu_torch import graphs, run_pipeline
+    from pgmvae_tpu_torch import run_pipeline
     from pgmvae_tpu_torch.models import vqvae
+    from pgmvae_tpu_torch.ops import kernels
     from pgmvae_tpu_torch.stage2 import Stage2
     from pgmvae_tpu_torch.train import Trainer
     from pgmvae_tpu_torch.utils.logging import run_identifier
@@ -2638,11 +2615,9 @@ def phase_packed_kdd_bf16(kdd: dict, f32_losses: list):
     chunk = Stage2(cfg).chunk
     stage2 = sum(-(-v.shape[0] // chunk) for v in (rows['train'],
                                                   *rows.values()))
-    n_leaves = 4 * (len(cfg.units) + 1)
-    per_step = _adam_per_step(n_leaves)
-    assert cli_launches == {'vq_argmin': 4 * stage2, 'vq_argmin_bf16': 200,
-                            'adam': 200 * per_step, 'adam_bf16': 0,
-                            'ema': 200, 'recon': 400}, cli_launches
+    train = _train_launches(cfg, 200, 'pallas')
+    assert cli_launches == _sum_launches(
+        train, _launches(vq_argmin=4 * stage2)), cli_launches
     plls = {k: [r[k] for r in records]
             for k in ('pll_train', 'pll_valid', 'pll_test')}
     assert all(np.isfinite(v) and v < 0 for vs in plls.values()
@@ -2652,17 +2627,15 @@ def phase_packed_kdd_bf16(kdd: dict, f32_losses: list):
     states = tr.init_states_packed(seeds)
     mark = _memory_mark()
     # ---- the main path, counted
-    graphs.reset_launch_counts()
+    kernels.reset()
     t0 = time.time()
     states, ms = tr.fit_packed(states, y, 1, seeds)
     torch.cuda.synchronize()
     seconds = time.time() - t0
-    launches = graphs.named_launch_counts()
+    launches = kernels.counts()
     # ---- end of the counted run
     memory = _memory_since(mark)
-    assert launches == _launches(vq_argmin_bf16=200,
-                                 adam=200 * per_step, ema=200,
-                                 recon=400), launches
+    assert launches == train, launches
     masters = (vqvae.param_leaves(states.params)
                + vqvae.param_leaves(states.opt_state.mu)
                + vqvae.param_leaves(states.opt_state.nu)
@@ -2932,7 +2905,7 @@ def phase_mesh_bbc():
          mesh_step_ms=1e3 * max(r['fit_s'] for r in res) / steps,
          one_device_step_ms=1e3 * one_fit_s / steps, world_s=world_s,
          rank_peak_gb=[r['peak_gb'] for r in res])
-    return {k: launches[k] for k in ('vq_argmin', 'adam', 'ema', 'recon')}
+    return launches
 
 
 def phase_mesh_dryrun():
@@ -3002,10 +2975,8 @@ def phase_mesh_nccl(kdd: dict):
            if not torch.equal(a.to('cuda'), b)]
     assert not bad, ('NCCL mesh epoch vs unmeshed graph epoch', bad[:8])
     steps = tr.steps_per_epoch
-    assert {k: ranks[0].launches[k] for k in ('vq_argmin', 'adam',
-                                              'ema', 'recon')} == {
-        'vq_argmin': steps, 'adam': steps * _adam_per_step(20),
-        'ema': steps, 'recon': 2 * steps}, ranks[0].launches
+    assert ranks[0].launches == _train_launches(tr.cfg, steps, 'pallas'), \
+        ranks[0].launches
     emit('mesh_nccl', backend='nccl', world=1, captured=captured,
          capture_error=error, graph=got['graph'], steps=tr.steps_per_epoch,
          loss=got['loss'], loss_unmeshed=hist[0].loss,
@@ -3230,16 +3201,14 @@ def phase_sweep_memory() -> dict:
     steps = -(-REGISTRY['kdd'].n_train // 256)
     v = [r['launches']['vq_argmin'] for r in runs]
     stage2 = v[0] // 3 - steps
-    adam = steps * _adam_per_step(
-        4 * (len(REGISTRY['kdd'].encoder_units(10)) + 1))
     assert v == [3 * (steps + stage2), steps + 2 * stage2,
                  steps + stage2 + 3000 * 6, 2 * (steps + stage2)], v
-    assert [r['launches']['adam'] for r in runs] == [3 * adam, adam, adam,
-                                                     2 * adam], runs
-    assert [r['launches']['ema'] for r in runs] == [3 * steps, steps, steps,
-                                                    2 * steps], runs
-    assert [r['launches']['recon'] for r in runs] == [
-        6 * steps, 2 * steps, 2 * steps, 4 * steps], runs
+    # every kernel but the searches: the steps of 3, 1, 1 and 2 cells
+    for r, cells_run in zip(runs, (3, 1, 1, 2), strict=True):
+        want = _train_launches(_kdd_config(), cells_run * steps, 'pallas')
+        want = {k: n for k, n in want.items()
+                if not k.startswith('vq_argmin')}
+        assert {k: r['launches'][k] for k in want} == want, (r, want)
     return _sum_launches(*(r['launches'] for r in runs))
 
 
@@ -3252,15 +3221,15 @@ BENCH_PACKED_FLAGS = ['-n', 'kdd', '-k', '4096', '-d', '10', '-b', '32',
 def _twin(module, argv: list):
     """One run of a measurement twin's `main(argv)` in-process, counted:
     (exit code, the JSON lines it printed, launches, seconds)."""
-    from pgmvae_tpu_torch import graphs
+    from pgmvae_tpu_torch.ops import kernels
     out = io.StringIO()
     # ---- the main path, counted
-    graphs.reset_launch_counts()
+    kernels.reset()
     t0 = time.time()
     with contextlib.redirect_stdout(out):
         rc = module.main(argv)
     seconds = time.time() - t0
-    launches = graphs.named_launch_counts()
+    launches = kernels.counts()
     # ---- end of the counted run
     lines = [json.loads(line) for line in out.getvalue().splitlines()
              if line.startswith('{')]
@@ -3268,12 +3237,13 @@ def _twin(module, argv: list):
 
 
 def _launches(**counts) -> dict:
-    """Launch counts by name, as `graphs.named_launch_counts()` gives
-    them: the counters named here, every other counter 0."""
-    from pgmvae_tpu_torch import graphs
-    unknown = set(counts) - set(graphs.LAUNCH_NAMES)
+    """Launch counts by name, as `kernels.counts()` gives them: the
+    counters named here, every other counter 0."""
+    from pgmvae_tpu_torch.ops import kernels
+    names = kernels.counts()
+    unknown = set(counts) - set(names)
     assert not unknown, unknown
-    return {**dict.fromkeys(graphs.LAUNCH_NAMES, 0), **counts}
+    return {**dict.fromkeys(names, 0), **counts}
 
 
 def _train_launches(cfg, steps: int, adam_impl: str) -> dict:
@@ -3295,8 +3265,7 @@ def _train_launches(cfg, steps: int, adam_impl: str) -> dict:
 
 def _sum_launches(*counts) -> dict:
     """Sums by kernel."""
-    from pgmvae_tpu_torch import graphs
-    return {k: sum(c[k] for c in counts) for k in graphs.LAUNCH_NAMES}
+    return {k: sum(c[k] for c in counts) for k in _launches()}
 
 
 def phase_bench() -> dict:
@@ -3435,8 +3404,8 @@ def phase_stream_big() -> dict:
     once for every variable, counts equal to those of the split's two
     halves cut off a chunk boundary, a finite PLL, and the largest count
     cell against 2^24 (f32 counts are exact below it)."""
-    from pgmvae_tpu_torch import bench_streaming, graphs
-    from pgmvae_tpu_torch.ops import cuda_vq
+    from pgmvae_tpu_torch import bench_streaming
+    from pgmvae_tpu_torch.ops import cuda_vq, kernels
     from pgmvae_tpu_torch.stage2 import Stage2
     from pgmvae_tpu_torch.train import Trainer
 
@@ -3498,13 +3467,13 @@ def phase_stream_big() -> dict:
     codebook = core.codebook(state)
     mark = _memory_mark()
     # ---- the main path, counted
-    graphs.reset_launch_counts()
+    kernels.reset()
     t0 = time.time()
     dist = s2.cpt(state.params, codebook, data)
     cpt_seconds = time.time() - t0
     pll = s2.pseudo_log_likelihood(state.params, codebook, data, dist)
     stage2_seconds = time.time() - t0
-    s2_launches = graphs.named_launch_counts()
+    s2_launches = kernels.counts()
     # ---- end of the counted run
     s2_memory = _memory_since(mark)
     chunks = -(-rows // s2.chunk)
@@ -3656,10 +3625,9 @@ def phase_cli_big() -> dict:
         largest)
     steps = -(-rows // 256)
     chunks = sum(-(-n // chunk) for n, chunk, _ in counted)
-    adam = _adam_per_step(4 * (len(REGISTRY['kdd'].encoder_units(10)) + 1))
-    assert launches == _launches(vq_argmin=steps + chunks, vq_argmin_bf16=0,
-                                 adam=steps * adam, adam_bf16=0,
-                                 ema=steps, recon=2 * steps), launches
+    assert launches == _sum_launches(
+        _train_launches(_kdd_config(), steps, 'pallas'),
+        _launches(vq_argmin=chunks)), launches
     return launches
 
 
@@ -3708,107 +3676,32 @@ def main() -> int:
     main_row = rows[('shape',) + MAIN_SHAPE]
     bf16_row = rows_bf16[('shape',) + BF16_MAIN_SHAPE]
     emit('done', seconds=time.time() - t_start, device_ms_by=DEVICE_TIMER)
-    vq_paths = {'serving': launches, 'train': train_launches['vq_argmin'],
-                'train_kdd': kdd_launches['train'],
-                'stage2_kdd': kdd_launches['stage2'], 'cmll': cmll_launches,
-                'checkpoint': ckpt_launches['vq_argmin'],
-                'cmll_kdd': cmll_kdd_launches,
-                'stream_kdd': stream_launches['vq_argmin'],
-                'packed_kdd': packed_launches['vq_argmin'],
-                'sweep_kdd': sweep_kdd_launches['vq_argmin'],
-                'packed_kdd_bf16': packed_bf16['cli']['vq_argmin'],
-                'run_epochs': epochs_launches['run_epochs']['vq_argmin'],
-                'run_epochs_packed':
-                    epochs_launches['run_epochs_packed']['vq_argmin'],
-                'train_kdd_full': full_launches['vq_argmin'],
-                'cli': cli_launches['vq_argmin'],
-                'mesh_nccl': nccl_launches['vq_argmin'],
-                'mesh_dryrun': dryrun_launches['vq_argmin'],
-                'mesh_bbc': mesh_bbc_launches['vq_argmin'],
-                'cli_mesh': cli_mesh_launches['vq_argmin'],
-                'bench': bench_launches['vq_argmin'],
-                'stream_big': stream_big_launches['vq_argmin'],
-                'sweep_memory': sweep_memory_launches['vq_argmin'],
-                'cli_big': cli_big_launches['vq_argmin']}
-    vq_bf16_paths = {'train_bf16': bf16_launches['vq_argmin_bf16'],
-                     'packed_kdd_bf16':
-                         packed_bf16['cli']['vq_argmin_bf16'],
-                     'packed_kdd_bf16_fit':
-                         packed_bf16['fit']['vq_argmin_bf16'],
-                     'cli': cli_launches['vq_argmin_bf16'],
-                     'bench': bench_launches['vq_argmin_bf16']}
-    adam_paths = {'serving': 0, 'train': train_launches['adam'],
-                  'train_bf16': bf16_launches['adam'],
-                  'train_kdd': kdd_launches['adam'], 'stage2_kdd': 0,
-                  'checkpoint': ckpt_launches['adam'],
-                  'stream_kdd': stream_launches['adam'],
-                  'packed_kdd': packed_launches['adam'],
-                  'sweep_kdd': sweep_kdd_launches['adam'],
-                  'packed_kdd_bf16': packed_bf16['cli']['adam'],
-                  'packed_kdd_bf16_fit': packed_bf16['fit']['adam'],
-                  'run_epochs': epochs_launches['run_epochs']['adam'],
-                  'run_epochs_packed':
-                      epochs_launches['run_epochs_packed']['adam'],
-                  'train_kdd_full': full_launches['adam'],
-                  'cli': cli_launches['adam'],
-                  'mesh_nccl': nccl_launches['adam'],
-                  'mesh_dryrun': dryrun_launches['adam'],
-                  'mesh_bbc': mesh_bbc_launches['adam'],
-                  'cli_mesh': cli_mesh_launches['adam'],
-                  'bench': bench_launches['adam'],
-                  'stream_big': stream_big_launches['adam'],
-                  'sweep_memory': sweep_memory_launches['adam'],
-                  'cli_big': cli_big_launches['adam']}
-    adam_bf16_paths = {'cli': cli_launches['adam_bf16'],
-                       'bench': bench_launches['adam_bf16']}
-    # one launch a training step wherever the 'data' axis has one rank;
-    # the dense step (no launch) under two (mesh_bbc, cli_mesh, dryrun)
-    ema_paths = {'train': train_launches['ema'],
-                 'train_bf16': bf16_launches['ema'],
-                 'train_kdd': kdd_launches['ema'],
-                 'checkpoint': ckpt_launches['ema'],
-                 'stream_kdd': stream_launches['ema'],
-                 'packed_kdd': packed_launches['ema'],
-                 'sweep_kdd': sweep_kdd_launches['ema'],
-                 'packed_kdd_bf16': packed_bf16['cli']['ema'],
-                 'packed_kdd_bf16_fit': packed_bf16['fit']['ema'],
-                 'run_epochs': epochs_launches['run_epochs']['ema'],
-                 'run_epochs_packed':
-                     epochs_launches['run_epochs_packed']['ema'],
-                 'train_kdd_full': full_launches['ema'],
-                 'cli': cli_launches['ema'],
-                 'mesh_nccl': nccl_launches['ema'],
-                 'mesh_dryrun': dryrun_launches['ema'],
-                 'mesh_bbc': mesh_bbc_launches['ema'],
-                 'cli_mesh': cli_mesh_launches['ema'],
-                 'bench': bench_launches['ema'],
-                 'stream_big': stream_big_launches['ema'],
-                 'sweep_memory': sweep_memory_launches['ema'],
-                 'cli_big': cli_big_launches['ema']}
+    by_path = {'serving': launches, 'train': train_launches,
+               'train_bf16': bf16_launches,
+               'train_kdd': kdd_launches['train'],
+               'stage2_kdd': kdd_launches['stage2'], 'cmll': cmll_launches,
+               'checkpoint': ckpt_launches, 'cmll_kdd': cmll_kdd_launches,
+               'stream_kdd': stream_launches, 'packed_kdd': packed_launches,
+               'sweep_kdd': sweep_kdd_launches,
+               'packed_kdd_bf16': packed_bf16['cli'],
+               'packed_kdd_bf16_fit': packed_bf16['fit'],
+               'run_epochs': epochs_launches['run_epochs'],
+               'run_epochs_packed': epochs_launches['run_epochs_packed'],
+               'train_kdd_full': full_launches, 'cli': cli_launches,
+               'mesh_nccl': nccl_launches, 'mesh_dryrun': dryrun_launches,
+               'mesh_bbc': mesh_bbc_launches, 'cli_mesh': cli_mesh_launches,
+               'bench': bench_launches, 'stream_big': stream_big_launches,
+               'sweep_memory': sweep_memory_launches,
+               'cli_big': cli_big_launches}
+    # each kernel's launches by the paths that made any (the EMA kernel's
+    # leave out mesh_bbc, cli_mesh and mesh_dryrun: under two 'data' ranks
+    # the step is the dense one)
+    paths = {name: {path: n[name] for path, n in by_path.items() if n[name]}
+             for name in _launches()}
     # two launches (forward, backward) a training step on every path
-    recon_paths = {'train': train_launches['recon'],
-                   'train_bf16': bf16_launches['recon'],
-                   'train_kdd': kdd_launches['recon'],
-                   'checkpoint': ckpt_launches['recon'],
-                   'stream_kdd': stream_launches['recon'],
-                   'packed_kdd': packed_launches['recon'],
-                   'sweep_kdd': sweep_kdd_launches['recon'],
-                   'packed_kdd_bf16': packed_bf16['cli']['recon'],
-                   'packed_kdd_bf16_fit': packed_bf16['fit']['recon'],
-                   'run_epochs': epochs_launches['run_epochs']['recon'],
-                   'run_epochs_packed':
-                       epochs_launches['run_epochs_packed']['recon'],
-                   'train_kdd_full': full_launches['recon'],
-                   'cli': cli_launches['recon'],
-                   'mesh_nccl': nccl_launches['recon'],
-                   'mesh_dryrun': dryrun_launches['recon'],
-                   'mesh_bbc': mesh_bbc_launches['recon'],
-                   'cli_mesh': cli_mesh_launches['recon'],
-                   'bench': bench_launches['recon'],
-                   'stream_big': stream_big_launches['recon'],
-                   'sweep_memory': sweep_memory_launches['recon'],
-                   'cli_big': cli_big_launches['recon']}
-    assert all(recon_paths.values()), recon_paths
+    untrained = ('serving', 'stage2_kdd', 'cmll', 'cmll_kdd')
+    assert all(n['recon'] for path, n in by_path.items()
+               if path not in untrained), paths['recon']
     ema_row = ema_rows[EMA_SHAPES[0]]
     recon_row = recon_rows[tuple(RECON_CASES[1])]
     timed = ('ms', 'device_ms', 'plain_ms', 'plain_device_ms',
@@ -3817,7 +3710,8 @@ def main() -> int:
         'name': 'vq_argmin', 'route': 'cuda',
         'source': 'pgmvae_tpu_torch/ops/csrc/vq_argmin.cu',
         'replaces': 'pgmvae_tpu/ops/pallas_vq.py:38',
-        'launches': sum(vq_paths.values()), 'launches_by_path': vq_paths,
+        'launches': sum(paths['vq_argmin'].values()),
+        'launches_by_path': paths['vq_argmin'],
         'max_abs_err': max(kernel_err, slice_err, small_err, train_gap,
                            kdd_gap, cmll_gap, packed_gap),
         **{key: main_row[key] for key in timed},
@@ -3826,8 +3720,8 @@ def main() -> int:
         'name': 'vq_argmin_bf16', 'route': 'cuda',
         'source': 'pgmvae_tpu_torch/ops/csrc/vq_argmin.cu',
         'replaces': 'pgmvae_tpu/ops/pallas_vq.py:38',
-        'launches': sum(vq_bf16_paths.values()),
-        'launches_by_path': vq_bf16_paths,
+        'launches': sum(paths['vq_argmin_bf16'].values()),
+        'launches_by_path': paths['vq_argmin_bf16'],
         'max_abs_err': kernel_bf16_err,
         **{key: bf16_row[key] for key in timed},
         'device_ms_by': DEVICE_TIMER,
@@ -3835,8 +3729,8 @@ def main() -> int:
         'name': 'adam', 'route': 'cuda',
         'source': 'pgmvae_tpu_torch/ops/csrc/adam.cu',
         'replaces': 'pgmvae_tpu/ops/fused_adam.py:79',
-        'launches': sum(adam_paths.values()),
-        'launches_by_path': adam_paths,
+        'launches': sum(paths['adam'].values()),
+        'launches_by_path': paths['adam'],
         'max_abs_err': max(train_err, kdd_adam_err),
         **{key: adam_row[key] for key in timed},
         'device_ms_by': DEVICE_TIMER,
@@ -3844,8 +3738,8 @@ def main() -> int:
         'name': 'adam_bf16', 'route': 'cuda',
         'source': 'pgmvae_tpu_torch/ops/csrc/adam.cu',
         'replaces': 'pgmvae_tpu/ops/fused_adam.py:187',
-        'launches': sum(adam_bf16_paths.values()),
-        'launches_by_path': adam_bf16_paths,
+        'launches': sum(paths['adam_bf16'].values()),
+        'launches_by_path': paths['adam_bf16'],
         'max_abs_err': 0.0,       # bit-equal to its plain version
         **{key: adam_bf16_row[key] for key in timed},
         'device_ms_by': DEVICE_TIMER,
@@ -3853,8 +3747,8 @@ def main() -> int:
         'name': 'ema_update', 'route': 'cuda',
         'source': 'pgmvae_tpu_torch/ops/csrc/ema_update.cu',
         'replaces': None,     # the JAX package leaves the step to XLA
-        'launches': sum(ema_paths.values()),
-        'launches_by_path': ema_paths,
+        'launches': sum(paths['ema'].values()),
+        'launches_by_path': paths['ema'],
         'max_rel': max(max(c['rel'].values()) for row in ema_rows.values()
                        for c in row['cases'].values()),
         **{key: ema_row[key] for key in timed},
@@ -3864,8 +3758,8 @@ def main() -> int:
         'name': 'recon_loss', 'route': 'cuda',
         'source': 'pgmvae_tpu_torch/ops/csrc/recon_loss.cu',
         'replaces': None,     # the JAX package leaves the loss to XLA
-        'launches': sum(recon_paths.values()),
-        'launches_by_path': recon_paths,
+        'launches': sum(paths['recon'].values()),
+        'launches_by_path': paths['recon'],
         'max_grad_rel': max(row['grad_rel'] for row in recon_rows.values()),
         **{key: recon_row[key] for key in timed},
         'device_ms_by': DEVICE_TIMER,

@@ -8,7 +8,7 @@ seconds a mesh cell's spawned ranks may run) and, for a packed group,
 `_packed`: the list of its cells' fields. It prints the result (a dict, or
 for a packed group a list of dicts) as the last line of its stdout. Each
 result carries `cell_process`: the device the process ran on and its kernel
-launches (`graphs.named_launch_counts`), counted over all the cells it ran,
+launches (`ops/kernels.py`), counted over all the cells it ran,
 since the caller's own counts never see them.
 """
 
@@ -27,9 +27,9 @@ def _config(fields: dict):
 
 
 def main() -> int:
-    from pgmvae_tpu_torch import graphs
     from pgmvae_tpu_torch.driver import (MESH_TIMEOUT, run_experiment,
                                          run_packed_experiments)
+    from pgmvae_tpu_torch.ops import kernels
 
     kw = json.load(sys.stdin)
     index = kw.pop('_device', 0)
@@ -42,7 +42,7 @@ def main() -> int:
     else:
         res = run_experiment(_config(kw), device=device,
                              mesh_timeout=mesh_timeout)
-    process = {'device': device, 'launches': graphs.named_launch_counts()}
+    process = {'device': device, 'launches': kernels.counts()}
     for r in (res if packed is not None else [res]):
         r['cell_process'] = process
     sys.stdout.flush()

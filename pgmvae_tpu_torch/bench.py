@@ -46,8 +46,8 @@ from typing import NamedTuple, Optional
 import numpy as np
 import torch
 
-from pgmvae_tpu_torch import graphs
 from pgmvae_tpu_torch.models.vqvae import VqVaeConfig
+from pgmvae_tpu_torch.ops import kernels
 from pgmvae_tpu_torch.registry import REGISTRY, default_units
 
 # bench.py's recorded TF2 reference throughput (scripts/bench_reference_tf.py
@@ -173,14 +173,6 @@ def device_label(device: torch.device) -> str:
                 f'read: {type(e).__name__})')
 
 
-def launch_counts() -> dict:
-    return graphs.named_launch_counts()
-
-
-def launches_since(before: dict) -> dict:
-    return {k: v - before[k] for k, v in launch_counts().items()}
-
-
 def drain(metrics: torch.Tensor) -> torch.Tensor:
     """The metrics on the host, after all queued device work: the port's
     `jax.device_get`."""
@@ -227,14 +219,14 @@ def timed_epochs(trainer, state, data: torch.Tensor, epochs: int) -> dict:
     from `state`, in place; the timed wall, the last loss, the epoch
     graph's capture and replays (checked: one capture for both runs) and
     the launches of both runs."""
-    before = launch_counts()
+    before = kernels.counts()
     state, m = trainer.run_epochs(state, data, 0, 0, epochs)
     drain(m)
     t0 = time.perf_counter()
     state, m = trainer.run_epochs(state, data, 1, 0, epochs)
     m = drain(m)
     wall = time.perf_counter() - t0
-    launches = launches_since(before)
+    launches = kernels.since(before)
     trainer.release_graphs()
     return {'wall_s': wall, 'loss': float(m[-1, 0]), 'launches': launches,
             **graph_check(trainer, 'epoch',
@@ -329,14 +321,14 @@ def headline(data_dir, device) -> dict:
     run = timed_epochs(trainer, state, data, HEADLINE_EPOCHS)
     sps = HEADLINE_EPOCHS * len(y) / run['wall_s']
 
-    before = launch_counts()
+    before = kernels.counts()
     t1 = time.perf_counter()
     s2 = Stage2(cfg, device=device)
     dist = s2.cpt(state.params, trainer.codebook(state), y)
     pll_test = s2.pseudo_log_likelihood(state.params, trainer.codebook(state),
                                         y_test, dist)
     eval_wall = time.perf_counter() - t1
-    stage2_launches = launches_since(before)
+    stage2_launches = kernels.since(before)
     memory = peak_gb(device)
     fps = train_flops_per_sample(cfg)
     print(f'device={device} steady-state {HEADLINE_EPOCHS} epochs in '

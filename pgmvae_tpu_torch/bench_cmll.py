@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from pgmvae_tpu_torch import bench
+from pgmvae_tpu_torch.ops import kernels
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -86,7 +87,7 @@ def main(argv=None) -> int:
     if device is None:
         return 2
     bench.check_tf32()
-    before = bench.launch_counts()
+    before = kernels.counts()
     cfg, st, tr, data, dist = model(args, device)
     n = args.vars
     p1 = n // 12
@@ -106,7 +107,7 @@ def main(argv=None) -> int:
         'capture_ms_first': cap_first, 'capture_ms_steady': cap_steady,
         'device': bench.device_label(device),
         'platform': 'gpu' if device.type == 'cuda' else 'cpu',
-        'launches': bench.launches_since(before)}), flush=True)
+        'launches': kernels.since(before)}), flush=True)
     return 0
 
 

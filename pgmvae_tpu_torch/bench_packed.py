@@ -36,6 +36,7 @@ import time
 import torch
 
 from pgmvae_tpu_torch import bench
+from pgmvae_tpu_torch.ops import kernels
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -78,7 +79,7 @@ def main(argv=None) -> int:
     data = torch.as_tensor(y, device=device)
     seeds = list(range(1, args.seeds + 1))
     steps = args.epochs * trainer.steps_per_epoch
-    before = bench.launch_counts()
+    before = kernels.counts()
 
     # serial: S cells one after another, each replaying the warm run's
     # graph, steady state timed after a warm-up run
@@ -103,7 +104,7 @@ def main(argv=None) -> int:
     bench.drain(m)
     packed_wall = time.perf_counter() - t0
     packed_sps = args.seeds * args.epochs * len(y) / packed_wall
-    launches = bench.launches_since(before)
+    launches = kernels.since(before)
     trainer.release_graphs()
 
     rec = {

@@ -54,6 +54,7 @@ import torch
 
 from pgmvae_tpu_torch import bench
 from pgmvae_tpu_torch.models.vqvae import VqVaeConfig
+from pgmvae_tpu_torch.ops import kernels
 from pgmvae_tpu_torch.registry import default_units
 
 SUBSET_ROWS = 1 << 20     # the in-core comparator's rows
@@ -122,7 +123,7 @@ def measure(args, device: torch.device) -> Run:
     if data.nbytes <= tr.stream_bytes:
         raise ValueError(f'dataset must exceed stream_bytes: '
                          f'{data.nbytes} <= {tr.stream_bytes}')
-    before = bench.launch_counts()
+    before = kernels.counts()
 
     # in-core comparator: the same model and batch on a device subset
     sub = data[:SUBSET_ROWS]
@@ -150,7 +151,7 @@ def measure(args, device: torch.device) -> Run:
     bench.drain(st.step)
     wall = time.perf_counter() - t0
     peak_stream = bench.peak_gb(device)
-    launches = bench.launches_since(before)
+    launches = kernels.since(before)
     stream_graph = bench.graph_check(tr, 'chunk', tr.steps_per_epoch)
     stream_sps = rows / wall
 

@@ -117,8 +117,8 @@ class ExperimentConfig:
         # training run (M too big) or silently evaluate M=0 under a
         # mislabeled, non-round-trippable cpe--1 identifier (M<0). Bounds
         # match Stage2.__init__ (2^M joint-state columns; M<=12 with the
-        # byte guard there — past SCATTER_COLS the scatter path counts
-        # without a one-hot, so wide tables are feasible).
+        # byte guard there — counts never build a one-hot, so wide tables
+        # are feasible).
         if not 0 <= self.cpt_parents <= 12:
             raise ValueError(f'cpt_parents must be in [0, 12], '
                              f'got {self.cpt_parents}')

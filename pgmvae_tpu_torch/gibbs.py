@@ -43,6 +43,7 @@ import torch
 
 from pgmvae_tpu_torch import graphs as pgraphs
 from pgmvae_tpu_torch.models import vqvae
+from pgmvae_tpu_torch.stage2 import joint_cells
 from pgmvae_tpu_torch.trace import span
 
 LOG_EPS = 1e-5          # reference core/model.py:148
@@ -68,17 +69,13 @@ def get_probability(params, codebook, cfg, dist, y, fts, parents=None):
     if parents is None:
         prb = dist.index_select(0, fts)                           # [n_sel,K]
         return torch.gather(prb, 1, codes)
-    m = parents.shape[1]
-    n_states = 1 << m
     par = parents.long().index_select(0, fts)                     # [n_sel,m]
     if y.dim() == 2:
         vals = y[:, par].permute(1, 0, 2)                         # [n_sel,B,m]
     else:
         vals = torch.gather(y, 2, par[:, None, :].expand(-1, y.shape[1], -1))
-    pw = 1 << torch.arange(m, device=y.device)
-    j = (vals.long() * pw).sum(-1)                                # [n_sel,B]
     prb = dist.reshape(dist.shape[0], -1).index_select(0, fts)    # [n_sel,K*2^m]
-    return torch.gather(prb, 1, codes * n_states + j)
+    return torch.gather(prb, 1, joint_cells(codes, vals))
 
 
 class GibbsChain:

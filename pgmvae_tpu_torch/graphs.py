@@ -33,12 +33,10 @@ eager loop makes and the caller's generators end where the eager loop would
 leave them.
 
 Launch accounting: the kernel wrappers count a launch when Python calls
-them (`cuda_vq.LAUNCHES`, `fused_adam.LAUNCHES`, their bfloat16 twins,
-`cuda_ema.LAUNCHES` and `cuda_recon.LAUNCHES`). A capture calls them
-without launching anything, so the counts a capture adds are taken back
-and kept as the graph's launches per step, and every replay adds them
-again. The counts then read as if
-every step had run eagerly.
+them (`ops/kernels.py`). A capture calls them without launching anything,
+so the counts a capture adds are taken back and kept as the graph's
+launches per step, and every replay adds them again. The counts then read
+as if every step had run eagerly.
 """
 
 from __future__ import annotations
@@ -50,43 +48,7 @@ from typing import Callable, Optional, Sequence
 import torch
 
 from pgmvae_tpu_torch import trace
-from pgmvae_tpu_torch.ops import cuda_ema, cuda_recon, cuda_vq, fused_adam
-
-# (module, attribute, name in reports) of every kernel launch counter
-COUNTERS = ((cuda_vq, 'LAUNCHES', 'vq_argmin'),
-            (cuda_vq, 'LAUNCHES_BF16', 'vq_argmin_bf16'),
-            (fused_adam, 'LAUNCHES', 'adam'),
-            (fused_adam, 'LAUNCHES_BF16', 'adam_bf16'),
-            (cuda_ema, 'LAUNCHES', 'ema'),
-            (cuda_recon, 'LAUNCHES', 'recon'))
-LAUNCH_NAMES = tuple(name for _, _, name in COUNTERS)
-
-
-def launch_counts() -> tuple:
-    """The kernel launch counters, in COUNTERS order."""
-    return tuple(getattr(module, attr) for module, attr, _ in COUNTERS)
-
-
-def named_launch_counts() -> dict:
-    """The kernel launch counters by their names in reports."""
-    return dict(zip(LAUNCH_NAMES, launch_counts()))
-
-
-def add_launches(per_step: Sequence[int], steps: int = 1) -> None:
-    """Add `steps` times `per_step` to the launch counters."""
-    for (module, attr, _), n in zip(COUNTERS, per_step):
-        setattr(module, attr, getattr(module, attr) + n * steps)
-
-
-def _set_launch_counts(counts: Sequence[int]) -> None:
-    for (module, attr, _), n in zip(COUNTERS, counts):
-        setattr(module, attr, n)
-
-
-def reset_launch_counts() -> None:
-    """Set every kernel launch counter to 0."""
-    _set_launch_counts((0,) * len(COUNTERS))
-
+from pgmvae_tpu_torch.ops import kernels
 
 _CAPTURE_STREAMS = {}      # CUDA device index -> its capture stream
 
@@ -122,7 +84,7 @@ class StepGraph:
         self.generators = [torch.Generator(device=self.device)
                            for _ in range(n_generators)]
         self.graph = None
-        self.launches = (0,) * len(COUNTERS)   # captured, per replay
+        self.launches = {}      # captured launches by name, per replay
         self.capture_ms: Optional[float] = None
         self.replays = 0
 
@@ -154,7 +116,7 @@ class StepGraph:
         for _ in range(steps):
             self._replay()
         self.replays += steps
-        add_launches(self.launches, steps)
+        kernels.add(self.launches, steps)
         for mine, theirs in zip(self.generators, generators):
             theirs.set_state(mine.get_state())
 
@@ -169,15 +131,14 @@ class StepGraph:
             t0 = time.perf_counter()
             with self._side_stream():
                 self.body(generators)
-            before = launch_counts()
+            before = kernels.counts()
             try:
                 t1 = time.perf_counter()
                 self.graph = self._record()
                 t2 = time.perf_counter()
             finally:
-                self.launches = tuple(a - b for a, b in
-                                      zip(launch_counts(), before))
-                _set_launch_counts(before)
+                self.launches = kernels.since(before)
+                kernels.restore(before)
         self.capture_ms = (t2 - t1) * 1e3
         trace.add('graph.capture', t2 - t0)
 

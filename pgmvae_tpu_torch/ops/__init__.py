@@ -15,3 +15,6 @@ from pgmvae_tpu_torch.ops.initializers import (  # noqa: F401
     glorot_uniform,
     variance_scaling_uniform,
 )
+# the kernel wrappers register with ops/kernels.py in this order
+from pgmvae_tpu_torch.ops import (  # noqa: F401,E402
+    cuda_vq, fused_adam, cuda_ema, cuda_recon)

@@ -23,8 +23,8 @@ The kernel is compiled with nvcc for sm_90a into a shared library with a
 plain C entry point, at first use, by `ops/_build.py`, and bound with
 ctypes. `plan(n, B, D, K)` chooses the launch (threads a block, batch rows
 a tile, the hash of the hit codes, codes a chunk, where the tables live)
-and the C entry point checks it; it takes any K and any B. `LAUNCHES`
-counts the calls that launched the kernel.
+and the C entry point checks it; it takes any K and any B. The calls that
+launched the kernel are counted as 'ema' (`kernels.count`).
 
 The wrapper is safe to capture into a CUDA graph (`graphs.StepGraph`): it
 launches on `torch.cuda.current_stream()`, the debias factor 1 - decay^step
@@ -47,10 +47,8 @@ from typing import NamedTuple, Optional
 
 import torch
 
-from pgmvae_tpu_torch.ops import _build
+from pgmvae_tpu_torch.ops import _build, kernels
 from pgmvae_tpu_torch.ops import quantizer as q
-
-LAUNCHES = 0
 
 _SRC = Path(__file__).resolve().parent / 'csrc' / 'ema_update.cu'
 _FLAGS = ('-O3', '-fmad=false')
@@ -77,6 +75,9 @@ def build() -> ctypes.CDLL:
     lib.ema_update_error_string.restype = ctypes.c_char_p
     _lib = lib
     return lib
+
+
+kernels.register(build, 'ema')
 
 
 SMS = 132                 # streaming multiprocessors of an H100 SXM
@@ -234,7 +235,6 @@ def ema_update_fused(state: q.EmaState, z: torch.Tensor,
     returns (EmaState of them and the next step, batch counts [n, K]). CUDA
     launches the kernel (`plan`); CPU runs `ema_update_plain` and copies its
     result in; any other device raises."""
-    global LAUNCHES
     _check(state, z, indices, weights)
     if z.device.type == 'cpu':
         new, batch_counts = ema_update_plain(state, z, indices, weights,
@@ -272,6 +272,6 @@ def ema_update_fused(state: q.EmaState, z: torch.Tensor,
         msg = lib.ema_update_error_string(err).decode()
         raise RuntimeError(f'ema_update launch failed: CUDA error {err} '
                            f'({msg}) at shape {(n, b, d, k)}')
-    LAUNCHES += 1
+    kernels.count('ema')
     return q.EmaState(state.codebook, state.counts, state.dw,
                       step), batch_counts

@@ -29,7 +29,7 @@ follows the card).
 The kernels are compiled with nvcc for sm_90a into a shared library with
 plain C entry points, at first use, by `ops/_build.py`, and bound with
 ctypes. `plan(F, B, N, S)` chooses the launch; the C entry points check it.
-`LAUNCHES` counts the kernels launched: two a training step.
+The launches count as 'recon' (`kernels.count`): two a training step.
 
 The wrapper is safe to capture into a CUDA graph (`graphs.StepGraph`): it
 launches on `torch.cuda.current_stream()`, reads nothing back to the host,
@@ -51,9 +51,7 @@ from typing import NamedTuple, Optional
 import torch
 
 from pgmvae_tpu_torch.models import vqvae
-from pgmvae_tpu_torch.ops import _build
-
-LAUNCHES = 0
+from pgmvae_tpu_torch.ops import _build, kernels
 
 _SRC = Path(__file__).resolve().parent / 'csrc' / 'recon_loss.cu'
 _FLAGS = ('-O3',)
@@ -83,6 +81,9 @@ def build() -> ctypes.CDLL:
     lib.recon_loss_error_string.restype = ctypes.c_char_p
     _lib = lib
     return lib
+
+
+kernels.register(build, 'recon')
 
 
 SMS = 132                 # streaming multiprocessors of an H100 SXM
@@ -234,7 +235,6 @@ def _raise_on(lib, err: int, which: str, shape) -> None:
 
 def _forward_kernel(logits, y, w, seeds, lo, n_active, wsum):
     """(mse, mae, denom) from one launch of the forward kernel."""
-    global LAUNCHES
     f, b, n = logits.shape
     s = seeds or 1
     p = plan(f, b, n, s)
@@ -255,13 +255,12 @@ def _forward_kernel(logits, y, w, seeds, lo, n_active, wsum):
             denom.data_ptr(), f, b, n, s, lo, n_active, *p.args,
             torch.cuda.current_stream().cuda_stream)
     _raise_on(lib, err, 'fwd', (f, b, n, s))
-    LAUNCHES += 1
+    kernels.count('recon')
     return mse, mae, denom
 
 
 def _backward_kernel(g, logits, y, w, seeds, lo, n_active, denom):
     """The logits' gradient from one launch of the backward kernel."""
-    global LAUNCHES
     f, b, n = logits.shape
     s = seeds or 1
     p = plan(f, b, n, s)
@@ -278,7 +277,7 @@ def _backward_kernel(g, logits, y, w, seeds, lo, n_active, denom):
             grad.data_ptr(), f, b, n, s, lo, n_active, *p.args,
             torch.cuda.current_stream().cuda_stream)
     _raise_on(lib, err, 'bwd', (f, b, n, s))
-    LAUNCHES += 1
+    kernels.count('recon')
     return grad
 
 

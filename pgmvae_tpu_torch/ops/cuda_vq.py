@@ -19,9 +19,10 @@ ctypes.
 `plan(n, B, D, K)` chooses the float32 launch (tile sizes, variables a
 block, code strips) and `plan_bf16(n, B, D, K)` the bfloat16 one (16-row
 and 8-code tensor-core tiles, code strips); the C entry points check them.
-`LAUNCHES` and `LAUNCHES_BF16` count calls that launched the float32 and
-the bfloat16 instance (one launch or, when K is split into strips, two), so
-a run can show that its path went through them.
+Calls that launched the float32 and the bfloat16 instance (one launch or,
+when K is split into strips, two) are counted as 'vq_argmin' and
+'vq_argmin_bf16' (`kernels.count`), so a run can show that its path went
+through them.
 
 The wrapper is safe to capture into a CUDA graph (`graphs.StepGraph`): it
 launches on `torch.cuda.current_stream()`, which is the capture stream
@@ -43,10 +44,8 @@ from typing import NamedTuple, Tuple
 
 import torch
 
-from pgmvae_tpu_torch.ops import _build
+from pgmvae_tpu_torch.ops import _build, kernels
 
-LAUNCHES = 0
-LAUNCHES_BF16 = 0
 DTYPES = (torch.float32, torch.bfloat16)
 MAX_D = 128     # widest latent the kernel takes (csrc/vq_argmin.cu)
 
@@ -76,6 +75,9 @@ def build() -> ctypes.CDLL:
     lib.vq_argmin_error_string.restype = ctypes.c_char_p
     _lib = lib
     return lib
+
+
+kernels.register(build, 'vq_argmin', 'vq_argmin_bf16')
 
 
 SMS = 132                 # streaming multiprocessors of an H100 SXM
@@ -327,7 +329,6 @@ def vq_codes_fused(z: torch.Tensor, codebook: torch.Tensor) -> torch.Tensor:
     the kernel for that type (float32: `plan`; bfloat16: the tensor-core
     kernel, `plan_bf16`), CPU runs `vq_codes_plain`; any other device
     raises."""
-    global LAUNCHES, LAUNCHES_BF16
     _check(z, codebook)
     if z.device.type == 'cpu':
         return vq_codes_plain(z, codebook)
@@ -365,8 +366,5 @@ def vq_codes_fused(z: torch.Tensor, codebook: torch.Tensor) -> torch.Tensor:
         msg = lib.vq_argmin_error_string(err).decode()
         raise RuntimeError(f'vq_argmin launch failed: CUDA error {err} '
                            f'({msg}) at shape {(n, b, d, k)}, {z.dtype}')
-    if bf16:
-        LAUNCHES_BF16 += 1
-    else:
-        LAUNCHES += 1
+    kernels.count('vq_argmin_bf16' if bf16 else 'vq_argmin')
     return out

@@ -26,8 +26,8 @@ The moments are float32, or bfloat16 (`adam_init(..., moment_dtype=
 torch.bfloat16)`, adam_impl 'fused_bf16'): then the kernel's bfloat16
 instance runs, which computes in float32 from the widened moments and
 rounds only the stored m' and v' to nearest even, as the JAX package's
-'xla_bf16' update does. `LAUNCHES` and `LAUNCHES_BF16` count the two
-instances' launches.
+'xla_bf16' update does. The two instances' launches are counted as 'adam'
+and 'adam_bf16' (`kernels.count`).
 
 The kernel's library is built with `-fmad=false`, and the kernel and the
 plain version take the bias corrections 1 - b^t from the same powers, so on
@@ -57,11 +57,9 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from pgmvae_tpu_torch.models.vqvae import map_params, param_leaves
-from pgmvae_tpu_torch.ops import _build
+from pgmvae_tpu_torch.models import vqvae
+from pgmvae_tpu_torch.ops import _build, kernels
 
-LAUNCHES = 0
-LAUNCHES_BF16 = 0
 MOMENT_DTYPES = (torch.float32, torch.bfloat16)
 # csrc/adam.cu's CHUNK and TABLE_CAPACITY: values a block takes at a time,
 # and leaves a launch
@@ -124,6 +122,9 @@ def build() -> ctypes.CDLL:
     return lib
 
 
+kernels.register(build, 'adam', 'adam_bf16')
+
+
 def adam_init(params, learning_rate: float, eps: float = 1e-7,
               moment_dtype: torch.dtype = torch.float32) -> AdamState:
     """Zero moments of `moment_dtype` (float32, or bfloat16 for adam_impl
@@ -131,15 +132,15 @@ def adam_init(params, learning_rate: float, eps: float = 1e-7,
     if moment_dtype not in MOMENT_DTYPES:
         raise ValueError(f'Adam moments are float32 or bfloat16, not '
                          f'{moment_dtype}')
-    device = param_leaves(params)[0].device
+    device = vqvae.param_leaves(params)[0].device
 
     def zeros(p):
         return torch.zeros_like(p, dtype=moment_dtype)
 
     return AdamState(
         count=torch.zeros((), dtype=torch.int32, device=device),
-        mu=map_params(zeros, params),
-        nu=map_params(zeros, params),
+        mu=vqvae.map_params(zeros, params),
+        nu=vqvae.map_params(zeros, params),
         learning_rate=torch.tensor(learning_rate, dtype=torch.float32,
                                    device=device),
         eps=float(np.float32(eps)))
@@ -174,7 +175,8 @@ def _scalars(count: torch.Tensor, lr: torch.Tensor, b1: float,
 def _quads(params, grads, state: AdamState):
     """(p, m, v, g) per leaf, after the checks the kernel relies on; and
     the one device they all lie on."""
-    leaves = [param_leaves(t) for t in (params, state.mu, state.nu, grads)]
+    leaves = [vqvae.param_leaves(t)
+              for t in (params, state.mu, state.nu, grads)]
     if len({len(x) for x in leaves}) != 1:
         raise ValueError('params, moments and grads differ in their leaves')
     quads = list(zip(*leaves))
@@ -269,7 +271,6 @@ def _cached_tables(quads) -> list:
 
 def _kernel(quads, powers: torch.Tensor, lr: torch.Tensor, b1: float,
             b2: float, eps: float, device: torch.device) -> None:
-    global LAUNCHES, LAUNCHES_BF16
     if lr.dtype != torch.float32 or lr.numel() != 1:
         raise ValueError(f'the Adam kernel takes a float32 scalar learning '
                          f'rate, not {lr.dtype} {tuple(lr.shape)}')
@@ -292,10 +293,7 @@ def _kernel(quads, powers: torch.Tensor, lr: torch.Tensor, b1: float,
                         f'adam launch failed: CUDA error {err} ({msg}) '
                         f'over {table.n_leaves} leaves, {table.chunks} '
                         f'chunks')
-                if bf16:
-                    LAUNCHES_BF16 += 1
-                else:
-                    LAUNCHES += 1
+                kernels.count('adam_bf16' if bf16 else 'adam')
 
 
 def _update(params, grads, state: AdamState, b1: float, b2: float,

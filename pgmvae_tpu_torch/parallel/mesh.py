@@ -268,19 +268,19 @@ def placement(world_size: int, device) -> tuple:
 
 
 def build_kernels() -> None:
-    """Build the CUDA kernels' libraries (one nvcc each, together), so
-    that the ranks only load them."""
-    from pgmvae_tpu_torch.ops import cuda_ema, cuda_vq, fused_adam
-    kernels = (cuda_vq, fused_adam, cuda_ema)
-    with ThreadPoolExecutor(max_workers=len(kernels)) as pool:
-        for f in [pool.submit(m.build) for m in kernels]:
+    """Build every registered kernel library (`ops/kernels.py`; one nvcc
+    each, together), so that the ranks only load them."""
+    from pgmvae_tpu_torch.ops import kernels
+    builds = kernels.builds().values()
+    with ThreadPoolExecutor(max_workers=len(builds)) as pool:
+        for f in [pool.submit(build) for build in builds]:
             f.result()
 
 
 def _rank_main(rank: int, payload: bytes, world_size: int, backend: str,
                devices: list, store: str, out_dir: str,
                collective_timeout: float) -> None:
-    from pgmvae_tpu_torch import graphs
+    from pgmvae_tpu_torch.ops import kernels
     fn, args = pickle.loads(payload)
     # one CPU thread a rank: the ranks share the host's cores
     torch.set_num_threads(1)
@@ -292,7 +292,7 @@ def _rank_main(rank: int, payload: bytes, world_size: int, backend: str,
         rank=rank, timeout=datetime.timedelta(seconds=collective_timeout))
     try:
         value = fn(device, *args)
-        launches = graphs.named_launch_counts()
+        launches = kernels.counts()
         with open(os.path.join(out_dir, f'rank-{rank}.pkl'), 'wb') as f:
             pickle.dump(RankResult(value, launches, str(device)), f)
     finally:

@@ -23,7 +23,7 @@ from pgmvae_tpu_torch import checkpoint as ckpt
 from pgmvae_tpu_torch import resolve_device
 from pgmvae_tpu_torch.gibbs import get_probability
 from pgmvae_tpu_torch.models import vqvae
-from pgmvae_tpu_torch.stage2 import LOG_EPS
+from pgmvae_tpu_torch.stage2 import LOG_EPS, joint_cells
 from pgmvae_tpu_torch.trace import span
 
 
@@ -89,10 +89,8 @@ class PgmModel:
             with span('serve.lookup'):
                 dist = self._dist32
                 if self.parents is not None:
-                    vals = y[:, self.parents].long()          # [B, n, m]
-                    pw = 1 << torch.arange(self.parents.shape[1],
-                                           device=self.device)
-                    codes = codes * dist.shape[-1] + (vals * pw).sum(-1).T
+                    codes = joint_cells(
+                        codes, y[:, self.parents].transpose(0, 1))
                     dist = dist.reshape(dist.shape[0], -1)
                 p1 = torch.gather(dist, 1, codes)             # [n, B]
                 yt = y.T

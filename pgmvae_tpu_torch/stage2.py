@@ -15,10 +15,10 @@ and the host makes no copy of the whole split. Only the ragged last chunk
 is padded, with weight-0 rows (exact no-ops in the counts), and a padded
 variable axis with zero columns; a split that fits in one piece is
 uploaded once. Each chunk is one encoder pass, one nearest-code kernel
-launch, and a count update: a one-hot `torch.bmm`, or an
-`index_add_` past SCATTER_COLS of joint width. Counts are integers < 2^24,
-exact in f32 under any summation order, so they accumulate in f32 on the
-device and are finished in float64 on the host, like the JAX package's.
+launch, and an `index_add_` of its labels at its cells (`joint_cells`).
+Counts are integers < 2^24, exact in f32 under any summation order, so
+they accumulate in f32 on the device and are finished in float64 on the
+host, like the JAX package's (from its one-hot matmul or its scatter).
 
 Under a device mesh (`mesh_ctx`) each data rank counts its ceil(chunk/D)
 rows of every chunk with its model rank's networks; the counts are
@@ -45,10 +45,6 @@ LOG_EPS = 1e-5      # reference core/model.py:93-94
 NAIVE_STAGE2_MAX_DIM = 20   # naive quantizer: 2^dim count columns; past
 #                             ~1M columns the [n_var, 2^dim] tables stop
 #                             being a sane tabulation
-SCATTER_COLS = 8192     # joint table width K * 2^m past which counting
-#                         switches from the one-hot bmm to index_add_: the
-#                         bmm must materialize a [n_var, B, K*2^m] one-hot,
-#                         the scatter touches only the [n_var, B] codes
 PIECE_BYTES = 64 << 20      # host-to-device piece of a split: the
 #                             Trainer's stream_chunk_bytes default
 MAX_COUNT_BYTES = 6 << 30   # refuse joint tables whose TWO [n_var, K*2^m]
@@ -84,21 +80,31 @@ def select_parents(y_train: np.ndarray, m: int) -> np.ndarray:
     return np.ascontiguousarray(order.astype(np.int32))
 
 
+def joint_cells(codes: torch.Tensor, parent_values: torch.Tensor
+                ) -> torch.Tensor:
+    """Each (variable, sample)'s joint-code cell, code * 2^m + the word of
+    its m parents' values (bit i: parent i), int64 [n, B], from codes [n, B]
+    and parent_values [n, B, m]: the counts', serving's and Gibbs' rule."""
+    m = parent_values.shape[-1]
+    bits = 1 << torch.arange(m, device=codes.device)
+    return codes.long() * (1 << m) + (parent_values.long() * bits).sum(-1)
+
+
 def auto_chunk(n_var: int, num_codes: int, budget_bytes: int = 1 << 27) -> int:
     """Chunk size bounding per-chunk device buffers (the masked input stack
-    [n_var, chunk, n_var], the one-hot [n_var, chunk, K] and the widest
-    hidden activation) to ~128 MB; between 32 and 4096 rows."""
+    [n_var, chunk, n_var], a [n_var, chunk, K] term kept from the one-hot
+    count and the widest hidden activation) to ~128 MB; 32 to 4096 rows."""
     per_row = max(1, n_var * (n_var + num_codes + 256) * 4)
     return int(max(32, min(4096, budget_bytes // per_row)))
 
 
 class Stage2:
-    """Counts, CPT and PLL of one model configuration on `device`."""
+    """Counts, CPT and PLL of one model configuration on `device`. The JAX
+    package's `scatter` (its count path) has no counterpart."""
 
     def __init__(self, cfg: vqvae.VqVaeConfig, chunk: Optional[int] = None,
                  mesh_ctx: Optional[MeshContext] = None,
-                 parents: Optional[np.ndarray] = None,
-                 scatter: Optional[bool] = None, device=None):
+                 parents: Optional[np.ndarray] = None, *, device=None):
         self.mesh = mesh_ctx or MeshContext(None)
         if device is None and self.mesh.mesh is not None:
             device = self.mesh.mesh.device
@@ -138,11 +144,7 @@ class Stage2:
                 f'({2 * cfg.n_var * cols * 4 / 2**30:.1f} GiB) — past the '
                 f'{MAX_COUNT_BYTES / 2**30:.0f} GiB budget; '
                 f'use fewer parents or a smaller codebook')
-        self.scatter = (cols > SCATTER_COLS) if scatter is None else scatter
-        # the chunk budget sees the joint width unless the scatter path
-        # never materializes the one-hot
-        self.chunk = int(chunk or auto_chunk(
-            cfg.n_var, self.k if self.scatter else cols))
+        self.chunk = int(chunk or auto_chunk(cfg.n_var, self.k))
 
     def _count_chunk(self, params, codebook, n1, n0, yb, wb):
         """One fixed-shape chunk: yb [chunk, n_var], wb [chunk] validity
@@ -152,25 +154,14 @@ class Stage2:
         codes = vqvae.encode_codes(params, codebook, yb, self.cfg,
                                    lo=lo).long()               # [n, B]
         if self.parents is not None:
-            # parent-state index j[v,b] = binary word of the sample's
-            # values at v's parents; joint cell = code * 2^m + j
-            vals = yb[:, self.parents[lo:hi]].long()           # [B, n, m]
-            pw = 1 << torch.arange(self.parents.shape[1], device=yb.device)
-            codes = codes * self.n_states + (vals * pw).sum(-1).T
+            codes = joint_cells(
+                codes, yb[:, self.parents[lo:hi]].transpose(0, 1))
         y1 = yb.T[lo:hi] * wb[None, :]                         # [n, B]
         y0 = (1.0 - yb.T[lo:hi]) * wb[None, :]
-        if self.scatter:
-            cols = n1.shape[1]
-            rows = torch.arange(hi - lo, device=yb.device)[:, None]
-            flat = (rows * cols + codes).reshape(-1)
-            n1.view(-1).index_add_(0, flat, y1.reshape(-1))
-            n0.view(-1).index_add_(0, flat, y0.reshape(-1))
-        else:
-            onehot = torch.zeros(codes.shape + (n1.shape[1],),
-                                 dtype=yb.dtype, device=yb.device)
-            onehot.scatter_(2, codes[:, :, None], 1.0)         # [n, B, K*J]
-            n1 += torch.bmm(y1[:, None, :], onehot)[:, 0]
-            n0 += torch.bmm(y0[:, None, :], onehot)[:, 0]
+        rows = torch.arange(hi - lo, device=yb.device)[:, None]
+        flat = (rows * n1.shape[1] + codes).reshape(-1)
+        n1.view(-1).index_add_(0, flat, y1.reshape(-1))
+        n0.view(-1).index_add_(0, flat, y0.reshape(-1))
 
     def counts(self, params, codebook, y_host: np.ndarray
                ) -> Tuple[np.ndarray, np.ndarray]:

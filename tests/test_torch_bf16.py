@@ -19,7 +19,7 @@ from pgmvae_tpu.utils.logging import run_identifier as jrun_identifier
 from pgmvae_tpu_torch import run as trun
 from pgmvae_tpu_torch.convert import train_state_from_jax
 from pgmvae_tpu_torch.models import vqvae as tv
-from pgmvae_tpu_torch.ops import cuda_vq
+from pgmvae_tpu_torch.ops import cuda_vq, kernels
 from pgmvae_tpu_torch.ops import quantizer as tq
 from pgmvae_tpu_torch.train import Trainer
 
@@ -72,7 +72,8 @@ def test_bf16_codes_are_the_widened_argmin_and_near_jax(shape):
     z, zj = _bf16(rng.standard_normal((n, b, d)).astype(np.float32))
     w, wj = _bf16(rng.standard_normal((n, d, k)).astype(np.float32))
     got = cuda_vq.vq_codes_fused(z, w)
-    assert cuda_vq.LAUNCHES == cuda_vq.LAUNCHES_BF16 == 0
+    launches = kernels.counts()
+    assert launches['vq_argmin'] == launches['vq_argmin_bf16'] == 0
     # the plain version is the float32 arithmetic on the widened values
     np.testing.assert_array_equal(
         got.numpy(), cuda_vq.vq_codes_plain(z.float(), w.float()).numpy())

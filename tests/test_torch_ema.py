@@ -17,7 +17,7 @@ import torch
 
 from pgmvae_tpu_torch import train as ttrain
 from pgmvae_tpu_torch.models import vqvae as tv
-from pgmvae_tpu_torch.ops import cuda_ema
+from pgmvae_tpu_torch.ops import cuda_ema, kernels
 from pgmvae_tpu_torch.ops import quantizer as q
 
 SRC = Path(cuda_ema.__file__).resolve().parent / 'csrc' / 'ema_update.cu'
@@ -50,7 +50,8 @@ def no_launch(monkeypatch):
     def build():
         raise AssertionError('the kernel was built')
     monkeypatch.setattr(cuda_ema, 'build', build)
-    monkeypatch.setattr(cuda_ema, 'LAUNCHES', 0)
+    monkeypatch.setattr(kernels, '_COUNTS',
+                        dict.fromkeys(kernels.counts(), 0))
 
 
 # ------------------------------------------------------------ dispatch --
@@ -75,7 +76,7 @@ def test_the_cpu_takes_the_plain_version(no_launch, zero_debias, step,
         assert torch.equal(a, b)
     assert all(a is b for a, b in zip(got[:3], state[:3]))
     assert torch.equal(state.step, before.step)
-    assert cuda_ema.LAUNCHES == 0
+    assert kernels.counts()['ema'] == 0
 
 
 def test_a_cpu_train_step_goes_through_the_fused_step(monkeypatch):
@@ -186,7 +187,7 @@ def test_the_wrapper_refuses_before_any_launch(no_launch, case):
     state, z, idx, w = _bad(case)
     with pytest.raises(ValueError):
         cuda_ema.ema_update_fused(state, z, idx, w, 0.9)
-    assert cuda_ema.LAUNCHES == 0
+    assert kernels.counts()['ema'] == 0
 
 
 # --------------------------------------------------------------- plans --

@@ -17,7 +17,7 @@ import torch
 from pgmvae_tpu_torch import gibbs as tg
 from pgmvae_tpu_torch import graphs
 from pgmvae_tpu_torch.models import vqvae as tv
-from pgmvae_tpu_torch.ops import cuda_ema, cuda_recon, cuda_vq, fused_adam
+from pgmvae_tpu_torch.ops import kernels
 from pgmvae_tpu_torch.train import EpochMetrics, Trainer, _map_state, \
     copy_state
 
@@ -243,8 +243,16 @@ def test_cmll_draws_one_block_of_uniforms_a_sub_segment(monkeypatch):
 
 @pytest.fixture
 def counters(monkeypatch):
-    for module, name, _ in graphs.COUNTERS:
-        monkeypatch.setattr(module, name, 0)
+    """The launch registry for the test alone: every counter at 0, and
+    whatever the test registers gone after it."""
+    monkeypatch.setattr(kernels, '_COUNTS',
+                        dict.fromkeys(kernels.counts(), 0))
+    monkeypatch.setattr(kernels, '_BUILDS', kernels.builds())
+
+
+def _launches(**counts) -> dict:
+    """Every registered counter by name: `counts`, the rest 0."""
+    return {**dict.fromkeys(kernels.counts(), 0), **counts}
 
 
 def _stub_graph(monkeypatch, g, record_runs_body):
@@ -268,33 +276,61 @@ def test_replays_add_the_captured_launches(counters, monkeypatch):
     back and every replay adds them: the counts read as if each step had
     run eagerly."""
     def body(generators):
-        cuda_vq.LAUNCHES += 1
-        fused_adam.LAUNCHES += 20
-        cuda_ema.LAUNCHES += 1
-        cuda_recon.LAUNCHES += 2
+        kernels.count('vq_argmin')
+        kernels.count('adam', 20)
+        kernels.count('ema')
+        kernels.count('recon', 2)
     g = graphs.StepGraph(body, 'cpu', capture=True)
     replays = _stub_graph(monkeypatch, g, True)
     g.run(5)
-    assert (cuda_vq.LAUNCHES, fused_adam.LAUNCHES, cuda_ema.LAUNCHES,
-            cuda_recon.LAUNCHES) == (5, 100, 5, 10)
-    assert g.launches == (1, 0, 20, 0, 1, 2) and len(replays) == 4
+    assert kernels.counts() == _launches(vq_argmin=5, adam=100, ema=5,
+                                         recon=10)
+    assert g.launches == _launches(vq_argmin=1, adam=20, ema=1, recon=2)
+    assert len(replays) == 4
     g.run(3)
-    assert graphs.launch_counts() == (8, 0, 160, 0, 8, 16)
-    assert len(replays) == 7
+    eight = _launches(vq_argmin=8, adam=160, ema=8, recon=16)
+    assert kernels.counts() == eight and len(replays) == 7
     g.run(0)
-    assert graphs.launch_counts() == (8, 0, 160, 0, 8, 16)
+    assert kernels.counts() == eight
 
 
 def test_reset_zeroes_every_named_counter(counters):
-    """`reset_launch_counts` sets every counter of COUNTERS to 0, and
-    `named_launch_counts` reads each under its report name."""
-    graphs.add_launches(range(1, len(graphs.COUNTERS) + 1), steps=3)
-    assert graphs.named_launch_counts() == {
-        name: 3 * (i + 1) for i, name in enumerate(graphs.LAUNCH_NAMES)}
-    assert graphs.named_launch_counts()['recon'] == cuda_recon.LAUNCHES
-    graphs.reset_launch_counts()
-    assert graphs.named_launch_counts() == dict.fromkeys(
-        graphs.LAUNCH_NAMES, 0)
+    """`counts` reads every registered counter, zeros included, in the
+    order the wrappers registered them (the reports' key order); `add`
+    adds deltas by name, `since` and `restore` take a read as a snapshot,
+    and `reset` sets every counter to 0."""
+    names = list(kernels.counts())
+    assert names[:6] == ['vq_argmin', 'vq_argmin_bf16', 'adam', 'adam_bf16',
+                         'ema', 'recon']
+    kernels.add({name: i + 1 for i, name in enumerate(names)}, steps=3)
+    assert kernels.counts() == {name: 3 * (i + 1)
+                                for i, name in enumerate(names)}
+    before = kernels.counts()
+    kernels.count('recon', 2)
+    assert kernels.since(before) == _launches(recon=2)
+    kernels.restore(before)
+    assert kernels.counts() == before
+    kernels.reset()
+    assert kernels.counts() == dict.fromkeys(names, 0)
+
+
+def test_a_new_kernel_is_counted_with_no_edit_here(counters, monkeypatch):
+    """A kernel registered with `ops/kernels.py` (a test-only name) is in a
+    StepGraph's replay deltas, the full read and the builds, with
+    `graphs.py` as it is: a new kernel touches only its wrapper."""
+    kernels.register(lambda: None, 'test_only')
+    with pytest.raises(ValueError, match='taken'):
+        kernels.register(lambda: None, 'test_only')
+
+    def body(generators):
+        kernels.count('test_only', 3)
+    g = graphs.StepGraph(body, 'cpu', capture=True)
+    _stub_graph(monkeypatch, g, True)
+    g.run(4)
+    assert g.launches == _launches(test_only=3)
+    assert kernels.counts() == _launches(test_only=12)
+    assert list(kernels.counts())[-1] == 'test_only'
+    assert 'test_only' in kernels.builds()
 
 
 def test_replays_draw_what_the_eager_loop_draws(monkeypatch):

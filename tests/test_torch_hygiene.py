@@ -19,7 +19,7 @@ import pgmvae_tpu_torch
 from pgmvae_tpu_torch import driver
 from pgmvae_tpu_torch import run as trun
 from pgmvae_tpu_torch.models import vqvae as tv
-from pgmvae_tpu_torch.ops import _build, cuda_vq, fused_adam
+from pgmvae_tpu_torch.ops import _build, cuda_vq, fused_adam, kernels
 from pgmvae_tpu_torch.serving import PgmModel
 from pgmvae_tpu_torch.stage2 import Stage2
 from pgmvae_tpu_torch.train import Trainer
@@ -107,9 +107,9 @@ def test_cpu_tensors_take_the_plain_version_without_launching():
     rng = np.random.default_rng(0)
     z = torch.from_numpy(rng.standard_normal((4, 33, 6)).astype(np.float32))
     w = torch.from_numpy(rng.standard_normal((4, 6, 70)).astype(np.float32))
-    before = cuda_vq.LAUNCHES
+    before = kernels.counts()['vq_argmin']
     got = cuda_vq.vq_codes_fused(z, w)
-    assert cuda_vq.LAUNCHES == before == 0
+    assert kernels.counts()['vq_argmin'] == before == 0
     assert got.dtype == torch.int32 and got.shape == (4, 33)
     np.testing.assert_array_equal(got.numpy(),
                                   cuda_vq.vq_codes_plain(z, w).numpy())
@@ -189,9 +189,9 @@ def test_adam_on_cpu_tensors_launches_nothing():
     params = {'enc': [(torch.ones((2, 3, 4)), torch.zeros((2, 1, 4)))]}
     grads = tv.map_params(lambda p: torch.full_like(p, 0.5), params)
     st = fused_adam.adam_init(params, 0.01)
-    before = fused_adam.LAUNCHES
+    before = kernels.counts()['adam']
     st = fused_adam.adam_update(params, grads, st)
-    assert fused_adam.LAUNCHES == before == 0
+    assert kernels.counts()['adam'] == before == 0
     assert int(st.count) == 1
     # the first step moves every parameter by lr against its gradient
     np.testing.assert_allclose(params['enc'][0][0].numpy(), 0.99, rtol=1e-5)

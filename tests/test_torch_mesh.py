@@ -5,8 +5,8 @@ measurement once (a module-scoped fixture), and each check is a case of
 its own against the port's single-device run or the JAX package (on the 8
 fake CPU devices of tests/conftest.py): a whole epoch, the state's layout,
 the first dead-code-restart step, the rank-1 first layer and its inert
-diagonal, stage-2 counts (einsum and scatter, with and without parents,
-bit-equal to JAX's), one train step against JAX's on the same mesh, the
+diagonal, stage-2 counts (with and without parents, bit-equal to both of
+JAX's count paths, einsum and scatter), one train step against JAX's on the same mesh, the
 padded variable axis through `dryrun_multichip`, and the spawn helper's
 failures.
 
@@ -27,7 +27,8 @@ from pgmvae_tpu_torch.train import Trainer
 KW = dict(n_var=8, units=(7, 6), dim=4, num_codes=10, quantizer='ema')
 CFG = tv.VqVaeConfig(**KW)
 SHAPES = [(8, 1), (1, 8), (2, 4)]
-COUNT_CASES = [(False, 0), (False, 2), (True, 0), (True, 2)]  # scatter, M
+# (M, the JAX package's path: its scatter if True, else its einsum)
+COUNT_CASES = [(0, False), (2, False), (0, True), (2, True)]
 TIMEOUT = 300          # seconds a world may take on a loaded CPU
 
 
@@ -94,10 +95,9 @@ def _runs(device, mesh_ctx=None, init=None, step_state=None):
         codebook = mesh.put(codebook, 'model')
         y2 = _data(300, seed=3)
         out['counts'] = {
-            (scatter, m): Stage2(CFG, chunk=64, mesh_ctx=mesh,
-                                 parents=_parents(m), scatter=scatter,
-                                 device=device).counts(params, codebook, y2)
-            for scatter, m in COUNT_CASES}
+            m: Stage2(CFG, chunk=64, mesh_ctx=mesh, parents=_parents(m),
+                      device=device).counts(params, codebook, y2)
+            for m in sorted({m for m, _ in COUNT_CASES})}
     if step_state is not None:
         tr = Trainer(CFG, 0.01, 64, 64, mesh_ctx=mesh, device=device)
         yb, w = _step_batch()
@@ -250,11 +250,11 @@ def test_rank1_first_layer_mesh_parity(world, single):
                                   w0_init.numpy()[idx, idx, :])
 
 
-@pytest.mark.parametrize('scatter,m', COUNT_CASES)
-def test_stage2_counts_bit_equal_to_jax(world, jax_init, scatter, m):
-    """Stage-2 counts of the JAX package's params on the mesh equal JAX's,
-    bit for bit, for the einsum and the scatter paths, with and without
-    joint-code parents."""
+@pytest.mark.parametrize('m,scatter', COUNT_CASES)
+def test_stage2_counts_bit_equal_to_jax(world, jax_init, m, scatter):
+    """Stage-2 counts of the JAX package's params on the mesh equal JAX's
+    from either of its paths (einsum and scatter), bit for bit, with and
+    without joint-code parents."""
     from pgmvae_tpu.models import VqVaeConfig as JCfg
     from pgmvae_tpu.stage2 import Stage2 as JStage2
     _, ranks = world
@@ -263,7 +263,7 @@ def test_stage2_counts_bit_equal_to_jax(world, jax_init, scatter, m):
                                           jax_init.ema.codebook,
                                           _data(300, seed=3))
     for r in ranks:             # every rank holds the global tables
-        n1, n0 = r['counts'][(scatter, m)]
+        n1, n0 = r['counts'][m]
         np.testing.assert_array_equal(n1, ref[0])
         np.testing.assert_array_equal(n0, ref[1])
 
@@ -368,6 +368,22 @@ def test_spawn_without_a_device_needs_cuda(monkeypatch):
 
 def test_placement_picks_the_backend():
     assert pm.placement(4, 'cpu') == ('gloo', ['cpu'] * 4)
+
+
+def test_build_kernels_builds_every_kernel_library(monkeypatch):
+    """`build_kernels`, run before a CUDA world spawns, builds every
+    registered kernel library, the reconstruction pair's included: each
+    registered build, stubbed, records its call."""
+    from pgmvae_tpu_torch.ops import (cuda_ema, cuda_recon, cuda_vq,
+                                      fused_adam, kernels)
+    built, registered = [], kernels.builds()
+    monkeypatch.setattr(kernels, '_BUILDS', {
+        name: (lambda build=build: built.append(build))
+        for name, build in registered.items()})
+    pm.build_kernels()
+    assert len(built) == len(registered)
+    assert set(built) == set(registered.values()) >= {
+        cuda_vq.build, fused_adam.build, cuda_ema.build, cuda_recon.build}
 
 
 def test_a_rank_exception_is_raised_in_the_caller():

@@ -15,10 +15,9 @@ import numpy as np
 import pytest
 import torch
 
-from pgmvae_tpu_torch import graphs
 from pgmvae_tpu_torch import train as ttrain
 from pgmvae_tpu_torch.models import vqvae as tv
-from pgmvae_tpu_torch.ops import cuda_recon
+from pgmvae_tpu_torch.ops import cuda_recon, kernels
 
 SRC = Path(cuda_recon.__file__).resolve().parent / 'csrc' / 'recon_loss.cu'
 
@@ -29,7 +28,8 @@ def no_launch(monkeypatch):
     def build():
         raise AssertionError('the kernels were built')
     monkeypatch.setattr(cuda_recon, 'build', build)
-    monkeypatch.setattr(cuda_recon, 'LAUNCHES', 0)
+    monkeypatch.setattr(kernels, '_COUNTS',
+                        dict.fromkeys(kernels.counts(), 0))
 
 
 # (seeds, F, B, N, lo, n_active, global wsum, padded rows)
@@ -102,7 +102,7 @@ def test_the_plain_function_matches_its_definition(no_launch, case, dtype):
     assert not mae.requires_grad and mse.shape == (() if seeds is None
                                                    else (seeds,))
     grad, = torch.autograd.grad(mse, x, g)
-    assert grad.dtype == dt and cuda_recon.LAUNCHES == 0
+    assert grad.dtype == dt and kernels.counts()['recon'] == 0
     if dt == torch.float32:
         want = _float64(x.detach(), y, w, wsum, g, seeds, lo, na)
         for got, ref in zip((mse, mae), want):
@@ -186,12 +186,12 @@ def test_a_cpu_step_is_the_step_before_the_kernel(no_launch, monkeypatch,
 
 
 def test_the_counter_is_registered_and_the_cpu_launches_nothing(no_launch):
-    assert graphs.named_launch_counts()['recon'] == 0
+    assert kernels.counts()['recon'] == 0
     x, y, w, wsum, g, seeds, lo, na = _inputs('unpacked')
     x.requires_grad_()
     mse, _ = cuda_recon.recon_loss(x, y, w, seeds, lo, na, wsum)
     mse.backward()
-    assert graphs.named_launch_counts()['recon'] == 0
+    assert kernels.counts()['recon'] == 0
 
 
 # ----------------------------------------------------------- refusals --
@@ -231,7 +231,7 @@ def _bad(case):
 def test_the_wrapper_refuses_before_any_launch(no_launch, case):
     with pytest.raises(ValueError):
         cuda_recon.recon_loss(**_bad(case))
-    assert cuda_recon.LAUNCHES == 0
+    assert kernels.counts()['recon'] == 0
 
 
 # --------------------------------------------------------------- plans --

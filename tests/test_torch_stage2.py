@@ -1,11 +1,14 @@
 """The port's stage 2 (counts, CPT, PLL, parents, mixtures) against the JAX
 package's, with weights carried across by `params_from_jax`. Counts are
 integers, so the two must agree bit for bit; CPT and PLL are finished in
-float64 from equal counts, so they agree to 1e-12."""
+float64 from equal counts, so they agree to 1e-12. The port counts by one
+path (`index_add_`); the cases hold it against each of the JAX package's
+two (its one-hot einsum and, with `scatter=True`, its scatter-add)."""
 
 import numpy as np
 import jax
 import pytest
+import torch
 
 from pgmvae_tpu import stage2 as js2
 from pgmvae_tpu.models import vqvae as jv
@@ -35,27 +38,29 @@ def _models(seed=0, **kw):
     return jcfg, tcfg, p, cb, tp, tcb
 
 
+# (model overrides, Stage2 overrides, the JAX package's path): every case
+# but 'scatter' takes its one-hot einsum
 CASES = {
-    'plain': (dict(), dict()),
-    'parents_m3': (dict(), dict(parents=3)),
-    'scatter': (dict(), dict(parents=2, scatter=True)),
-    'naive': (dict(quantizer='naive'), dict()),
-    'padded_n_active': (dict(n_var=10, n_active=8), dict(parents=2)),
+    'plain': (dict(), dict(), dict()),
+    'parents_m3': (dict(), dict(parents=3), dict()),
+    'scatter': (dict(), dict(parents=2), dict(scatter=True)),
+    'naive': (dict(quantizer='naive'), dict(), dict()),
+    'padded_n_active': (dict(n_var=10, n_active=8), dict(parents=2), dict()),
 }
 
 
 @pytest.mark.parametrize('case', sorted(CASES))
 def test_counts_bit_equal_to_jax(case):
-    model_kw, s2_kw = CASES[case]
+    model_kw, s2_kw, jax_kw = CASES[case]
     jcfg, tcfg, p, cb, tp, tcb = _models(seed=1, **model_kw)
     y = _chain_data(seed=1, n_samples=333)           # ragged against chunk=64
     s2_kw = dict(s2_kw)
     if 'parents' in s2_kw:
         s2_kw['parents'] = js2.select_parents(y, s2_kw['parents'])
-    j = js2.Stage2(jcfg, chunk=64, **s2_kw)
+    j = js2.Stage2(jcfg, chunk=64, **s2_kw, **jax_kw)
     t = ts2.Stage2(tcfg, chunk=64, device='cpu', **s2_kw)
-    assert (t.k, t.n_states, t.scatter, t.chunk) == (
-        j.k, j.n_states, j.scatter, j.chunk)
+    assert j.scatter == (case == 'scatter')
+    assert (t.k, t.n_states, t.chunk) == (j.k, j.n_states, j.chunk)
     jn1, jn0 = j.counts(p, cb, y)
     tn1, tn0 = t.counts(tp, tcb, y)
     assert tn1.dtype == np.float64 and tn1.shape == jn1.shape
@@ -73,17 +78,27 @@ def test_counts_bit_equal_to_jax(case):
     assert t.pseudo_log_likelihood(tp, tcb, y, td) == tpll
 
 
-def test_scatter_and_onehot_counts_bit_equal():
-    _, tcfg, _, _, tp, tcb = _models(seed=2)
-    y = _chain_data(seed=2, n_samples=200)
-    par = ts2.select_parents(y, 3)
-    for parents in (None, par):
-        e = ts2.Stage2(tcfg, chunk=48, parents=parents, scatter=False,
-                       device='cpu').counts(tp, tcb, y)
-        s = ts2.Stage2(tcfg, chunk=48, parents=parents, scatter=True,
-                       device='cpu').counts(tp, tcb, y)
-        np.testing.assert_array_equal(e[0], s[0])
-        np.testing.assert_array_equal(e[1], s[1])
+def test_counts_at_the_widest_joint_table_match_a_float64_histogram():
+    """m = 12 parents, the most `--cpt-parents` allows (K * 4096 cells a
+    variable): the counts equal a float64 `np.add.at` histogram of the same
+    codes at cells worked out in numpy, ragged last chunk included."""
+    n, m = 16, 12
+    _, tcfg, _, _, tp, tcb = _models(seed=2, n_var=n)
+    y = _chain_data(n=n, seed=2, n_samples=300)
+    parents = ts2.select_parents(y, m)
+    s2 = ts2.Stage2(tcfg, chunk=64, parents=parents, device='cpu')
+    n1, n0 = s2.counts(tp, tcb, y)
+    codes = tv.encode_codes(tp, tcb, torch.as_tensor(y), tcfg).numpy()
+    words = (y[:, parents].astype(np.int64) << np.arange(m)).sum(-1).T
+    cells = codes.astype(np.int64) * (1 << m) + words            # [n, B]
+    k = tcfg.effective_codes
+    for got, labels in ((n1, y.T), (n0, 1.0 - y.T)):
+        want = np.zeros((n, k << m))
+        np.add.at(want, (np.arange(n)[:, None], cells),
+                  labels.astype(np.float64))
+        assert got.shape == (n, k, 1 << m)
+        np.testing.assert_array_equal(got.reshape(n, -1), want)
+    assert n1.sum() + n0.sum() == y.shape[0] * n
 
 
 def test_slice_init_in_jax_three_splits():
@@ -138,7 +153,7 @@ def test_compose_mixed_cpt_exact():
                                      (3, 2), (1556, 4096)])
 def test_auto_chunk_and_constants_match_jax(n_var, k):
     assert ts2.auto_chunk(n_var, k) == js2.auto_chunk(n_var, k)
-    for name in ('SMOOTHING', 'LOG_EPS', 'SCATTER_COLS', 'MAX_COUNT_BYTES',
+    for name in ('SMOOTHING', 'LOG_EPS', 'MAX_COUNT_BYTES',
                  'NAIVE_STAGE2_MAX_DIM'):
         assert getattr(ts2, name) == getattr(js2, name)
 
@@ -153,7 +168,11 @@ def test_stage2_guards_match_jax():
     with pytest.raises(ValueError, match='dim >'):
         ts2.Stage2(tv.VqVaeConfig(n_var=4, units=(3,), dim=21, num_codes=2,
                                   quantizer='naive'), device='cpu')
-    wide = tv.VqVaeConfig(n_var=5, units=(4, 3), dim=2, num_codes=1024)
-    assert ts2.Stage2(wide, parents=ts2.select_parents(y[:, :5], 4),
-                      device='cpu').scatter is True
-    assert ts2.Stage2(wide, device='cpu').scatter is False
+    # one count path, so the chunk budget never sees the joint width: the
+    # JAX package's chunk wherever it scatters (past 8,192 joint columns)
+    kw = dict(n_var=5, units=(4, 3), dim=2, num_codes=1024)
+    wide, jwide = tv.VqVaeConfig(**kw), jv.VqVaeConfig(**kw)
+    par = ts2.select_parents(y[:, :5], 4)
+    for parents in (None, par):
+        assert ts2.Stage2(wide, parents=parents, device='cpu').chunk == \
+            js2.Stage2(jwide, parents=parents).chunk == ts2.auto_chunk(5, 1024)

@@ -1,9 +1,9 @@
 """Stage 2 fed from the host in pinned pieces (`Stage2.counts`,
 `data.pinned`): with PIECE_BYTES cut so that a piece holds 1, 2 or 3
-chunks, the port's counts stay bit-equal to the JAX package's
-`Stage2(cfg, chunk=c).counts` (one-hot and scatter paths, a padded
-variable axis, a split shorter than one chunk), and no host-to-device
-transfer is larger than one piece."""
+chunks, the port's counts (its one path) stay bit-equal to the JAX
+package's `Stage2(cfg, chunk=c).counts` (both of its paths, one-hot and
+scatter; a padded variable axis, a split shorter than one chunk), and no
+host-to-device transfer is larger than one piece."""
 
 import jax
 import numpy as np
@@ -43,9 +43,10 @@ def _data(n, width=8, seed=0):
     return y
 
 
-# (model overrides, Stage2 overrides, rows): the one-hot path, the scatter
-# path (K * 2^m = 72 * 128 past SCATTER_COLS), a padded variable axis
-# (10 networks, 8 columns of data) and a split shorter than one chunk
+# (model overrides, Stage2 overrides, rows), named for the JAX package's
+# path: its one-hot path, its scatter path (K * 2^m = 72 * 128, past its
+# 8,192 columns), a padded variable axis (10 networks, 8 columns of data)
+# and a split shorter than one chunk
 CASES = {
     'onehot': (dict(), dict(), ROWS),
     'onehot_parents': (dict(), dict(parents=2), ROWS),
@@ -76,7 +77,7 @@ def test_counts_in_pieces_bit_equal_to_jax(case, chunks, monkeypatch):
                         lambda host, out: sent.append(host.shape) or host)
     j = js2.Stage2(jcfg, chunk=CHUNK, **s2_kw)
     t = ts2.Stage2(tcfg, chunk=CHUNK, device='cpu', **s2_kw)
-    assert t.scatter == j.scatter == (case == 'scatter')
+    assert j.scatter == (case == 'scatter') and t.chunk == j.chunk
     jn1, jn0 = j.counts(p, cb, y)
     tn1, tn0 = t.counts(tp, tcb, y)
     np.testing.assert_array_equal(tn1, jn1)
