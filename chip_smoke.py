@@ -8,8 +8,10 @@ Run from the root of a checkout, with no arguments:
 It builds the port's CUDA kernels (the nearest-code search, with a
 bfloat16 kernel of its own on the tensor cores whose SASS must hold HMMA,
 the Adam update, one launch over a table of leaves, with its
-bfloat16-moment instance, the EMA codebook step, and the reconstruction
-tail's forward and backward pair; one nvcc each, started together) from the sources in the checkout, holds each kernel
+bfloat16-moment instance, the EMA codebook step, the reconstruction
+tail's forward and backward pair, and the masked first encoder layer over
+shared rows; one nvcc each, started together) from the sources in the
+checkout, holds each kernel
 against its
 plain PyTorch version at the shapes of the main paths (timed by CUDA
 events over back-to-back calls, `ms`, and by the profiler's device time of
@@ -393,8 +395,9 @@ def phase_build():
     """Every registered kernel library's build (`ops/kernels.py`), one
     nvcc each, started together. The bfloat16 nearest-code kernel must run
     on the tensor cores: every instantiation's SASS holds HMMA."""
-    from pgmvae_tpu_torch.ops import (cuda_ema, cuda_recon, cuda_vq,
-                                      fused_adam, kernels)
+    from pgmvae_tpu_torch.ops import (cuda_ema, cuda_first_layer,
+                                      cuda_recon, cuda_vq, fused_adam,
+                                      kernels)
 
     def timed(build):
         t0 = time.time()
@@ -432,9 +435,12 @@ def phase_build():
          libraries=[cuda_vq.library_path().name,
                     fused_adam.library_path().name,
                     cuda_ema.library_path().name,
-                    cuda_recon.library_path().name],
+                    cuda_recon.library_path().name,
+                    cuda_first_layer.library_path().name],
          ptxas_ema=_ptxas(cuda_ema.library_path().with_suffix('.log')),
          ptxas_recon=_ptxas(cuda_recon.library_path().with_suffix('.log')),
+         ptxas_first_layer=_ptxas(
+             cuda_first_layer.library_path().with_suffix('.log')),
          ptxas_vq={key: dpad.get(key) for key in (
              '10x_8_4', '10x_4_4', '10x_8_1', '20x_8_1', '20x_4_1',
              '20x_8_4', '30x_8_1', '16_4_1', '24_8_4', '128_4_1')
@@ -1065,6 +1071,236 @@ def phase_kernel_recon():
     return rows
 
 
+# The masked first layer's kernel, (S, F, B, N, O, lo, n_active): bbc's
+# shared rows at 1, 25, 246, 250 and 330 (a one-row request, the quality
+# recipe's batch, bbc-score's 95th-percentile request, batch 250, the test
+# split at once), the packed kdd step (S=4), a mesh_bbc rank's networks
+# (the last of four model ranks over 1,060 networks; 125 rows), and the
+# padded model whole (n_active 1,058 of 1,060) at 33 rows
+FIRST_LAYER_CASES = [(1, 1058, 1, 1058, 111, 0, 1058),
+                     (1, 1058, 25, 1058, 111, 0, 1058),
+                     (1, 1058, 246, 1058, 111, 0, 1058),
+                     (1, 1058, 250, 1058, 111, 0, 1058),
+                     (1, 1058, 330, 1058, 111, 0, 1058),
+                     (4, 64, 32, 64, 50, 0, 64),
+                     (1, 265, 125, 1060, 111, 795, 1060),
+                     (1, 1060, 33, 1060, 111, 0, 1058)]
+FIRST_LAYER_TIMED = 7     # the first cases timed: the main paths' shapes
+FIRST_LAYER_GRAD = ((1, 1058, 250, 1058, 111, 0, 1058),
+                    (4, 64, 32, 64, 50, 0, 64),
+                    (1, 265, 125, 1060, 111, 795, 1060),
+                    (1, 1060, 33, 1060, 111, 0, 1058))
+FIRST_LAYER_KERNEL = 'first_layer_kernel'
+
+
+def _first_layer_case(s, f, b, n, o, lo, na, gen):
+    """(w0, b0, y, seeds) of one case on the card: weights ~ N(0, 0.05^2),
+    biases ~ N(0, 0.1^2), binary rows (30% ones)."""
+    w0 = 0.05 * torch.randn((s * f, n, o), generator=gen, device='cuda')
+    b0 = 0.1 * torch.randn((s * f, 1, o), generator=gen, device='cuda')
+    y = (torch.rand((s, b, n), generator=gen, device='cuda') < 0.3).float()
+    return w0, b0, (y if s > 1 else y[0]), (s if s > 1 else None)
+
+
+def _first_layer64(w0, b0, y, seeds, lo, na):
+    """(the layer in float64, the float64 sums of its terms' magnitudes),
+    network by network in chunks: the masked input of `loo_mask`."""
+    from pgmvae_tpu_torch.ops import cuda_first_layer
+    s = seeds or 1
+    f = w0.shape[0] // s
+    mask = cuda_first_layer.first_layer_mask(w0, y, seeds, lo,
+                                             na).double()
+    rows = y.double().view(s, -1, y.shape[-1])
+    out = torch.empty(w0.shape[0], rows.shape[1], w0.shape[2],
+                      dtype=torch.float64, device='cuda')
+    mag = torch.empty_like(out)
+    for i in range(s):
+        for c in range(0, f, 128):
+            nets = slice(i * f + c, i * f + min(c + 128, f))
+            x = rows[i][None] * mask[c:c + 128]
+            w = w0[nets].double()
+            out[nets] = torch.baddbmm(b0[nets].double(), x, w)
+            mag[nets] = torch.bmm(x.abs(), w.abs())
+    return out, mag
+
+
+def phase_kernel_first_layer():
+    """The masked first layer's kernel against its plain version (the
+    [F, B, N] masked input and `baddbmm`) on the card at FIRST_LAYER_CASES:
+    every output within N 2^-24 of the float64 sum of its terms'
+    magnitudes of the float64 layer (the bound of any float32 order of the
+    sum), a network past n_active exactly its bias, one launch a call.
+    At FIRST_LAYER_GRAD the autograd Function's weight and bias gradients
+    against autograd through the plain version (within B 2^-24 of the
+    float64 sums of their terms' magnitudes), each network's own row and
+    the padding's an exact zero, the device memory that the forward and
+    backward hold past their inputs and results below the [n, B, n] masked
+    input, and
+    the pair captured in a CUDA graph, whose two replays must be bit-equal
+    to the eager call. Times at the first FIRST_LAYER_TIMED cases: the
+    kernel's device time and CUDA events, the plain version's, the
+    library's (`baddbmm` alone on a masked input built before), and the
+    bound, the larger of 2 S B N F O operations at the float32 peak and the
+    weights, rows and output moved once at HBM bandwidth; at bbc batch 250
+    also the forward and backward of a training step, kernel and plain."""
+    from pgmvae_tpu_torch.ops import cuda_first_layer as cfl, kernels
+    gen = torch.Generator(device='cuda').manual_seed(SEED)
+    launched = kernels.counts()
+    rows = {}
+    for i, spec in enumerate(FIRST_LAYER_CASES):
+        s, f, b, n, o, lo, na = spec
+        w0, b0, y, seeds = _first_layer_case(*spec, gen)
+        before = kernels.counts()
+        out = cfl.first_layer(w0, b0, y, seeds, lo, na)
+        torch.cuda.synchronize()
+        assert kernels.since(before) == _launches(first_layer=1), spec
+        plain = cfl.first_layer_plain(w0, b0, y, seeds, lo, na)
+        ref, mag = _first_layer64(w0, b0, y, seeds, lo, na)
+        tol = n * 2.0 ** -24 * mag + 1e-30
+
+        def over(t):
+            return float(((t.double() - ref).abs() / tol).max())
+        gaps = {'kernel': over(out), 'plain': over(plain),
+                'kernel_rel': float((out.double() - ref).abs().max()
+                                    / ref.abs().max()),
+                'plain_rel': float((plain.double() - ref).abs().max()
+                                   / ref.abs().max())}
+        assert gaps['kernel'] <= 1.0 and gaps['plain'] <= 1.0, (spec, gaps)
+        dead = [v for v in range(f) if lo + v >= na]
+        assert all(torch.equal(out[v], b0[v].expand(b, o))
+                   for v in dead), spec
+        row = dict(shape=[s, f, b, n, o], lo=lo, n_active=na, gaps=gaps,
+                   networks_past_n_active=len(dead),
+                   plan=cfl.plan(b)._asdict())
+        del ref, mag, plain
+        if spec in FIRST_LAYER_GRAD:
+            row.update(_first_layer_grad(w0, b0, y, seeds, lo, na, gen))
+        if i < FIRST_LAYER_TIMED:
+            row.update(_first_layer_times(w0, b0, y, seeds, lo, na))
+        rows[spec] = row
+        emit('kernel_first_layer', **row)
+        del w0, b0, y, out
+        torch.cuda.empty_cache()
+    kernels.restore(launched)          # comparison and timing only
+    return rows
+
+
+def _first_layer_grad(w0, b0, y, seeds, lo, na, gen) -> dict:
+    """The Function's gradients against autograd through the plain
+    version, its memory and its graph replays (see the phase)."""
+    from pgmvae_tpu_torch.ops import cuda_first_layer as cfl
+    s, f = seeds or 1, w0.shape[0] // (seeds or 1)
+    b, n, o = y.shape[-2], y.shape[-1], w0.shape[-1]
+    g = torch.randn((s * f, b, o), generator=gen, device='cuda')
+    wk, bk = w0.detach().requires_grad_(), b0.detach().requires_grad_()
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    gw, gb = torch.autograd.grad(cfl.first_layer(wk, bk, y, seeds, lo, na),
+                                 (wk, bk), g)
+    torch.cuda.synchronize()
+    held = torch.cuda.max_memory_allocated() - base
+    # past the output and the two gradients: less than the masked input
+    results = 4 * s * f * (b * o + n * o + o)
+    masked_bytes = 4 * s * f * b * n
+    assert held - results < masked_bytes, (held, results, masked_bytes)
+    wp, bp = w0.detach().requires_grad_(), b0.detach().requires_grad_()
+    pw, pb = torch.autograd.grad(
+        cfl.first_layer_plain(wp, bp, y, seeds, lo, na), (wp, bp), g)
+    mask = cfl.first_layer_mask(w0, y, seeds, lo, na)
+    x = (y.view(s, 1, b, n) * mask).view(s * f, b, n).double()
+    mag_w = torch.bmm(x.transpose(1, 2).abs(), g.double().abs())
+    tol_w = b * 2.0 ** -24 * mag_w + 1e-30
+    ref_w = torch.bmm(x.transpose(1, 2), g.double())
+    del x
+    gap_w = float(((gw.double() - ref_w).abs() / tol_w).max())
+    plain_gap_w = float(((pw.double() - ref_w).abs() / tol_w).max())
+    ref_b = g.double().sum(1, keepdim=True)
+    tol_b = b * 2.0 ** -24 * g.double().abs().sum(1, keepdim=True) + 1e-30
+    gap_b = float(((gb.double() - ref_b).abs() / tol_b).max())
+    assert max(gap_w, plain_gap_w, gap_b) <= 1.0, (gap_w, plain_gap_w, gap_b)
+    nets = gw.view(s, f, n, o)
+    own = nets.diagonal(offset=lo, dim1=1, dim2=2)
+    assert torch.count_nonzero(own) == 0
+    assert torch.count_nonzero(nets[:, :, na:]) == 0
+    assert torch.count_nonzero(nets[:, max(0, na - lo):]) == 0
+    bit_equal = float((gw == pw).double().mean())
+    del ref_w, mag_w, tol_w, pw, pb
+
+    # forward and backward in a CUDA graph: replays bit-equal to eager
+    outs = [torch.empty_like(gw), torch.empty_like(gb)]
+    wg, bg = w0.detach().requires_grad_(), b0.detach().requires_grad_()
+
+    def body():
+        dw, db = torch.autograd.grad(cfl.first_layer(wg, bg, y, seeds, lo,
+                                                     na), (wg, bg), g)
+        outs[0].copy_(dw)
+        outs[1].copy_(db)
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        body()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        body()
+    for _ in range(2):
+        for t in outs:
+            t.fill_(float('nan'))
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(outs[0], gw) and torch.equal(outs[1], gb)
+    del graph, outs
+    return dict(grad_w_gap=gap_w, plain_grad_w_gap=plain_gap_w,
+                grad_b_gap=gap_b, grad_w_bit_equal_share=bit_equal,
+                fwd_bwd_bytes_held=held, masked_input_bytes=masked_bytes)
+
+
+def _first_layer_times(w0, b0, y, seeds, lo, na) -> dict:
+    """Kernel, plain and library times of one case (see the phase)."""
+    from pgmvae_tpu_torch.ops import cuda_first_layer as cfl
+    s, f = seeds or 1, w0.shape[0] // (seeds or 1)
+    b, n, o = y.shape[-2], y.shape[-1], w0.shape[-1]
+    mask = cfl.first_layer_mask(w0, y, seeds, lo, na)
+    x = (y.view(s, 1, b, n) * mask).view(s * f, b, n)
+
+    def kernel():
+        cfl.first_layer(w0, b0, y, seeds, lo, na)
+
+    def plain():
+        cfl.first_layer_plain(w0, b0, y, seeds, lo, na)
+
+    def library():
+        torch.baddbmm(b0, x, w0)
+    flops = 2.0 * s * b * n * f * o
+    nbytes = 4.0 * (s * f * n * o + s * b * n + s * f * b * o)
+    bound_ms = max(flops / FP32_FLOPS, nbytes / HBM_BYTES) * 1e3
+    dev = device_ms(kernel)
+    times = dict(ms=cuda_ms(kernel), device_ms=dev, plain_ms=cuda_ms(plain),
+                 plain_device_ms=device_ms(plain), library_ms=cuda_ms(library),
+                 library_device_ms=device_ms(library), bound_ms=bound_ms,
+                 bound_by='operations' if flops / FP32_FLOPS
+                 > nbytes / HBM_BYTES else 'bytes',
+                 bound_share=bound_ms / dev,
+                 achieved_tflops=flops / (dev * 1e-3) / 1e12)
+    del x
+    if (s, f, b, n) == (1, 1058, 250, 1058):
+        g = torch.randn((f, b, o), device='cuda')
+        wk = w0.detach().requires_grad_()
+        bk = b0.detach().requires_grad_()
+
+        def step(fn):
+            def run():
+                torch.autograd.grad(fn(wk, bk, y, seeds, lo, na), (wk, bk),
+                                    g)
+            return run
+        times.update(
+            fwd_bwd_device_ms=device_ms(step(cfl.first_layer), 5),
+            plain_fwd_bwd_device_ms=device_ms(step(cfl.first_layer_plain),
+                                              5))
+    return times
+
+
 def _bbc_like_splits(n_var: int):
     """Synthetic binary data at bbc's split sizes: independent columns with
     sparse, word-frequency-like rates, made with numpy from SEED."""
@@ -1142,8 +1378,11 @@ def phase_slice():
     # ---- end of the counted run
 
     chunks = sum(-(-y.shape[0] // s2.chunk) for y in splits.values())
-    assert launches == _launches(vq_argmin=2 * (
-        chunks + -(-splits['train'].shape[0] // s2.chunk)) + 3), launches
+    # two stage-2 runs, score and codes; conditional_probability selects
+    # its networks (var_ids), so its search has no first-layer kernel
+    encodes = 2 * (chunks + -(-splits['train'].shape[0] // s2.chunk)) + 2
+    assert launches == _launches(vq_argmin=encodes + 1,
+                                 first_layer=encodes), launches
     assert s2.chunk == s2p.chunk == 32, (s2.chunk, s2p.chunk)
     for name, vals in (('pll', pll), ('pll_parents', pll_p)):
         assert all(np.isfinite(v) and v < 0 for v in vals.values()), (
@@ -1587,7 +1826,8 @@ def phase_train_kdd():
     dist = s2.cpt(state.params, cb, y)
     pll_test = s2.pseudo_log_likelihood(state.params, cb, y_test, dist)
     stage2_seconds = time.time() - t0
-    s2_launches = kernels.counts()['vq_argmin']
+    s2_all = kernels.counts()
+    s2_launches = s2_all['vq_argmin']
     # ---- end of the counted runs
     memory = _memory_since(mark)
 
@@ -1596,7 +1836,7 @@ def phase_train_kdd():
     assert steps == 200 and s2.chunk == 118 and chunks == 55 + 297, (
         steps, s2.chunk, chunks)
     assert launches == _train_launches(cfg, steps, 'pallas'), launches
-    assert s2_launches == chunks, (s2_launches, chunks)
+    assert s2_all == _encodes(chunks), (s2_all, chunks)
     assert all(np.isfinite(list(m)).all() for m in hist), hist
     assert np.isfinite(pll_test) and pll_test < 0, pll_test
     # shared-factor data: the trained state shows in stage 2
@@ -1647,7 +1887,7 @@ def phase_train_kdd():
     profile_run('profile_train_kdd_step',
                 lambda: tr.train_step(state, yb, w), top=10, watch=VQ_NAMES)
     _profile_epoch_graph('profile_train_kdd_epoch_graph', tr, state, y)
-    return ({'train': launches, 'stage2': _launches(vq_argmin=s2_launches)},
+    return ({'train': launches, 'stage2': s2_all},
             max(gap, s2_gap), adam_abs, trained)
 
 
@@ -2093,7 +2333,7 @@ def phase_checkpoint(kdd: dict):
          pll_test=kdd['pll_test'], resume_steps=RESUME_STEPS,
          resume_launches=resume, resume_bit_equal=bit_equal,
          resume_max_rel_gap=gap)
-    return _sum_launches(resume, _launches(vq_argmin=serve_launches))
+    return _sum_launches(resume, _encodes(serve_launches))
 
 
 def phase_cmll_kdd(kdd: dict):
@@ -2398,7 +2638,8 @@ def phase_cli():
         # ---- serving the checkpoint, counted
         kernels.reset()
         scores = PgmModel.from_checkpoint(path).score(y_test)
-        serve_launches = kernels.counts()['vq_argmin']
+        served = kernels.counts()
+        serve_launches = served['vq_argmin']
         # ---- end of the counted run
         sweep = _sweep(tmp)
     for name, r in runs.items():
@@ -2427,9 +2668,9 @@ def phase_cli():
                       dim=10, num_codes=50, quantizer='ema')
 
     def train(n, vq=0):
-        """n train steps of the command line's model and `vq` searches."""
-        return _sum_launches(_train_launches(cfg, n, 'pallas'),
-                             _launches(vq_argmin=vq))
+        """n train steps of the command line's model and `vq` stage-2
+        encodes."""
+        return _sum_launches(_train_launches(cfg, n, 'pallas'), _encodes(vq))
     vq = {name: r['launches']['vq_argmin'] for name, r in runs.items()}
     assert vq['checkpoint_cmll'] - vq['pallas'] == 3000, vq
     assert vq['pallas'] - vq['resume'] == 2 * steps, vq
@@ -2449,16 +2690,24 @@ def phase_cli():
     iso = sweep['isolate']['cell_process']
     assert iso == {'device': 'cuda:0',
                    'launches': train(3 * steps, vq=stage2)}, iso
-    # every kernel but the searches (above), by run
+    # the first layer's kernel: every float32 train step and stage-2 chunk
+    # (the CMLL's Gibbs steps select their networks; bf16 compute trains
+    # without it)
+    assert {name: r['launches']['first_layer']
+            for name, r in runs.items()} == {
+        name: stage2 + (0 if name == 'compute_bf16' else
+                        (1 if name == 'resume' else 3) * steps)
+        for name in runs}, runs
+    # every kernel but the searches and the first layer (above), by run
     for name, r in runs.items():
         want = _train_launches(cfg, (1 if name == 'resume' else 3) * steps,
                                'fused_bf16' if name == 'fused_bf16'
                                else 'pallas')
         want = {k: n for k, n in want.items()
-                if not k.startswith('vq_argmin')}
+                if not k.startswith('vq_argmin') and k != 'first_layer'}
         got = {k: r['launches'][k] for k in want}
         assert got == want, (name, got, want)
-    assert serve_launches == 1, serve_launches
+    assert serve_launches == served['first_layer'] == 1, served
     assert prof_launches == train(steps, vq=vq['resume'] - steps), \
         prof_launches
     np.testing.assert_allclose(scores.mean(),
@@ -2472,6 +2721,7 @@ def phase_cli():
              + prof_launches[k]
              for k in _launches()}
     total['vq_argmin'] += serve_launches
+    total['first_layer'] += served['first_layer']
     return total
 
 
@@ -2555,7 +2805,7 @@ def phase_sweep_kdd(kdd: dict, packed_pll: float):
     stage2 = sum(-(-y.shape[0] // chunk)
                  for y in (rows['train'], *rows.values()))
     assert launches == _sum_launches(_train_launches(tr.cfg, 200, 'pallas'),
-                                     _launches(vq_argmin=4 * stage2)), launches
+                                     _encodes(4 * stage2)), launches
     plls = [r['pll_test'] for r in records]
     assert all(np.isfinite(v) and v < 0 for v in plls), plls
     assert abs(plls[0] - packed_pll) <= 1e-5 * abs(packed_pll), (
@@ -2617,7 +2867,7 @@ def phase_packed_kdd_bf16(kdd: dict, f32_losses: list):
                                                   *rows.values()))
     train = _train_launches(cfg, 200, 'pallas')
     assert cli_launches == _sum_launches(
-        train, _launches(vq_argmin=4 * stage2)), cli_launches
+        train, _encodes(4 * stage2)), cli_launches
     plls = {k: [r[k] for r in records]
             for k in ('pll_train', 'pll_valid', 'pll_test')}
     assert all(np.isfinite(v) and v < 0 for vs in plls.values()
@@ -2890,6 +3140,9 @@ def phase_mesh_bbc():
     assert launches['vq_argmin'] == expect_vq, (launches, expect_vq)
     assert launches['adam'] == expect_adam, (launches, expect_adam)
     assert launches['recon'] == 2 * n_ranks * (1 + steps), launches
+    # each rank's networks from its first (lo), on its rows: one first-layer
+    # kernel a search
+    assert launches['first_layer'] == expect_vq, launches
     # two 'data' ranks: the EMA step is the dense one, all-reduced
     assert launches['ema'] == 0, launches
     emit('mesh_bbc', mesh=list(MESH_BBC), backend=res[0]['backend'],
@@ -3203,11 +3456,17 @@ def phase_sweep_memory() -> dict:
     stage2 = v[0] // 3 - steps
     assert v == [3 * (steps + stage2), steps + 2 * stage2,
                  steps + stage2 + 3000 * 6, 2 * (steps + stage2)], v
-    # every kernel but the searches: the steps of 3, 1, 1 and 2 cells
+    # the first layer's kernel: each search but the CMLL's (its Gibbs
+    # steps select their networks)
+    assert [r['launches']['first_layer'] for r in runs] == [
+        3 * (steps + stage2), steps + 2 * stage2, steps + stage2,
+        2 * (steps + stage2)], runs
+    # every kernel but the searches and the first layer: the steps of 3,
+    # 1, 1 and 2 cells
     for r, cells_run in zip(runs, (3, 1, 1, 2), strict=True):
         want = _train_launches(_kdd_config(), cells_run * steps, 'pallas')
         want = {k: n for k, n in want.items()
-                if not k.startswith('vq_argmin')}
+                if not k.startswith('vq_argmin') and k != 'first_layer'}
         assert {k: r['launches'][k] for k in want} == want, (r, want)
     return _sum_launches(*(r['launches'] for r in runs))
 
@@ -3250,17 +3509,26 @@ def _train_launches(cfg, steps: int, adam_impl: str) -> dict:
     """The launches of `steps` train steps of `cfg`: one nearest-code call
     a step (the bf16 instance under bf16 compute), one Adam launch a
     table of leaves a step (the bf16-moment variant for fused_bf16), one
-    EMA step a step (EMA quantizer) and the reconstruction tail's forward
-    and backward kernels a step."""
+    EMA step a step (EMA quantizer), the reconstruction tail's forward
+    and backward kernels a step, and the masked first layer's kernel a
+    step under float32 compute (one for all packed seeds)."""
     want = _launches()
     if cfg.quantizer == 'ema':
         want['ema'] = steps
     want['recon'] = 2 * steps
+    if cfg.compute_dtype == 'f32' and cfg.first_layer == 'masked':
+        want['first_layer'] = steps
     want['vq_argmin_bf16' if cfg.compute_dtype == 'bf16'
          else 'vq_argmin'] = steps
     want['adam_bf16' if adam_impl == 'fused_bf16' else 'adam'] = (
         steps * _adam_per_step(4 * (len(cfg.units) + 1)))
     return want
+
+
+def _encodes(calls: int) -> dict:
+    """The launches of `calls` float32 encodes of shared rows (stage 2,
+    serving): the first layer's kernel and one nearest-code search each."""
+    return _launches(vq_argmin=calls, first_layer=calls)
 
 
 def _sum_launches(*counts) -> dict:
@@ -3295,7 +3563,7 @@ def phase_bench() -> dict:
     assert head['replays'] == steps - 1, head
     chunk = Stage2(bench.NLTCS_CFG, device='cuda').chunk
     chunks = -(-nltcs.n_train // chunk) + -(-nltcs.n_test // chunk)
-    assert head['stage2_launches'] == _launches(vq_argmin=chunks), head
+    assert head['stage2_launches'] == _encodes(chunks), head
     recorded = [head['launches'], head['stage2_launches']]
     for cell in bench.CELLS:
         rec = line[cell.key]
@@ -3478,7 +3746,7 @@ def phase_stream_big() -> dict:
     s2_memory = _memory_since(mark)
     chunks = -(-rows // s2.chunk)
     assert (s2.chunk, chunks) == (1365, 13_828), (s2.chunk, chunks)
-    assert s2_launches == _launches(vq_argmin=2 * chunks), s2_launches
+    assert s2_launches == _encodes(2 * chunks), s2_launches
     assert s2_memory['allocated_growth_gb'] < half_gb, s2_memory
     (n1, n0), again = counted
     for a, b in zip(again, (n1, n0)):
@@ -3627,7 +3895,7 @@ def phase_cli_big() -> dict:
     chunks = sum(-(-n // chunk) for n, chunk, _ in counted)
     assert launches == _sum_launches(
         _train_launches(_kdd_config(), steps, 'pallas'),
-        _launches(vq_argmin=chunks)), launches
+        _encodes(chunks)), launches
     return launches
 
 
@@ -3646,6 +3914,7 @@ def main() -> int:
     adam_bf16_row = phase_kernel_adam(torch.bfloat16)
     ema_rows = phase_kernel_ema()
     recon_rows = phase_kernel_recon()
+    first_layer_rows = phase_kernel_first_layer()
     launches, slice_err = phase_slice()
     small_err = phase_small_reference()
     train_launches, train_err, train_gap, trained = phase_train()
@@ -3702,8 +3971,17 @@ def main() -> int:
     untrained = ('serving', 'stage2_kdd', 'cmll', 'cmll_kdd')
     assert all(n['recon'] for path, n in by_path.items()
                if path not in untrained), paths['recon']
+    # the first layer's kernel: every float32 encode of shared rows
+    # (training, stage 2, serving); never in a Gibbs step (its networks are
+    # a selection) nor under bf16 compute
+    assert all(by_path[path]['first_layer'] for path in (
+        'serving', 'train', 'train_kdd', 'stage2_kdd', 'packed_kdd',
+        'mesh_bbc', 'bench')), paths['first_layer']
+    assert not any(by_path[path]['first_layer'] for path in (
+        'cmll', 'cmll_kdd', 'train_bf16')), paths['first_layer']
     ema_row = ema_rows[EMA_SHAPES[0]]
     recon_row = recon_rows[tuple(RECON_CASES[1])]
+    first_layer_row = first_layer_rows[FIRST_LAYER_CASES[3]]
     timed = ('ms', 'device_ms', 'plain_ms', 'plain_device_ms',
              'bound_ms', 'bound_by', 'library_ms', 'library_device_ms')
     print(json.dumps({'kernels': [{
@@ -3764,7 +4042,18 @@ def main() -> int:
         **{key: recon_row[key] for key in timed},
         'device_ms_by': DEVICE_TIMER,
         'shape': recon_row['shape'],
-        'cases_compared': [list(spec) for spec in recon_rows]}]}))
+        'cases_compared': [list(spec) for spec in recon_rows]}, {
+        'name': 'first_layer', 'route': 'cuda',
+        'source': 'pgmvae_tpu_torch/ops/csrc/first_layer.cu',
+        'replaces': None,     # the JAX package leaves the product to XLA
+        'launches': sum(paths['first_layer'].values()),
+        'launches_by_path': paths['first_layer'],
+        'max_gap': max(row['gaps']['kernel']
+                       for row in first_layer_rows.values()),
+        **{key: first_layer_row[key] for key in timed},
+        'device_ms_by': DEVICE_TIMER,
+        'shape': first_layer_row['shape'],
+        'cases_compared': [list(spec) for spec in first_layer_rows]}]}))
     print(smi)
     print(json.dumps({'ok': True, 'device': {
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),

@@ -12,7 +12,10 @@ with the codebook `[n, D, K]` beside it (or inside it, as
 Leave-one-out uses the JAX package's padded masked design: every network
 sees the full sample y [B, n_var] with its own variable's input multiplied
 by zero, so the first/last stacked kernels are full [n, n, u] and their
-diagonal rows/columns are inert.
+diagonal rows/columns are inert. On shared float32 rows the first layer
+is one kernel (`ops/cuda_first_layer.py`) that gives the masked input's
+terms without building it: each network's own input is dropped as its
+weights are loaded.
 
 Packed seeds (`seeds=S`): S models stacked on axis 0, every leaf
 [S * n, ...], each with its own batch, y [S, B, n_var]; a layer is still one
@@ -260,6 +263,15 @@ def encode(params, y: torch.Tensor,
             x = _first_layer_rank1(w0.view(seeds, n_var, *w0.shape[1:]),
                                    b0.view(seeds, n_var, *b0.shape[1:]), y,
                                    act).flatten(0, 1)
+        return _dense_stack(params['enc'][1:], x, act)
+    # shared float32 rows: the first layer's kernel drops each network's
+    # own input as it loads the weights (no [n, B, n] masked input)
+    if var_ids is None and (y.dim() == 2 or seeds is not None) and (
+            y.dtype == w0.dtype == torch.float32):
+        # imported here: the wrapper registers its launch counter after the
+        # kernels this module's own imports load (`ops/__init__.py`)
+        from pgmvae_tpu_torch.ops import cuda_first_layer
+        x = act(cuda_first_layer.first_layer(w0, b0, y, seeds, lo))
         return _dense_stack(params['enc'][1:], x, act)
     mask = loo_mask(n_var, rows, y.dtype, device=y.device)
     if seeds is not None:

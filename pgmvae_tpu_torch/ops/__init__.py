@@ -17,4 +17,4 @@ from pgmvae_tpu_torch.ops.initializers import (  # noqa: F401
 )
 # the kernel wrappers register with ops/kernels.py in this order
 from pgmvae_tpu_torch.ops import (  # noqa: F401,E402
-    cuda_vq, fused_adam, cuda_ema, cuda_recon)
+    cuda_vq, fused_adam, cuda_ema, cuda_recon, cuda_first_layer)

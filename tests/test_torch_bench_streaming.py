@@ -118,8 +118,8 @@ def test_main_streams_on_the_cpu(tmp_path, monkeypatch, capsys):
     assert np.isfinite(line['loss']) and line['stream_sps'] > 0
     assert line['peak_gb_streamed'] is None and line['capture_ms'] is None
     assert line['launches'] == dict.fromkeys(
-        ('vq_argmin', 'vq_argmin_bf16', 'adam', 'adam_bf16', 'ema', 'recon'),
-        0)
+        ('vq_argmin', 'vq_argmin_bf16', 'adam', 'adam_bf16', 'ema', 'recon',
+         'first_layer'), 0)
 
 
 def test_streamed_run_is_the_in_core_fit(monkeypatch):

@@ -164,7 +164,7 @@ def test_isolated_cells_run_in_cell_runner_processes(tmp_path):
     # versions on the CPU: no kernel launch)
     assert all(r['cell_process'] == {'device': 'cpu', 'launches': {
         'vq_argmin': 0, 'vq_argmin_bf16': 0, 'adam': 0, 'adam_bf16': 0,
-        'ema': 0, 'recon': 0}}
+        'ema': 0, 'recon': 0, 'first_layer': 0}}
         for r in recs)
 
 
@@ -189,7 +189,7 @@ def test_mesh_cells_fail_with_their_roadmap_item(tmp_path):
         assert r['mesh']['devices'] == ['cpu', 'cpu']
         assert r['mesh']['launches'] == {
             'vq_argmin': 0, 'vq_argmin_bf16': 0, 'adam': 0, 'adam_bf16': 0,
-            'ema': 0, 'recon': 0}
+            'ema': 0, 'recon': 0, 'first_layer': 0}
         np.testing.assert_allclose(r['pll_test'], one['pll_test'],
                                    rtol=1e-6)
 
